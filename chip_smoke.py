@@ -1,27 +1,59 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py        # from the repository root, on a machine with one card
 
 Phases (any failure raises and exits non-zero):
   1. device    the card's name and power limit (nvidia-smi); fails without CUDA
-  2. build     every CUDA source of the port, compiled by nvcc for sm_90a
-  3. kernels   each kernel against its plain PyTorch version on the card
-               (d=64, M=20000, B in {1, 8, 64, 512}, k in {10, 20, 128},
-               with and without mask and sigmoid):
+  2. build     every CUDA source of the port, compiled by nvcc for sm_90a, one
+               nvcc per source, all started together
+  3. kernels   each kernel against its plain PyTorch version on the card.
+               masked_topk (d=64, M=20000, B in {1, 8, 64, 512}, k in
+               {10, 20, 128}, with and without mask and sigmoid):
                (a) exact inputs (multiples of 1/8, duplicated items, one row
                    masked so densely that -1024 entries rank): ids and values equal
                (b) Gaussian inputs: values within rtol 1e-5 / atol 1e-6; ids equal
                    wherever the plain version's neighbouring values differ by
                    more than 1e-5 relative, the value multiset elsewhere
+               scatter_add_rows ((N, R, D) = (50000, 8192, 64) and
+               (20000, 16384, 64), the bench step's user and item gathers;
+               R = 999; R = 0; one id 5,000 times; ids out of range, D = 50):
+               (a) exact inputs (multiples of 1/8): bit-equal
+               (b) Gaussian inputs: within 1e-5 + 1e-5 * (the sum of the
+                   magnitudes added into the element): only the order of the
+                   float32 sums differs, and with atomics it changes from run
+                   to run
+               the first call runs under torch.cuda.set_sync_debug_mode("error"):
+               the wrapper never waits for the card
   4. serve     lgn, d=64, L=2, bfloat16 SpMM, on synthetic_dataset(50000 users,
                20000 items, avg degree 30, seed 0), random 0.1 * N(0, 1)
                parameters: Recommender on the card, requests of 1 / 8 / 64 / 512
                users at k = 10 and 20 and over HTTP, each answer held against
                the plain version under rule 3(b); propagation held against a
                float64 CPU propagation on the same rounded inputs
-  5. numbers   one JSON line of kernels (time, plain time, library time,
-               bound, launches on the serve path), then the serve timings
+  5. numbers   the serve path's timings (printed at the end)
+  6. train     Trainer for lgn, d=64, L=2, bfloat16 SpMM, B=8192, lr 1e-3 on the
+               same graph: test(), one warm-up epoch, two timed epochs,
+               test(); the scatter kernel launched at least once per step and
+               masked_topk once per evaluation tile; the loss of the last
+               epoch below the first's; recall@20 above its value at
+               initialisation
+  7. card/CPU  two steps on the card and two on the CPU (plain versions) from
+               the same parameters on the same batches (sampled on the card):
+               losses within rtol 1e-5 (step 1) and 1e-4 (step 2); after two
+               steps every parameter within 4 * lr, and all but 1e-3 of them
+               within 1e-6 + 1e-5 * |p| (Adam's first steps are +-lr where a
+               gradient is within rounding of 0, so a sign there may differ);
+               one evaluation of the trained tables through masked_topk and
+               through masked_topk_reference on the card: ids equal where
+               neighbouring values differ by more than 1e-5 relative, metric
+               sums equal (bit-equal when every id is)
+  8. numbers   one JSON line of kernels (time, plain time, library time,
+               bound, launches on the main paths), the serve line, and the
+               train line (samples/s, the step split by torch.profiler into
+               SpMM forward / backward, scatter, gather, sampler, Adam and
+               the rest, the evaluation, and the card's idle share)
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -34,18 +66,25 @@ import sys
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
 
 from furusato_recommend_tpu_torch.config import Config
+from furusato_recommend_tpu_torch.convert import params_from_jax, params_to_numpy
 from furusato_recommend_tpu_torch.data import synthetic_dataset
 from furusato_recommend_tpu_torch.data.graph import CSR
+from furusato_recommend_tpu_torch.eval.metrics import batch_metric_sums
 from furusato_recommend_tpu_torch.models.registry import build_model
+from furusato_recommend_tpu_torch.obs.log import MetricLogger
 from furusato_recommend_tpu_torch.ops import _cuda
+from furusato_recommend_tpu_torch.ops import scatter as sc
 from furusato_recommend_tpu_torch.ops import streaming_topk as st
 from furusato_recommend_tpu_torch.ops.csr_search import csr_gather_padded
+from furusato_recommend_tpu_torch.sampling.bpr import sample_bpr
 from furusato_recommend_tpu_torch.serve import Recommender, make_server
+from furusato_recommend_tpu_torch.train.trainer import Trainer
 
 SEED = 0
 D, M_KERNEL, N_KERNEL = 64, 20000, 600
@@ -55,6 +94,23 @@ TILES = (1, 8, 64, 512)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 RTOL, ATOL, TIE_RTOL = 1e-5, 1e-6, 1e-5
+# the bench.py training step: B = 8192 triplets gather 8192 user rows and
+# 16384 item rows (positives and negatives in one gather)
+TRAIN_B, TRAIN_LR = 8192, 1e-3
+SCATTER_SHAPES = ((50_000, 8_192), (20_000, 16_384))  # (N, R) at D = 64
+SC_TOL = 1e-5
+# profiler ranges (ops/segment.py, ops/scatter.py, sampling/bpr.py,
+# eval/evaluate.py, torch.optim's own) and the step part each one names
+RANGES = {
+    "spmm_fwd": "spmm_fwd", "spmm_bwd": "spmm_bwd", "table_gather": "gather",
+    "scatter_add_rows": "scatter", "sample_bpr": "sampler", "evaluate": "eval",
+    "Optimizer.step#Adam.step": "adam",
+}
+# the port's kernels, launched through ctypes outside any torch operation
+OWN_KERNELS = {
+    "scatter_add_rows_kernel": "scatter", "score_segments": "masked_topk",
+    "merge_segments": "masked_topk",
+}
 
 
 def log(*a):
@@ -165,6 +221,10 @@ def host_ms(fn, reps=20, warmup=3) -> float:
     return float(np.median(times))
 
 
+def _is_range(e) -> bool:
+    return bool(getattr(e, "is_user_annotation", False)) or e.name in RANGES
+
+
 def device_profile(fn, n=20):
     """torch.profiler over n calls of fn: device time per call by kernel name
     (ms), all device time per call, and the share of the window's wall time
@@ -182,7 +242,8 @@ def device_profile(fn, n=20):
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # the port's profiler ranges also show as spans on the card: not work
+        if e.device_type == torch.autograd.DeviceType.CUDA and not _is_range(e):
             name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:48]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     if not by_name:
@@ -193,6 +254,296 @@ def device_profile(fn, n=20):
         "device_ms": busy / n / 1e3,
         "idle_share": 1.0 - busy / wall_us,
     }
+
+
+def scatter_cases(dev) -> float:
+    """Phase 3, scatter_add_rows: the kernel against its plain version;
+    returns the max abs error of the Gaussian cases."""
+    rng = np.random.default_rng(SEED + 1)
+    cases = [(n, rng.integers(0, n, r), D) for n, r in SCATTER_SHAPES]
+    cases += [
+        (1000, rng.integers(0, 1000, 999), D),  # R not a multiple of 32
+        (500, np.zeros(0, np.int64), D),  # no rows: a zero table
+        (100, np.concatenate([np.full(5000, 7), rng.integers(0, 100, 300)]), D),  # a hub
+        (300, np.concatenate([rng.integers(0, 300, 2000), [-3, 300, 10**6]]), 50),  # clamped
+    ]
+    max_err, n_cases = 0.0, 0
+    for n, ids, d in cases:
+        ids_t = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        for exact in (True, False):
+            if exact:
+                rows = (rng.integers(-8, 9, (len(ids), d)) / 8).astype(np.float32)
+            else:
+                rows = rng.standard_normal((len(ids), d)).astype(np.float32)
+            rows_t = torch.from_numpy(rows).to(dev)
+            before = sc.launches
+            if n_cases == 0:
+                torch.cuda.set_sync_debug_mode("error")  # raises on a host sync
+                try:
+                    got = sc.scatter_add_rows(ids_t, rows_t, n)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            else:
+                got = sc.scatter_add_rows(ids_t, rows_t, n)
+            want = sc.scatter_add_rows_reference(ids_t, rows_t, n)
+            mag = sc.scatter_add_rows_reference(ids_t, rows_t.abs(), n)
+            torch.cuda.synchronize()
+            assert sc.launches == before + 1, "scatter_add_rows did not launch its kernel"
+            got, want, mag = (x.cpu().numpy() for x in (got, want, mag))
+            assert got.shape == (n, d)
+            if exact:
+                np.testing.assert_array_equal(got, want)
+            else:
+                err = np.abs(got - want)
+                assert (err <= SC_TOL + SC_TOL * mag).all(), f"scatter N={n} R={len(ids)}: {err.max()}"
+                max_err = max(max_err, float(err.max(initial=0.0)))
+            n_cases += 1
+    log(f"scatter: {n_cases} cases equal to the plain version (exact cases bit-equal, "
+        f"max abs err {max_err:.3g}); no host sync in the wrapper")
+    return max_err
+
+
+def _own_kernel(name: str):
+    return next((part for key, part in OWN_KERNELS.items() if key in name), None)
+
+
+def _step_part(e) -> str:
+    """The step part of a profiler CPU event: the innermost port range
+    around it (RANGES), else "other"."""
+    while e is not None:
+        if e.name in RANGES:
+            return RANGES[e.name]
+        e = e.cpu_parent
+    return "other"
+
+
+def split_profile(fn, n):
+    """torch.profiler over n calls of fn: device time per call split into
+    step parts (the port's own kernels by name, every other kernel by the
+    port range around the torch operation that launched it; "unattributed"
+    is what the profiler ties to no operation), all device time and the
+    number of device operations per call, and the share of the window's
+    wall time with nothing running on the card (the profiler's own overhead
+    counts as idle). None when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    split, device_us, n_device = {}, 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if not _is_range(e):
+                us = e.time_range.elapsed_us()
+                device_us += us
+                n_device += 1
+                part = _own_kernel(e.name)
+                if part is not None:
+                    split[part] = split.get(part, 0.0) + us
+        elif e.kernels:
+            spent = sum(k.duration for k in e.kernels
+                        if k.name not in RANGES and _own_kernel(k.name) is None)
+            if spent:
+                part = _step_part(e)
+                split[part] = split.get(part, 0.0) + spent
+    split["unattributed"] = device_us - sum(split.values())
+    if device_us == 0.0:
+        return None
+    return {
+        "split_ms": {k: v / n / 1e3 for k, v in sorted(split.items(), key=lambda x: -x[1])},
+        "device_ms": device_us / n / 1e3,
+        "device_ops_per_call": n_device / n,  # kernels, copies and fills
+        "wall_ms": wall_us / n / 1e3,
+        "idle_share": 1.0 - device_us / wall_us,
+    }
+
+
+def host_syncs(fn) -> list:
+    """The messages of torch's sync debug mode while fn runs: one per
+    operation that made the host wait for the card."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+
+
+def train_config() -> Config:
+    return Config(
+        model="lgn", latent_dim=D, n_layers=2, compute_dtype="bfloat16",
+        bpr_batch_size=TRAIN_B, lr=TRAIN_LR, seed=SEED, topks=(10, 20), eval_user_batch=1024,
+    )
+
+
+def train_path(ds, dev):
+    """Phase 6: the trainer on the card; returns (trainer, facts)."""
+    cfg = train_config()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, ds, build_model("lgn", cfg, ds.graph),
+                      logger=MetricLogger(quiet=True), device=dev)
+    trainer.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_tiles = int(trainer.eval_data.users.shape[0])
+
+    sc.launches = st.launches = 0
+    t0 = time.perf_counter()
+    before = trainer.test()
+    first_eval_s = time.perf_counter() - t0
+    losses, epoch_s = [], []
+    for _ in range(3):  # one warm-up epoch, then two timed ones
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_one_epoch())  # ends in the epoch's one host sync
+        epoch_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    after = trainer.test()
+    eval_s = time.perf_counter() - t0
+    launches = {"scatter_add_rows": sc.launches, "masked_topk": st.launches}
+
+    steps = 3 * trainer.num_batches
+    assert launches["scatter_add_rows"] >= steps, f"scatter launched {launches} in {steps} steps"
+    assert launches["masked_topk"] == 2 * n_tiles, f"masked_topk launched {launches} for {n_tiles} tiles"
+    for res in (before, after):
+        assert all(np.isfinite(v) for v in res.values()), res
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], f"loss did not fall: {losses}"
+    assert after["recall@20"] > before["recall@20"], (before["recall@20"], after["recall@20"])
+    log(f"train: {steps} steps of {trainer.samples_per_epoch // trainer.num_batches} triplets, "
+        f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, recall@20 {before['recall@20']:.5f} -> "
+        f"{after['recall@20']:.5f}; scatter launches {launches['scatter_add_rows']} "
+        f"({launches['scatter_add_rows'] / steps:g} per step), masked_topk launches "
+        f"{launches['masked_topk']} ({n_tiles} tiles per evaluation)")
+    return trainer, {
+        "steps_per_epoch": trainer.num_batches,
+        "samples_per_epoch": trainer.samples_per_epoch,
+        "epoch_s": epoch_s,
+        "samples_per_s": trainer.samples_per_epoch / float(np.mean(epoch_s[1:])),
+        "step_ms": 1e3 * float(np.mean(epoch_s[1:])) / trainer.num_batches,
+        "loss": losses,
+        "recall@20": [before["recall@20"], after["recall@20"]],
+        "ndcg@20": [before["ndcg@20"], after["ndcg@20"]],
+        "eval_s": eval_s,
+        "first_eval_s": first_eval_s,
+        "setup_s": setup_s,
+        "eval_tiles": n_tiles,
+        "launches": launches,
+        "scatter_launches_per_step": launches["scatter_add_rows"] / steps,
+    }
+
+
+def card_vs_cpu(ds, trainer) -> dict:
+    """Phase 7, first half: two steps on the card and on the CPU."""
+    cfg = trainer.config
+    rng = np.random.default_rng(SEED + 2)
+    params = {
+        "user_emb": (0.1 * rng.standard_normal((ds.n_users, D))).astype(np.float32),
+        "item_emb": (0.1 * rng.standard_normal((ds.m_items, D))).astype(np.float32),
+    }
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 2)
+    batches = sample_bpr(gen, trainer.graph, 2 * TRAIN_B, cfg.neg_candidates)
+    out = {}
+    for name, dev, graph in (("card", trainer.device, trainer.graph),
+                             ("cpu", torch.device("cpu"), ds.graph)):
+        model = build_model("lgn", cfg, ds.graph)
+        params_from_jax(params, model)
+        model.to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+        losses = []
+        for step in range(2):
+            batch = batches.slice(step * TRAIN_B, (step + 1) * TRAIN_B).to(dev)
+            opt.zero_grad(set_to_none=True)
+            loss, _ = model.loss(graph, batch)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        out[name] = (params_to_numpy(model), losses)
+    (pc, lc), (pp, lp) = out["card"], out["cpu"]
+    np.testing.assert_allclose(lc[0], lp[0], rtol=1e-5)
+    np.testing.assert_allclose(lc[1], lp[1], rtol=1e-4)
+    worst, off = 0.0, 0
+    total = 0
+    for k in pp:
+        diff = np.abs(pc[k] - pp[k])
+        assert (diff <= 4 * cfg.lr).all(), f"{k}: {diff.max()}"
+        off += int((diff > 1e-6 + 1e-5 * np.abs(pp[k])).sum())
+        total += diff.size
+        worst = max(worst, float(diff.max()))
+    assert off <= 1e-3 * total, f"{off} of {total} parameters differ"
+    log(f"card vs CPU: losses {lc} / {lp}; parameters within 1e-6 + 1e-5 |p| but "
+        f"{off} of {total} (max abs diff {worst:.3g})")
+    return {"losses_card": lc, "losses_cpu": lp, "params_off": off, "params_total": total,
+            "max_abs_diff": worst}
+
+
+def eval_kernel_vs_plain(trainer) -> dict:
+    """Phase 7, second half: one evaluation through the kernel and through
+    its plain version on the card."""
+    g, data, cfg = trainer.graph, trainer.eval_data, trainer.config
+    with torch.no_grad():
+        U, I = trainer.model.propagate(g)
+    U, I = U.float().contiguous(), I.float().contiguous()
+    kmax = max(cfg.topks)
+    sums = {"kernel": None, "plain": None}
+    moved = 0
+    for users, valid in zip(data.users, data.valid):
+        kv, ki = st.masked_topk(U, I, users, kmax, g.user_pos.indptr, g.user_pos.indices)
+        rv, ri = st.masked_topk_reference(U, I, users, kmax, g.user_pos.indptr, g.user_pos.indices)
+        compare(kv, ki, rv, ri, exact=False)
+        moved += int((ki != ri).sum())
+        for name, ids in (("kernel", ki), ("plain", ri)):
+            b = batch_metric_sums(
+                ids, users, valid, g.test_pos, cfg.topks, None, data.item_popularity,
+                n_users_norm=float(g.n_users), max_test_degree=g.max_test_degree or None,
+            )
+            sums[name] = b if sums[name] is None else {k: sums[name][k] + v for k, v in b.items()}
+    for k in sums["plain"]:
+        a, b = sums["kernel"][k].cpu().numpy(), sums["plain"][k].cpu().numpy()
+        if moved == 0:
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        else:  # ids swapped only inside near-ties (checked above)
+            np.testing.assert_allclose(a, b, rtol=1e-3, err_msg=k)
+    log(f"evaluation: metric sums through masked_topk equal to the plain version's "
+        f"({moved} ids in near-ties placed otherwise)")
+    return {"ids_moved_in_ties": moved}
+
+
+def scatter_numbers(trainer, dev) -> list:
+    """Phase 8: scatter_add_rows at the bench step's two shapes, on the ids
+    of a sampled batch."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    batch = sample_bpr(gen, trainer.graph, TRAIN_B, trainer.config.neg_candidates)
+    rows_gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    out = []
+    for (n, r), ids in zip(SCATTER_SHAPES, (batch.user, torch.cat([batch.pos, batch.neg]))):
+        assert ids.shape[0] == r
+        rows = torch.randn((r, D), generator=rows_gen, device=dev)
+        ids_long = ids.long()
+        t_bytes = 4 * r * (D + 1) / HBM_BYTES_PER_S + 4 * n * D / HBM_BYTES_PER_S
+        t_flops = r * D / F32_FLOP_PER_S
+
+        def library():
+            return torch.zeros((n, D), device=dev).index_add_(0, ids_long, rows)
+
+        out.append({
+            "N": n, "R": r, "D": D,
+            "ms": event_ms(lambda: sc.scatter_add_rows(ids, rows, n)),
+            "plain_ms": event_ms(lambda: sc.scatter_add_rows_reference(ids, rows, n)),
+            "library_ms": event_ms(library),
+            "bound_ms": 1e3 * max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "distinct_ids": int(torch.unique(ids).numel()),
+            "kernel_profile": device_profile(lambda: sc.scatter_add_rows(ids, rows, n)),
+            "library_profile": device_profile(library),
+        })
+    return out
 
 
 def main() -> int:
@@ -219,6 +570,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     max_err = kernel_cases(dev)
+    sc_max_err = scatter_cases(dev)
 
     # 4. the serve path at full width
     t0 = time.perf_counter()
@@ -238,7 +590,7 @@ def main() -> int:
         for b in TILES
     }
 
-    st.launches = 0
+    st.launches = sc.launches = 0
     t0 = time.perf_counter()
     rec = Recommender(model, ds, cfg, params, device="cuda")
     torch.cuda.synchronize()
@@ -267,6 +619,7 @@ def main() -> int:
         srv.server_close()
         th.join(timeout=60)
     serve_launches = st.launches
+    assert sc.launches == 0, "the serve path launched the scatter kernel"
     assert not th.is_alive()
     n_requests = len(answers) + 2
     log(f"serve: {n_requests} requests, {serve_launches} kernel launches")
@@ -331,12 +684,41 @@ def main() -> int:
                 "request_profile": device_profile(lambda: rec.recommend(request_users[b], k=k)),
             })
     head = next(t for t in tiles if t["B"] == 512 and t["k"] == 20)
+
+    # 6. the training path at full width
+    trainer, train = train_path(ds, dev)
+
+    # 7. the card against the CPU, and the evaluation against the plain top-k
+    train["card_vs_cpu"] = card_vs_cpu(ds, trainer)
+    train["eval_vs_plain"] = eval_kernel_vs_plain(trainer)
+
+    # 8. numbers
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    batch = sample_bpr(gen, trainer.graph, TRAIN_B, trainer.config.neg_candidates)
+    train["host_syncs_per_step"] = host_syncs(lambda: trainer.train_step(batch))
+    train["host_syncs_sampler"] = host_syncs(
+        lambda: sample_bpr(gen, trainer.graph, trainer.samples_per_epoch,
+                           trainer.config.neg_candidates))
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    train["step_profile"] = split_profile(lambda: trainer.train_step(batch), n=20)
+    train["sampler_profile"] = split_profile(
+        lambda: sample_bpr(gen, trainer.graph, trainer.samples_per_epoch,
+                           trainer.config.neg_candidates), n=1)
+    train["eval_profile"] = split_profile(trainer.test, n=1)
+    if train["step_profile"] is not None:
+        # the device's idle share of an unprofiled step: its device time
+        # against the step's wall time in the timed epochs
+        train["idle_share_unprofiled"] = 1.0 - train["step_profile"]["device_ms"] / train["step_ms"]
+    sc_shapes = scatter_numbers(trainer, dev)
+    sc_head = sc_shapes[0]
     kernels = [{
         "name": "masked_topk",
         "route": "cuda",
         "source": "furusato_recommend_tpu_torch/csrc/streaming_topk.cu",
         "replaces": "furusato_recommend_tpu/ops/pallas_topk.py:152",
-        "launches": serve_launches,
+        "launches": serve_launches + train["launches"]["masked_topk"],
+        "launches_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"]},
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -345,6 +727,22 @@ def main() -> int:
         "library_ms": head["library_ms"],
         "at": {"B": 512, "k": 20, "M": ds.m_items, "d": D},
         "tiles": tiles,
+    }, {
+        "name": "scatter_add_rows",
+        "route": "cuda",
+        "source": "furusato_recommend_tpu_torch/csrc/scatter_add_rows.cu",
+        "replaces": "furusato_recommend_tpu/ops/pallas_scatter.py:97",
+        "launches": train["launches"]["scatter_add_rows"],
+        "launches_by_path": {"serve": 0, "train": train["launches"]["scatter_add_rows"]},
+        "launches_per_step": train["scatter_launches_per_step"],
+        "max_abs_err": sc_max_err,
+        "ms": sc_head["ms"],
+        "plain_ms": sc_head["plain_ms"],
+        "bound_ms": sc_head["bound_ms"],
+        "bound_by": sc_head["bound_by"],
+        "library_ms": sc_head["library_ms"],
+        "at": {"N": sc_head["N"], "R": sc_head["R"], "D": D},
+        "shapes": sc_shapes,
     }]
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -353,6 +751,10 @@ def main() -> int:
                   "propagate_profile": propagate_profile,
                   "request_ms": {f"B{t['B']}_k{t['k']}": t["request_ms"] for t in tiles}}
     }))
+    log(json.dumps({"train": {
+        "model": "lgn", "d": D, "layers": 2, "B": TRAIN_B, "lr": TRAIN_LR,
+        "compute_dtype": "bfloat16", "users": ds.n_users, "items": ds.m_items,
+        "train_edges": ds.train_size, **train}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -126,6 +126,13 @@ class Dataset:
         bounds = np.searchsorted(u_sorted, np.arange(self.n_users + 1))
         return [i_sorted[bounds[u] : bounds[u + 1]] for u in range(self.n_users)]
 
+    def item_occurrence(self) -> np.ndarray:
+        """Per-item train interaction counts."""
+        return np.bincount(self.train_item, minlength=self.m_items)
+
+    def sparsity(self) -> float:
+        return (self.train_size + self.test_size) / (self.n_users * self.m_items)
+
     def test_dict(self) -> Dict[int, np.ndarray]:
         """user -> test items, for users that have any."""
         order = np.argsort(self.test_user, kind="stable")

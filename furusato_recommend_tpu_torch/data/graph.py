@@ -8,8 +8,10 @@
 
 Host construction is numpy, in exactly the JAX package's order
 (``np.lexsort`` / stable ``argsort``), so every integer array is equal to the
-reference's. The degree-bucketed padded adjacencies, the cuckoo membership set
-and the relational message graphs of the JAX ``BipartiteGraph`` are not ported.
+reference's. ``pos_hash`` is the cuckoo membership set over the train pairs
+(``ops/cuckoo.py``), the sampler's negative-rejection test. The degree-bucketed
+padded adjacencies and the relational message graphs of the JAX
+``BipartiteGraph`` are not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..ops.cuckoo import CuckooSet, build_cuckoo_set
 
 __all__ = ["CSR", "COOEdges", "BipartiteGraph", "build_bipartite_graph"]
 
@@ -79,6 +83,8 @@ class BipartiteGraph:
     item_edge_perm: Optional[torch.Tensor] = None
     #: [nnz] user id of each user_pos entry
     user_pos_row: Optional[torch.Tensor] = None
+    #: cuckoo membership set over the train (user, item) pairs
+    pos_hash: Optional[CuckooSet] = None
     max_user_degree: int = 0
     max_test_degree: int = 0
 
@@ -108,6 +114,7 @@ class BipartiteGraph:
             norm_edges=self.norm_edges.to(device),
             item_edge_perm=move(self.item_edge_perm),
             user_pos_row=move(self.user_pos_row),
+            pos_hash=move(self.pos_hash),
         )
 
 
@@ -172,6 +179,7 @@ def build_bipartite_graph(
             t(src.astype(np.int32)), t(dst.astype(np.int32)), t(weight)
         ),
         item_edge_perm=t(item_edge_perm),
+        pos_hash=build_cuckoo_set(train_user, train_item),
         user_pos_row=t(
             np.repeat(np.arange(n_users, dtype=np.int32), up_indptr[1:] - up_indptr[:-1])
         ),

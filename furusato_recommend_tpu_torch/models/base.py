@@ -1,27 +1,84 @@
-"""Model interface (port of ``models/base.py``).
+"""Model interface and the pairwise losses (port of ``models/base.py``).
 
 A model is an ``nn.Module`` that holds its parameters and exposes
 
-- ``propagate(graph) -> (U, I)``: full-graph user / item embeddings, the
-  serving and full-catalog evaluation path;
-- ``score_users(graph, users) -> [B, M]`` full-catalog scores.
+- ``propagate(graph, generator=None) -> (U, I)``: full-graph user / item
+  embeddings, the serving and full-catalog evaluation path (a generator turns
+  on the training-time randomness, such as edge dropout, where a model has it);
+- ``score_users(graph, users) -> [B, M]`` full-catalog scores;
+- ``loss(graph, batch, generator=None) -> (total, {"bpr", "reg"})``: the
+  training objective on a ``BPRBatch``.
 
-The losses of the JAX base module belong to the training path and are not
-ported yet.
+Every batch row reaches a table through ``ops/scatter.py::table_gather``, so the
+table gradients run the scatter-add kernel on the card. The optimizer lives in
+the trainer.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
 from ..data.graph import BipartiteGraph
+from ..ops.scatter import table_gather
 
-__all__ = ["PairwiseModel"]
+__all__ = [
+    "PairwiseModel",
+    "bpr_loss_from_scores",
+    "infonce_in_batch",
+    "l2_ego",
+    "l2_params",
+]
+
+
+def _weighted_mean(per: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    w = valid.to(per.dtype)
+    return torch.sum(per * w) / torch.clamp_min(torch.sum(w), 1.0)
+
+
+def bpr_loss_from_scores(pos_scores, neg_scores, valid) -> torch.Tensor:
+    """mean softplus(neg - pos) over valid rows."""
+    return _weighted_mean(F.softplus(neg_scores - pos_scores), valid)
+
+
+def infonce_in_batch(u_emb, p_emb, valid, temperature: float) -> torch.Tensor:
+    """In-batch sampled softmax: every other row's positive is a negative,
+    -log softmax(u_i . p_i / tau | {u_i . p_j}_j); invalid columns dropped."""
+    logits = (u_emb @ p_emb.T) / temperature
+    mask = valid.to(logits.dtype)
+    logits = logits + torch.log(torch.clamp_min(mask, 1e-30))[None, :]
+    per = -torch.log_softmax(logits, dim=1)
+    return _weighted_mean(torch.diagonal(per), valid)
+
+
+def l2_ego(u_emb, p_emb, n_emb, valid) -> torch.Tensor:
+    """(1/2)(|u|^2 + |p|^2 + |n|^2) / B over valid rows."""
+    w = valid.to(u_emb.dtype)[:, None]
+    sq = (
+        torch.sum((u_emb * w) * u_emb)
+        + torch.sum((p_emb * w) * p_emb)
+        + torch.sum((n_emb * w) * n_emb)
+    )
+    return 0.5 * sq / torch.clamp_min(torch.sum(w), 1.0)
+
+
+def l2_params(params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """(1/2) sum of squares of every floating-point parameter."""
+    return 0.5 * sum(torch.sum(torch.square(p)) for p in params if p.is_floating_point())
+
+
+def gather_batch_rows(user_emb, item_emb, batch):
+    """(u, p, n) rows of a batch through ``table_gather``: one gather from the
+    user table and one from the item table for positives and negatives."""
+    b = batch.user.shape[0]
+    u = table_gather(user_emb, batch.user)
+    pn = table_gather(item_emb, torch.cat([batch.pos, batch.neg]))
+    return u, pn[:b], pn[b:]
 
 
 class PairwiseModel(nn.Module):
@@ -45,21 +102,32 @@ class PairwiseModel(nn.Module):
         pretrained: Optional[Tuple[np.ndarray, np.ndarray]],
         generator: Optional[torch.Generator],
     ) -> None:
-        """``user_emb`` [N, d] and ``item_emb`` [M, d] parameters: copies of
-        ``pretrained`` when given, else std * N(0, 1) drawn from ``generator``
-        (default: a CPU generator seeded with config.seed)."""
+        """``user_emb`` [N, d] and ``item_emb`` [M, d] parameters."""
+        self._init_std = std
+        self._pretrained = pretrained
         d = self.config.latent_dim
-        if pretrained is not None:
-            u, i = (torch.as_tensor(np.asarray(a), dtype=torch.float32) for a in pretrained)
+        self.user_emb = nn.Parameter(torch.empty(self.n_users, d))
+        self.item_emb = nn.Parameter(torch.empty(self.m_items, d))
+        self.init_parameters(generator)
+
+    def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Set the tables in place: copies of the pretrained arrays when the
+        model has them, else std * N(0, 1) drawn on the CPU from ``generator``
+        (default: seeded with config.seed), users first."""
+        if self._pretrained is not None:
+            u, i = (torch.as_tensor(np.asarray(a), dtype=torch.float32) for a in self._pretrained)
         else:
             if generator is None:
                 generator = torch.Generator().manual_seed(self.config.seed)
-            u = std * torch.randn(self.n_users, d, generator=generator)
-            i = std * torch.randn(self.m_items, d, generator=generator)
-        self.user_emb = nn.Parameter(u.clone())
-        self.item_emb = nn.Parameter(i.clone())
+            u = self._init_std * torch.randn(self.n_users, self.user_emb.shape[1], generator=generator)
+            i = self._init_std * torch.randn(self.m_items, self.item_emb.shape[1], generator=generator)
+        with torch.no_grad():
+            self.user_emb.copy_(u)
+            self.item_emb.copy_(i)
 
-    def propagate(self, graph: BipartiteGraph) -> Tuple[torch.Tensor, torch.Tensor]:
+    def propagate(
+        self, graph: BipartiteGraph, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
     def score_users(self, graph: BipartiteGraph, users: torch.Tensor) -> torch.Tensor:
@@ -67,3 +135,23 @@ class PairwiseModel(nn.Module):
         user_emb, item_emb = self.propagate(graph)
         s = user_emb[users] @ item_emb.T
         return torch.sigmoid(s) if self.score_sigmoid else s
+
+    def main_loss(self, u, p, n, valid) -> torch.Tensor:
+        """BPR or in-batch InfoNCE, per config.loss_fn."""
+        if self.config.loss_fn == "infonce":
+            return infonce_in_batch(u, p, valid, self.config.infonce_temperature)
+        pos_s = torch.sum(u * p, dim=-1)
+        neg_s = torch.sum(u * n, dim=-1)
+        return bpr_loss_from_scores(pos_s, neg_s, valid)
+
+    def reg_loss(self, u_emb, p_emb, n_emb, valid) -> torch.Tensor:
+        return l2_ego(u_emb, p_emb, n_emb, valid)
+
+    def loss(
+        self, graph: BipartiteGraph, batch, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        user_emb, item_emb = self.propagate(graph, generator)
+        u, p, n = gather_batch_rows(user_emb, item_emb, batch)
+        bpr = self.main_loss(u, p, n, batch.valid)
+        reg = self.reg_loss(u, p, n, batch.valid)
+        return bpr + self.config.decay * reg, {"bpr": bpr, "reg": reg}

@@ -1,6 +1,7 @@
 """Matrix factorisation (port of ``models/mf.py``): two embedding tables
 initialised N(0, 1), inner-product scores with a sigmoid on the full-catalog
-path, identity propagation."""
+path, identity propagation; it trains with the base BPR + ego-L2 loss, through
+the same row gathers as LightGCN."""
 
 from __future__ import annotations
 
@@ -30,5 +31,5 @@ class MF(PairwiseModel):
         self.dim = config.latent_dim
         self._init_tables(1.0, pretrained, generator)
 
-    def propagate(self, graph: BipartiteGraph):
+    def propagate(self, graph: BipartiteGraph, generator: Optional[torch.Generator] = None):
         return self.user_emb, self.item_emb

@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "build", "library"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("streaming_topk",)
+SOURCES = ("streaming_topk", "scatter_add_rows")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

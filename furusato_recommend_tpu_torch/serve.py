@@ -21,19 +21,12 @@ import torch
 
 from .config import Config
 from .convert import params_from_jax
+from .core.device import resolve_device
 from .data.dataset import Dataset
 from .models.base import PairwiseModel
 from .ops.streaming_topk import masked_topk
 
 __all__ = ["Recommender", "make_server", "main", "resolve_device"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device``, or CUDA by default; raises when CUDA is asked for and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 class Recommender:

@@ -1,21 +1,26 @@
-"""The port's CUDA kernel against its plain PyTorch version, on a card; and the
-kernel's launch plan, which runs anywhere.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card; and
+the top-k kernel's launch plan, which runs anywhere.
 
 This file imports neither JAX nor the JAX package, so on a machine with a card
 and no JAX it runs on its own:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
 
-Tolerances: inputs that are small multiples of 1/8 give exact dot products in
-any summation order, so there ids and values must be equal; Gaussian inputs
-give values within rtol 1e-5 / atol 1e-6 and equal ids wherever the plain
-version's neighbouring values differ by more than 1e-5 relative.
+Tolerances: inputs that are small multiples of 1/8 give exact dot products and
+sums in any summation order, so there ids and values must be equal. For
+masked_topk, Gaussian inputs give values within rtol 1e-5 / atol 1e-6 and
+equal ids wherever the plain version's neighbouring values differ by more
+than 1e-5 relative. For scatter_add_rows, Gaussian rows give sums within
+1e-5 + 1e-5 * (the sum of the magnitudes added into the element): the kernel's
+atomic adds take another order than the plain version's, and it changes from
+run to run.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from furusato_recommend_tpu_torch.ops import scatter as sc
 from furusato_recommend_tpu_torch.ops.streaming_topk import (
     masked_topk,
     masked_topk_reference,
@@ -90,3 +95,74 @@ def test_cuda_kernel_matches_plain_version():
                             np.testing.assert_array_equal(ki[sep], ri[sep])
                         if masked and not sig and k == 128:
                             assert (kv[0, 50:] == -1024.0).all()
+
+
+def _scatter_rows(r, d, exact, rng):
+    if exact:
+        return (rng.integers(-8, 9, (r, d)) / 8).astype(np.float32)
+    return rng.standard_normal((r, d)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,r,d",
+    [
+        (50000, 8192, 64),  # the bench step's user gather
+        (20000, 16384, 64),  # its item gather (positives and negatives)
+        (1000, 999, 64),  # R not a multiple of 32
+        (500, 0, 64),  # no rows: a zero table, and still one launch
+        (300, 2003, 50),  # D not a multiple of 32
+    ],
+)
+@pytest.mark.parametrize("exact", [True, False])
+def test_cuda_scatter_matches_plain_version(n, r, d, exact):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(n + r + d)
+    dev = torch.device("cuda")
+    ids = torch.from_numpy(rng.integers(0, n, r).astype(np.int32)).to(dev)
+    rows = torch.from_numpy(_scatter_rows(r, d, exact, rng)).to(dev)
+    before = sc.launches
+    got = sc.scatter_add_rows(ids, rows, n)
+    want = sc.scatter_add_rows_reference(ids, rows, n)
+    mag = sc.scatter_add_rows_reference(ids, rows.abs(), n)
+    torch.cuda.synchronize()
+    assert sc.launches == before + 1
+    got, want, mag = (x.cpu().numpy() for x in (got, want, mag))
+    if exact:
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert (np.abs(got - want) <= 1e-5 + 1e-5 * mag).all()
+
+
+@pytest.mark.cuda
+def test_cuda_scatter_hub_and_clamped_ids():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(3)
+    n, d = 100, 64
+    ids = np.concatenate([np.full(5000, 7), rng.integers(0, n, 300), [-3, n, 10**6]])
+    rows = _scatter_rows(len(ids), d, True, rng)
+    dev = torch.device("cuda")
+    got = sc.scatter_add_rows(torch.from_numpy(ids.astype(np.int32)).to(dev),
+                              torch.from_numpy(rows).to(dev), n)
+    want = np.zeros((n, d), np.float32)
+    np.add.at(want, np.clip(ids, 0, n - 1), rows)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_table_gather_gradient_runs_the_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(4)
+    table = (rng.integers(-8, 9, (2000, 64)) / 8).astype(np.float32)
+    ids = rng.integers(0, 2000, (3, 700)).astype(np.int64)
+    weight = (rng.integers(-4, 5, (3, 700, 64)) / 4).astype(np.float32)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        t = torch.from_numpy(table).to(dev).requires_grad_(True)
+        out = sc.table_gather(t, torch.from_numpy(ids).to(dev))
+        torch.sum(out * torch.from_numpy(weight).to(dev)).backward()
+        grads.append(t.grad.cpu().numpy())
+    np.testing.assert_array_equal(grads[1], grads[0])

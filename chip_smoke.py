@@ -7,15 +7,20 @@ check them.
 Phases (any failure raises and exits non-zero):
   1. device    the card's name and power limit (nvidia-smi); fails without CUDA
   2. build     every CUDA source of the port, compiled by nvcc for sm_90a, one
-               nvcc per source, all started together
+               nvcc per source, all started together; the top-k pass 1's
+               blocks per SM from the occupancy API
   3. kernels   each kernel against its plain PyTorch version on the card.
                masked_topk (d=64, M=20000, B in {1, 8, 64, 512}, k in
-               {10, 20, 128}, with and without mask and sigmoid):
+               {10, 20, 128}; and the tiling's edges: (M, d) in {(127, 32),
+               (20001, 100), (20000, 30)}, B in {1, 33, 65, 1000}, k in
+               {1, 20, 128}; each with and without mask and sigmoid, one
+               user twice in a tile):
                (a) exact inputs (multiples of 1/8, duplicated items, one row
                    masked so densely that -1024 entries rank): ids and values equal
                (b) Gaussian inputs: values within rtol 1e-5 / atol 1e-6; ids equal
                    wherever the plain version's neighbouring values differ by
                    more than 1e-5 relative, the value multiset elsewhere
+               the first call runs under torch.cuda.set_sync_debug_mode("error")
                scatter_add_rows ((N, R, D) = (50000, 8192, 64) and
                (20000, 16384, 64), the bench step's user and item gathers;
                R = 999; R = 0; one id 5,000 times; ids out of range, D = 50):
@@ -32,7 +37,8 @@ Phases (any failure raises and exits non-zero):
                users at k = 10 and 20 and over HTTP, each answer held against
                the plain version under rule 3(b); propagation held against a
                float64 CPU propagation on the same rounded inputs
-  5. numbers   the serve path's timings (printed at the end)
+  5. numbers   the serve path's timings (printed at the end), and masked_topk
+               at the evaluation's tile (B = 1024, k = 20)
   6. train     Trainer for lgn, d=64, L=2, bfloat16 SpMM, B=8192, lr 1e-3 on the
                same graph: test(), one warm-up epoch, two timed epochs,
                test(); the scatter kernel launched at least once per step and
@@ -50,7 +56,9 @@ Phases (any failure raises and exits non-zero):
                neighbouring values differ by more than 1e-5 relative, metric
                sums equal (bit-equal when every id is)
   8. numbers   one JSON line of kernels (time, plain time, library time,
-               bound, launches on the main paths), the serve line, and the
+               bound, launches on the main paths; masked_topk also at the
+               evaluation's tile; scatter_add_rows and index_add_ timed in ten
+               alternating rounds, median and quartiles), the serve line, and the
                train line (samples/s, the step split by torch.profiler into
                SpMM forward / backward, scatter, gather, sampler, Adam and
                the rest, the evaluation, and the card's idle share)
@@ -89,6 +97,10 @@ from furusato_recommend_tpu_torch.train.trainer import Trainer
 SEED = 0
 D, M_KERNEL, N_KERNEL = 64, 20000, 600
 TILES = (1, 8, 64, 512)
+EVAL_TILE = 1024  # the evaluator's users per masked_topk call (eval_user_batch)
+# (M, d) of the top-k tiling's edges: M not a multiple of the item tile, d
+# resident and in chunks, d not a multiple of 4
+TOPK_EDGES = ((127, 32), (20001, 100), (20000, 30))
 # H100 SXM published peaks (dense, 700 W): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -134,43 +146,67 @@ def compare(kv, ki, rv, ri, exact: bool) -> float:
     return float(np.abs(kv - rv).max())
 
 
-def kernel_cases(dev) -> float:
-    rng = np.random.default_rng(SEED)
-    exact_u = (rng.integers(-4, 5, size=(N_KERNEL, D)) / 8).astype(np.float32)
-    exact_i = (rng.integers(-2, 3, size=(M_KERNEL, D)) / 8).astype(np.float32)
-    exact_i[1::2] = exact_i[0::2]  # every item has a twin: ties
-    gauss_u = (0.3 * rng.standard_normal((N_KERNEL, D))).astype(np.float32)
-    gauss_i = (0.3 * rng.standard_normal((M_KERNEL, D))).astype(np.float32)
+def _topk_cases(dev, rng, n, m, d, tiles, ks, first_checked) -> tuple:
+    """masked_topk against its plain version on one (N, M, d); returns
+    (cases, max abs err). The first call runs under sync debug mode "error"
+    unless ``first_checked``."""
+    exact_u = (rng.integers(-4, 5, size=(n, d)) / 8).astype(np.float32)
+    exact_i = (rng.integers(-2, 3, size=(m, d)) / 8).astype(np.float32)
+    exact_i[1::2] = exact_i[0::2][: m // 2]  # every item has a twin: ties
+    scale = 0.3 * (64 / d) ** 0.5
+    gauss_u = (scale * rng.standard_normal((n, d))).astype(np.float32)
+    gauss_i = (scale * rng.standard_normal((m, d))).astype(np.float32)
     rows = []
-    for u in range(N_KERNEL):
+    for u in range(n):
         # row 0 leaves 50 items unmasked: at k > 50, -1024 entries rank; it
         # is longer than the kernel stages in shared memory
-        deg = M_KERNEL - 50 if u == 0 else int(rng.integers(0, 80))
-        rows.append(np.sort(rng.choice(M_KERNEL, size=deg, replace=False)))
+        deg = m - 50 if u == 0 else int(rng.integers(0, min(m, 80)))
+        rows.append(np.sort(rng.choice(m, size=deg, replace=False)))
     indptr = torch.from_numpy(
         np.concatenate([[0], np.cumsum([len(r) for r in rows])]).astype(np.int32)
     ).to(dev)
     indices = torch.from_numpy(np.concatenate(rows).astype(np.int32)).to(dev)
-    max_err, n = 0.0, 0
+    max_err, n_cases = 0.0, 0
     for kind, (u, i) in (("exact", (exact_u, exact_i)), ("gauss", (gauss_u, gauss_i))):
         U, I = torch.from_numpy(u).to(dev), torch.from_numpy(i).to(dev)
-        for b in TILES:
-            users = torch.from_numpy(rng.permutation(N_KERNEL)[:b]).to(dev)
+        for b in tiles:
+            users = torch.from_numpy(rng.permutation(n)[:b]).to(dev)
             users[0] = 0
-            for k in (10, 20, 128):
+            if b > 3:
+                users[3] = users[2]  # one user twice in a tile
+            for k in (k for k in ks if k <= m):
                 for masked in (False, True):
                     mask = (indptr, indices) if masked else (None, None)
                     for sig in (False, True):
-                        kv, ki = st.masked_topk(U, I, users, k, *mask, sigmoid=sig)
+                        if not first_checked:
+                            torch.cuda.synchronize()
+                            torch.cuda.set_sync_debug_mode("error")  # raises on a host sync
+                            try:
+                                kv, ki = st.masked_topk(U, I, users, k, *mask, sigmoid=sig)
+                            finally:
+                                torch.cuda.set_sync_debug_mode(0)
+                            first_checked = True
+                        else:
+                            kv, ki = st.masked_topk(U, I, users, k, *mask, sigmoid=sig)
                         rv, ri = st.masked_topk_reference(U, I, users, k, *mask, sigmoid=sig)
                         torch.cuda.synchronize()
                         err = compare(kv, ki, rv, ri, exact=kind == "exact")
                         max_err = max(max_err, err)
-                        n += 1
+                        n_cases += 1
                         if masked and not sig and k == 128:
                             # row 0: 50 unmasked items, then sentinels by id
                             assert (kv[0, 50:] == st.MASK_SENTINEL).all()
-    log(f"kernels: {n} cases equal to the plain version (max abs err {max_err:.3g})")
+    return n_cases, max_err
+
+
+def kernel_cases(dev) -> float:
+    rng = np.random.default_rng(SEED)
+    n, max_err = _topk_cases(dev, rng, N_KERNEL, M_KERNEL, D, TILES, (10, 20, 128), False)
+    for m, d in TOPK_EDGES:
+        c, e = _topk_cases(dev, rng, 1100, m, d, (1, 33, 65, 1000), (1, 20, 128), True)
+        n, max_err = n + c, max(max_err, e)
+    log(f"kernels: {n} cases equal to the plain version (max abs err {max_err:.3g}); "
+        f"no host sync in the wrapper")
     return max_err
 
 
@@ -208,6 +244,20 @@ def event_ms(fn, reps=30, warmup=5) -> float:
     return float(np.median(times))
 
 
+def alternating_ms(fns: dict, rounds=10, reps=30) -> dict:
+    """CUDA-event times of several functions taken in turns: in each of
+    ``rounds`` rounds every function is timed once (``event_ms``, the median
+    of ``reps`` calls), in reversed order every other round. {name: {"ms":
+    median of the round medians, "quartiles": [first, third], "rounds": [...]}}"""
+    per = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            per[name].append(event_ms(fns[name], reps=reps))
+    return {name: {"ms": float(np.median(v)),
+                   "quartiles": [float(np.percentile(v, 25)), float(np.percentile(v, 75))],
+                   "rounds": v} for name, v in per.items()}
+
+
 def host_ms(fn, reps=20, warmup=3) -> float:
     for _ in range(warmup):
         fn()
@@ -227,9 +277,11 @@ def _is_range(e) -> bool:
 
 def device_profile(fn, n=20):
     """torch.profiler over n calls of fn: device time per call by kernel name
-    (ms), all device time per call, and the share of the window's wall time
-    with nothing running on the card (the profiler's own overhead counts as
-    idle). None when the profiler records no device activity."""
+    (ms), all device time and device operations per call (fewer than the
+    calls launch means the profiler lost records), and the share of the
+    window's wall time with nothing running on the card (the profiler's own
+    overhead counts as idle). None when the profiler records no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -240,18 +292,20 @@ def device_profile(fn, n=20):
             fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    by_name = {}
+    by_name, n_ops = {}, 0
     for e in prof.events():
         # the port's profiler ranges also show as spans on the card: not work
         if e.device_type == torch.autograd.DeviceType.CUDA and not _is_range(e):
             name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:48]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+            n_ops += 1
     if not by_name:
         return None
     busy = sum(by_name.values())
     return {
         "by_kernel_ms": {k: v / n / 1e3 for k, v in sorted(by_name.items(), key=lambda x: -x[1])},
         "device_ms": busy / n / 1e3,
+        "device_ops_per_call": n_ops / n,
         "idle_share": 1.0 - busy / wall_us,
     }
 
@@ -307,6 +361,10 @@ def _own_kernel(name: str):
     return next((part for key, part in OWN_KERNELS.items() if key in name), None)
 
 
+def _is_memset(name: str) -> bool:
+    return name.startswith("Memset")
+
+
 def _step_part(e) -> str:
     """The step part of a profiler CPU event: the innermost port range
     around it (RANGES), else "other"."""
@@ -333,19 +391,28 @@ def split_profile(fn, n):
             fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    events = prof.events()
+    # the host's runtime calls by correlation id: a memset goes by the range
+    # around the cudaMemsetAsync that issued it, since the profiler ties it to
+    # the torch operation around the ctypes call (the scatter entry zeroes its
+    # table so), which lies outside the port's range
+    runtime = {e.id: e for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cuda")}
     split, device_us, n_device = {}, 0.0, 0
-    for e in prof.events():
+    for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             if not _is_range(e):
                 us = e.time_range.elapsed_us()
                 device_us += us
                 n_device += 1
                 part = _own_kernel(e.name)
+                if part is None and _is_memset(e.name) and e.id in runtime:
+                    part = _step_part(runtime[e.id])
                 if part is not None:
                     split[part] = split.get(part, 0.0) + us
         elif e.kernels:
-            spent = sum(k.duration for k in e.kernels
-                        if k.name not in RANGES and _own_kernel(k.name) is None)
+            spent = sum(k.duration for k in e.kernels if k.name not in RANGES
+                        and _own_kernel(k.name) is None and not _is_memset(k.name))
             if spent:
                 part = _step_part(e)
                 split[part] = split.get(part, 0.0) + spent
@@ -532,11 +599,15 @@ def scatter_numbers(trainer, dev) -> list:
         def library():
             return torch.zeros((n, D), device=dev).index_add_(0, ids_long, rows)
 
+        # the call and index_add_'s are close and host-bound: taken in turns
+        alt = alternating_ms({"kernel": lambda: sc.scatter_add_rows(ids, rows, n),
+                              "library": library})
         out.append({
             "N": n, "R": r, "D": D,
-            "ms": event_ms(lambda: sc.scatter_add_rows(ids, rows, n)),
+            "ms": alt["kernel"]["ms"],
             "plain_ms": event_ms(lambda: sc.scatter_add_rows_reference(ids, rows, n)),
-            "library_ms": event_ms(library),
+            "library_ms": alt["library"]["ms"],
+            "alternating": alt,
             "bound_ms": 1e3 * max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "distinct_ids": int(torch.unique(ids).numel()),
@@ -567,6 +638,8 @@ def main() -> int:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {name}: {line.strip()}")
+    occupancy = {f"k{k}_d{d}": st._blocks_per_sm(0, k, d) for k in (20, 64, 128) for d in (64, 100)}
+    log(f"masked_topk pass 1, blocks per SM (occupancy API): {occupancy}")
 
     # 3. kernels against their plain versions
     max_err = kernel_cases(dev)
@@ -587,7 +660,7 @@ def main() -> int:
     model = build_model("lgn", cfg, graph)
     request_users = {
         b: np.random.default_rng(SEED + b).choice(ds.n_users, size=b, replace=False)
-        for b in TILES
+        for b in TILES + (EVAL_TILE,)
     }
 
     st.launches = sc.launches = 0
@@ -654,36 +727,36 @@ def main() -> int:
     propagate_profile = device_profile(lambda: rec.refresh(None), n=5)
     tiles = []
     pos_csr = CSR(*mask)
-    for b in TILES:
-        for k in (10, 20):
-            users = torch.from_numpy(request_users[b]).to(dev)
-            deg = pos_csr.degrees()[users.long()]
-            pad_to = int(deg.max())
-            cols, valid = csr_gather_padded(pos_csr, users, pad_to)
-            rows = torch.arange(b, device=dev)[:, None].expand_as(cols)
-            mrows, mcols = rows[valid], cols[valid].long()
-            sentinel = torch.tensor(float(st.MASK_SENTINEL), device=dev)
+    for b, k in [(b, k) for b in TILES for k in (10, 20)] + [(EVAL_TILE, 20)]:
+        users = torch.from_numpy(request_users[b]).to(dev)
+        deg = pos_csr.degrees()[users.long()]
+        pad_to = int(deg.max())
+        cols, valid = csr_gather_padded(pos_csr, users, pad_to)
+        rows = torch.arange(b, device=dev)[:, None].expand_as(cols)
+        mrows, mcols = rows[valid], cols[valid].long()
+        sentinel = torch.tensor(float(st.MASK_SENTINEL), device=dev)
 
-            def library():
-                s = U[users] @ I.T
-                s.index_put_((mrows, mcols), sentinel)
-                return torch.topk(s, k)
+        def library():
+            s = U[users] @ I.T
+            s.index_put_((mrows, mcols), sentinel)
+            return torch.topk(s, k)
 
-            nbytes = 4 * (I.numel() + b * D + b + 2 * b + int(deg.sum())) + 12 * b * k
-            flops = 2 * b * ds.m_items * D
-            t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-            tiles.append({
-                "B": b, "k": k,
-                "ms": event_ms(lambda: st.masked_topk(U, I, users, k, *mask)),
-                "plain_ms": event_ms(lambda: st.masked_topk_reference(U, I, users, k, *mask)),
-                "library_ms": event_ms(library),
-                "bound_ms": 1e3 * max(t_bytes, t_flops),
-                "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-                "request_ms": host_ms(lambda: rec.recommend(request_users[b], k=k)),
-                "kernel_profile": device_profile(lambda: st.masked_topk(U, I, users, k, *mask)),
-                "request_profile": device_profile(lambda: rec.recommend(request_users[b], k=k)),
-            })
+        nbytes = 4 * (I.numel() + b * D + b + 2 * b + int(deg.sum())) + 12 * b * k
+        flops = 2 * b * ds.m_items * D
+        t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        tiles.append({
+            "B": b, "k": k,
+            "ms": event_ms(lambda: st.masked_topk(U, I, users, k, *mask)),
+            "plain_ms": event_ms(lambda: st.masked_topk_reference(U, I, users, k, *mask)),
+            "library_ms": event_ms(library),
+            "bound_ms": 1e3 * max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "request_ms": host_ms(lambda: rec.recommend(request_users[b], k=k)),
+            "kernel_profile": device_profile(lambda: st.masked_topk(U, I, users, k, *mask)),
+            "request_profile": device_profile(lambda: rec.recommend(request_users[b], k=k)),
+        })
     head = next(t for t in tiles if t["B"] == 512 and t["k"] == 20)
+    eval_tile = next(t for t in tiles if t["B"] == EVAL_TILE)
 
     # 6. the training path at full width
     trainer, train = train_path(ds, dev)
@@ -726,6 +799,9 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "at": {"B": 512, "k": 20, "M": ds.m_items, "d": D},
+        "pass1_blocks_per_sm": occupancy,
+        "eval_tile": {key: eval_tile[key] for key in (
+            "B", "k", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_profile")},
         "tiles": tiles,
     }, {
         "name": "scatter_add_rows",

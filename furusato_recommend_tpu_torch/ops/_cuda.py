@@ -6,6 +6,10 @@ kernel's module binds through ``ctypes``. The hash covers the source and the
 flags, so an edited source is rebuilt. Nothing is built when this module is
 imported: the first call that needs a library builds it, and ``build`` starts
 one ``nvcc`` per source, all at once.
+
+``launch`` calls a bound entry point with a stream (``stream``: the current
+one of a device) as its last argument, switching the current device only when
+it is another one.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["SOURCES", "build", "library"]
+import torch
+
+__all__ = ["SOURCES", "build", "device_index", "launch", "library", "stream"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -93,3 +99,27 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _loaded[name] = lib
         return lib
+
+
+def device_index(dev) -> int:
+    """The index of a CUDA ``torch.device`` (the current device when it has
+    none)."""
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def launch(index: int, stream: int, fn, *args) -> int:
+    """``fn(*args, stream)`` with device ``index`` current; returns what ``fn``
+    returns (a CUDA error code)."""
+    if torch.cuda.current_device() != index:
+        with torch.cuda.device(index):
+            return fn(*args, stream)
+    return fn(*args, stream)
+
+
+def stream(index: int) -> int:
+    """The raw handle of device ``index``'s current stream, read without
+    building a ``torch.cuda.Stream``."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream

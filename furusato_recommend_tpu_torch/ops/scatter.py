@@ -3,11 +3,11 @@
 
 ``scatter_add_rows(ids, rows, num_rows)`` is ``acc[ids[i]] += rows[i]`` into a
 zeroed [num_rows, D] float32 table. For CUDA tensors it launches the
-hand-written kernel of ``csrc/scatter_add_rows.cu`` (one warp per update row,
-global atomic adds; see the note in the source) or raises, for every call, no
-rows included, with no size below which another path takes over; for CPU
-tensors it runs ``scatter_add_rows_reference``, the plain ``index_add_``
-version.
+hand-written kernel of ``csrc/scatter_add_rows.cu`` (the table zeroed on the
+stream, then one warp per update row, global atomic adds; see the note in the
+source) or raises, for every call, no rows included, with no size below which
+another path takes over; for CPU tensors it runs
+``scatter_add_rows_reference``, the plain ``index_add_`` version.
 
 ``table_gather(table, ids)`` is ``table[ids]`` whose gradient goes through
 ``scatter_add_rows``: the MF / LightGCN losses gather every batch row through it,
@@ -57,15 +57,20 @@ def scatter_add_rows_reference(
     return out
 
 
+_fn = None
+
+
 def _kernel():
-    fn = _cuda.library("scatter_add_rows").scatter_add_rows_launch
-    if fn.argtypes is None:
+    global _fn
+    if _fn is None:
+        fn = _cuda.library("scatter_add_rows").scatter_add_rows_launch
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-    return fn
+        _fn = fn
+    return _fn
 
 
 def _launch(ids: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:
@@ -78,12 +83,14 @@ def _launch(ids: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tenso
     if num_rows >= 2**31:
         raise ValueError("the CUDA kernel takes int32 row ids")
     r, d = rows.shape
-    out = torch.zeros((num_rows, d), dtype=torch.float32, device=dev)
-    ids32 = ids.to(torch.int32).contiguous()
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ids32.data_ptr(), rows.data_ptr(), r, d, num_rows, out.data_ptr(), stream)
+    if ids.dtype not in (torch.int32, torch.int64) or not ids.is_contiguous():
+        ids = ids.to(torch.int64).contiguous()
+    out = torch.empty((num_rows, d), dtype=torch.float32, device=dev)  # zeroed by the entry
+    idx = _cuda.device_index(dev)
+    err = _cuda.launch(
+        idx, _cuda.stream(idx), _kernel(), ids.data_ptr(), int(ids.dtype == torch.int64),
+        rows.data_ptr(), r, d, num_rows, out.data_ptr(),
+    )
     if err != 0:
         raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA error {err}")
     launches += 1

@@ -3,10 +3,11 @@
 ``serve.py::Recommender``).
 
 ``masked_topk`` is the serving path's kernel. For a CUDA tensor it launches the
-hand-written kernel of ``csrc/streaming_topk.cu`` (two passes: per item segment,
-then a merge per row; see the note in the source) or raises. For CPU tensors it
-runs ``masked_topk_reference``, the plain PyTorch version of the same function,
-which the CPU tests hold against the JAX package.
+hand-written kernel of ``csrc/streaming_topk.cu`` (two passes: blocks of 32
+users x one item segment, then a merge per row; see the note in the source) or
+raises. For CPU tensors it runs ``masked_topk_reference``, the plain PyTorch
+version of the same function, which the CPU tests hold against the JAX
+package.
 
 Semantics, shared by both and by the JAX package:
 
@@ -16,7 +17,16 @@ Semantics, shared by both and by the JAX package:
 - order: value descending, then item id ascending on ties (``lax.top_k``);
 - ``k > M`` raises, as ``lax.top_k`` does. The kernel takes 1 <= k <= 128 and
   raises above that (a deviation: the plain version and the JAX package take
-  any k <= M).
+  any k <= M);
+- user ids outside [0, N) are clamped into it: the score row and the mask
+  row are both those of the clamped id. This is a deviation. The JAX
+  ``Recommender._topk`` wraps an id in [-N, 0) once (-3 scores row N - 3)
+  and clamps the rest, and takes the mask row from ``indptr`` [N + 1], so
+  id u in [-N - 1, -2] gets row u + N + 1's mask and -1 or any id >= N gets
+  none (``tests/test_torch_topk.py`` shows both). Nothing checks ids on the
+  host, so the CUDA path never waits for the card: callers that hold ids on
+  the host check them there (``serve.Recommender.recommend`` raises
+  ``ValueError``).
 
 Scores that are NaN have no defined rank.
 """
@@ -24,6 +34,7 @@ Scores that are NaN have no defined rank.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -32,12 +43,13 @@ from ..data.graph import CSR
 from . import _cuda
 from .csr_search import csr_gather_padded
 
-__all__ = ["masked_topk", "masked_topk_reference", "plan_segments", "MASK_SENTINEL", "MAX_K"]
+__all__ = ["masked_topk", "masked_topk_reference", "plan_tiles", "MASK_SENTINEL", "MAX_K"]
 
 MASK_SENTINEL = -(1 << 10)
 MAX_K = 128  # the kernel's shared-memory selection holds at most this many
-MAX_DIM = 4096  # the user row is staged in shared memory
-_THREADS = 256  # threads per block, csrc/streaming_topk.cu kThreads
+MAX_DIM = 4096
+USER_TILE = 32  # users per block, csrc/streaming_topk.cu kBU
+ITEM_TILE = 128  # items per tile, kTI
 
 #: kernel launches since the count was last set to 0 (one per masked_topk call
 #: on CUDA tensors)
@@ -72,11 +84,12 @@ def masked_topk_reference(
     mask_indices: Optional[torch.Tensor] = None,
     sigmoid: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of ``masked_topk``: the [B, M] score matrix, then
-    a stable descending sort. On CUDA the product runs in full float32
-    (TF32 off for the call)."""
+    """Plain PyTorch version of ``masked_topk``: ids clamped into [0, N), as
+    the kernel clamps them (not as the JAX package treats negative ids; see
+    the module docstring), the [B, M] score matrix, then a stable descending
+    sort. On CUDA the product runs in full float32 (TF32 off for the call)."""
     _check(user_emb, item_emb, users, k, mask_indptr, mask_indices)
-    users = users.long()
+    users = users.long().clamp(0, user_emb.shape[0] - 1)
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -100,32 +113,72 @@ def masked_topk_reference(
     return vals[:, :k].contiguous(), ids[:, :k].contiguous()
 
 
-def plan_segments(n_rows: int, m_items: int, k: int, sm_count: int) -> Tuple[int, int]:
-    """(segments per row, items per segment) for pass 1: enough blocks for two
-    per SM when the request has few rows, each segment at least
-    max(256, 4k) items so that pass 2 merges few candidates."""
-    min_len = max(_THREADS, 4 * k)
-    want = -(-2 * sm_count // max(n_rows, 1))
-    n_seg = max(1, min(want, m_items // min_len))
-    seg_len = -(-m_items // n_seg)
-    return -(-m_items // seg_len), seg_len
+@functools.lru_cache(maxsize=1024)
+def plan_tiles(
+    n_rows: int, m_items: int, sm_count: int, blocks_per_sm: int
+) -> Tuple[int, int, int]:
+    """(user tiles, item segments, items per segment) of pass 1: a block owns
+    ``USER_TILE`` rows x one segment, and a segment is a whole number of
+    ``ITEM_TILE``-item tiles. The grid has at least two blocks per SM wherever
+    there are that many (user tile, item tile) pairs; among such cuts, the one
+    with the fewest waves (``blocks_per_sm`` blocks on each SM at once) times
+    the tiles a block walks (plus one for a block's fixed work: its setup, its
+    last merges and its list in pass 2)."""
+    n_ut = -(-n_rows // USER_TILE)
+    n_tiles = -(-m_items // ITEM_TILE)
+    need = min(2 * sm_count, n_ut * n_tiles)
+    slots = blocks_per_sm * sm_count
+    best = (None, 1)
+    for per_seg in range(1, n_tiles + 1):
+        blocks = n_ut * -(-n_tiles // per_seg)
+        if blocks < need:
+            break
+        cost = -(-blocks // slots) * (per_seg + 1)
+        if best[0] is None or cost <= best[0]:  # ties go to fewer segments
+            best = (cost, per_seg)
+    seg_len = best[1] * ITEM_TILE
+    return n_ut, -(-m_items // seg_len), seg_len
 
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 4
+    + [ctypes.c_int] * 6
     + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 3
-    + [ctypes.c_void_p] * 5
+    + [ctypes.c_void_p] * 4
 )
+_fn = None
+_sm_count = {}  # device index -> SMs
+_occupancy = {}  # (device index, k range, d <= 64) -> pass-1 blocks per SM
 
 
 def _kernel():
-    fn = _cuda.library("streaming_topk").masked_topk_launch
-    if fn.argtypes is None:
+    global _fn
+    if _fn is None:
+        fn = _cuda.library("streaming_topk").masked_topk_launch
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-    return fn
+        _fn = fn
+    return _fn
+
+
+def _blocks_per_sm(idx: int, k: int, d: int) -> int:
+    """Pass-1 blocks that one SM of device ``idx`` holds at once for this k
+    and d, from the occupancy API; read once per device and instantiation."""
+    key = (idx, (k > 32) + (k > 64), d <= 64)
+    got = _occupancy.get(key)
+    if got is None:
+        fn = _cuda.library("streaming_topk").masked_topk_blocks_per_sm
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            err = fn(k, d, ctypes.byref(out))
+        if err != 0 or out.value < 1:
+            raise RuntimeError(f"masked_topk occupancy query failed: CUDA error {err}, "
+                               f"{out.value} blocks per SM")
+        got = _occupancy[key] = out.value
+    return got
 
 
 def _launch(user_emb, item_emb, users, k, mask_indptr, mask_indices, sigmoid):
@@ -155,28 +208,26 @@ def _launch(user_emb, item_emb, users, k, mask_indptr, mask_indices, sigmoid):
     out_i = torch.empty((b, k), dtype=torch.int64, device=dev)
     if b == 0:
         return out_v, out_i
-    lo, hi = torch.aminmax(users)
-    if int(lo) < 0 or int(hi) >= n:
-        raise ValueError(f"user ids must be in [0, {n}), got [{int(lo)}, {int(hi)}]")
-    users32 = users.to(torch.int32).contiguous()
-    props = torch.cuda.get_device_properties(dev)
-    n_seg, seg_len = plan_segments(b, m, k, props.multi_processor_count)
-    if n_seg > 65535:
-        raise ValueError(f"catalog of {m} items needs {n_seg} segments, more than 65535")
-    cand_v = torch.empty((b, n_seg, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((b, n_seg, k), dtype=torch.int32, device=dev)
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            user_emb.data_ptr(), item_emb.data_ptr(), users32.data_ptr(),
-            b, m, d, k,
-            None if mask_indptr is None else mask_indptr.data_ptr(),
-            None if mask_indices is None else mask_indices.data_ptr(),
-            int(bool(sigmoid)), n_seg, seg_len,
-            cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-            stream,
-        )
+    # ids are clamped into [0, N) on the device: no host check, no wait
+    if users.dtype not in (torch.int32, torch.int64) or not users.is_contiguous():
+        users = users.to(torch.int64).contiguous()
+    idx = _cuda.device_index(dev)
+    sms = _sm_count.get(idx)
+    if sms is None:
+        sms = _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    n_ut, n_seg, seg_len = plan_tiles(b, m, sms, _blocks_per_sm(idx, k, d))
+    if n_ut > 65535:
+        raise ValueError(f"the CUDA kernel takes at most {65535 * USER_TILE} users a call, got {b}")
+    cand = torch.empty(2 * b * n_seg * k, dtype=torch.int32, device=dev)
+    err = _cuda.launch(
+        idx, _cuda.stream(idx), _kernel(),
+        user_emb.data_ptr(), item_emb.data_ptr(), users.data_ptr(),
+        int(users.dtype == torch.int64), b, n, m, d, k,
+        None if mask_indptr is None else mask_indptr.data_ptr(),
+        None if mask_indices is None else mask_indices.data_ptr(),
+        int(bool(sigmoid)), n_seg, seg_len,
+        cand.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+    )
     if err != 0:
         raise RuntimeError(f"masked_topk kernel launch failed: CUDA error {err}")
     launches += 1

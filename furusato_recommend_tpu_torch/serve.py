@@ -71,8 +71,14 @@ class Recommender:
 
         The JAX package pads each request to a power-of-two tile to bound its
         compile cache; nothing here compiles per shape and padding changes no
-        result, so a request runs at its own size."""
+        result, so a request runs at its own size. Ids outside [0, n_users)
+        raise ``ValueError`` here, on the host, before anything reaches the
+        device (the kernel itself clamps and never checks)."""
         users = np.atleast_1d(np.asarray(user_ids, dtype=np.int64))
+        if users.size and (users.min() < 0 or users.max() >= self.n_users):
+            raise ValueError(
+                f"user ids must be in [0, {self.n_users}), got [{users.min()}, {users.max()}]"
+            )
         scores, ids = masked_topk(
             self._user_emb,
             self._item_emb,

@@ -22,79 +22,159 @@ import torch
 
 from furusato_recommend_tpu_torch.ops import scatter as sc
 from furusato_recommend_tpu_torch.ops.streaming_topk import (
+    ITEM_TILE,
+    USER_TILE,
     masked_topk,
     masked_topk_reference,
-    plan_segments,
+    plan_tiles,
 )
 
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("b", [1, 8, 64, 512, 5000])
-@pytest.mark.parametrize("k", [1, 10, 128])
-def test_plan_segments_cover_the_catalog(b, k):
-    m, sms = 20000, 132
-    n_seg, seg_len = plan_segments(b, m, k, sms)
-    assert 1 <= n_seg <= 65535
-    assert n_seg * seg_len >= m > (n_seg - 1) * seg_len  # no empty segment
-    assert seg_len >= min(m, max(256, 4 * k))
-    if b >= 2 * sms:  # enough rows to fill the card: one segment each
-        assert n_seg == 1
+@pytest.mark.parametrize("b", [1, 8, 33, 64, 65, 512, 1000, 1024, 5000])
+@pytest.mark.parametrize("m", [127, 20000, 20001])
+@pytest.mark.parametrize("per_sm", [1, 2])  # pass-1 blocks per SM: k > 32, k <= 32 on an H100
+def test_plan_tiles_cover_users_and_catalog(b, m, per_sm):
+    sms = 132
+    n_ut, n_seg, seg_len = plan_tiles(b, m, sms, per_sm)
+    assert (n_ut - 1) * USER_TILE < b <= n_ut * USER_TILE  # every row in one user tile
+    assert seg_len % ITEM_TILE == 0 and 1 <= n_seg <= 2**31 - 1
+    bounds = [(s * seg_len, min(m, (s + 1) * seg_len)) for s in range(n_seg)]
+    assert all(lo < hi for lo, hi in bounds)  # no empty segment
+    covered = np.zeros(m, dtype=int)
+    for lo, hi in bounds:
+        covered[lo:hi] += 1
+    assert (covered == 1).all()  # every item in exactly one segment
+    # two blocks per SM wherever there are that many (user tile, item tile) pairs
+    assert n_ut * n_seg >= min(2 * sms, n_ut * -(-m // ITEM_TILE))
 
 
-def _cases():
-    rng = np.random.default_rng(5)
-    n, m, d = 300, 20000, 64
+def _compare(kv, ki, rv, ri, exact):
+    kv, ki, rv, ri = (x.cpu().numpy() for x in (kv, ki, rv, ri))
+    if exact:
+        np.testing.assert_array_equal(ki, ri)
+        np.testing.assert_array_equal(kv, rv)
+        return
+    np.testing.assert_allclose(kv, rv, rtol=1e-5, atol=1e-6)
+    gap = np.abs(np.diff(rv, axis=1)) > 1e-5 * np.abs(rv[:, 1:])
+    sep = np.ones_like(ki, dtype=bool)
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    np.testing.assert_array_equal(ki[sep], ri[sep])
+
+
+def _cases(n, m, d, seed=5):
+    rng = np.random.default_rng(seed)
     exact = (
         (rng.integers(-4, 5, size=(n, d)) / 8).astype(np.float32),
         (rng.integers(-2, 3, size=(m, d)) / 8).astype(np.float32),
     )
-    exact[1][1::2] = exact[1][0::2]  # every item has a twin: ties
-    gauss = (  # scaled so that the sigmoid does not saturate
-        (0.3 * rng.standard_normal((n, d))).astype(np.float32),
-        (0.3 * rng.standard_normal((m, d))).astype(np.float32),
+    exact[1][1::2] = exact[1][0::2][: m // 2]  # every item has a twin: ties
+    scale = 0.3 * (64 / d) ** 0.5  # scaled so that the sigmoid does not saturate
+    gauss = (
+        (scale * rng.standard_normal((n, d))).astype(np.float32),
+        (scale * rng.standard_normal((m, d))).astype(np.float32),
     )
     rows = []
     for u in range(n):
         # row 7 leaves 50 items unmasked, so -1024 entries rank at k > 50
-        deg = m - 50 if u == 7 else int(rng.integers(0, 60))
+        deg = m - 50 if u == 7 else int(rng.integers(0, min(m, 60)))
         rows.append(np.sort(rng.choice(m, size=deg, replace=False)))
     indptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])]).astype(np.int32)
     return exact, gauss, indptr, np.concatenate(rows).astype(np.int32)
 
 
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc")
-    exact, gauss, indptr, indices = _cases()
-    dev = torch.device("cuda")
+def _users(b, n, dev):
+    users = torch.arange(b, device=dev) % n
+    users[0] = 7  # the densely masked row
+    if b > 3:
+        users[2] = users[3] = 11  # the same user twice in one tile
+    return users
+
+
+def _check_topk(n, m, d, tiles, ks, dev):
+    exact, gauss, indptr, indices = _cases(n, m, d)
     ip, ix = torch.from_numpy(indptr).to(dev), torch.from_numpy(indices).to(dev)
     for kind, (u, i) in (("exact", exact), ("gauss", gauss)):
         U, I = torch.from_numpy(u).to(dev), torch.from_numpy(i).to(dev)
-        for b in (1, 8, 64, 512):
-            users = torch.arange(b, device=dev) % U.shape[0]
-            users[0] = 7  # the densely masked row
-            for k in (10, 20, 128):
+        for b in tiles:
+            users = _users(b, n, dev)
+            for k in (k for k in ks if k <= m):
                 for masked in (False, True):
                     for sig in (False, True):
                         mk = (ip, ix) if masked else (None, None)
                         kv, ki = masked_topk(U, I, users, k, *mk, sigmoid=sig)
                         rv, ri = masked_topk_reference(U, I, users, k, *mk, sigmoid=sig)
                         torch.cuda.synchronize()
-                        kv, ki, rv, ri = (x.cpu().numpy() for x in (kv, ki, rv, ri))
-                        if kind == "exact":
-                            np.testing.assert_array_equal(ki, ri)
-                            np.testing.assert_array_equal(kv, rv)
-                        else:
-                            np.testing.assert_allclose(kv, rv, rtol=1e-5, atol=1e-6)
-                            gap = np.abs(np.diff(rv, axis=1)) > 1e-5 * np.abs(rv[:, 1:])
-                            sep = np.ones_like(ki, dtype=bool)
-                            sep[:, 1:] &= gap
-                            sep[:, :-1] &= gap
-                            np.testing.assert_array_equal(ki[sep], ri[sep])
+                        _compare(kv, ki, rv, ri, kind == "exact")
                         if masked and not sig and k == 128:
                             assert (kv[0, 50:] == -1024.0).all()
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_version():
+    _need_card()
+    _check_topk(300, 20000, 64, (1, 8, 64, 512), (10, 20, 128), torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [127, 20000, 20001])
+@pytest.mark.parametrize("d", [32, 64, 100])
+def test_cuda_kernel_tiling_edges(m, d):
+    """Rows not a multiple of the user tile, catalogs not a multiple of the
+    item tile, d resident (<= 64) and in chunks (100)."""
+    _need_card()
+    _check_topk(1100, m, d, (1, 33, 65, 512, 1000, 1024), (1, 20, 128), torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(20001, 30), (3000, 300), (500, 4096)])
+def test_cuda_kernel_odd_widths(m, d):
+    """d not a multiple of 4 (4-byte copies), several chunks, the widest d."""
+    _need_card()
+    _check_topk(200, m, d, (1, 65), (1, 20, 128), torch.device("cuda"))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_clamps_ids_and_takes_both_widths():
+    _need_card()
+    dev = torch.device("cuda")
+    exact, _, indptr, indices = _cases(300, 2000, 64)
+    U, I = (torch.from_numpy(x).to(dev) for x in exact)
+    mk = (torch.from_numpy(indptr).to(dev), torch.from_numpy(indices).to(dev))
+    for dtype in (torch.int32, torch.int64):
+        users = torch.tensor([-5, 0, 299, 300, 10**6, 7], dtype=dtype, device=dev)
+        kv, ki = masked_topk(U, I, users, 20, *mk)
+        rv, ri = masked_topk_reference(U, I, users, 20, *mk)
+        _compare(kv, ki, rv, ri, exact=True)
+        _compare(kv[:2], ki[:2], *masked_topk_reference(U, I, users.new_tensor([0, 0]), 20, *mk),
+                 exact=True)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_never_wait_for_the_card():
+    _need_card()
+    dev = torch.device("cuda")
+    exact, _, indptr, indices = _cases(300, 2000, 64)
+    U, I = (torch.from_numpy(x).to(dev) for x in exact)
+    mk = (torch.from_numpy(indptr).to(dev), torch.from_numpy(indices).to(dev))
+    users = torch.arange(100, device=dev)
+    ids = torch.randint(0, 500, (4000,), device=dev)
+    rows = torch.randn((4000, 64), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # raises on a host sync
+    try:
+        masked_topk(U, I, users, 20, *mk)
+        sc.scatter_add_rows(ids, rows, 500)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 def _scatter_rows(r, d, exact, rng):

@@ -109,6 +109,17 @@ def test_recommend_matches_jax(data, name, inference, exclude, k):
     assert ids.shape == (1, 3) and scores.shape == (1, 3)
 
 
+def test_recommend_rejects_ids_out_of_range_on_the_host(data, monkeypatch):
+    _, trec = _pair(data, "lgn", _params("lgn", 0), use_inference_edges=False)
+    calls = []
+    monkeypatch.setattr("furusato_recommend_tpu_torch.serve.masked_topk",
+                        lambda *a, **kw: calls.append(a))
+    for bad in ([N_USERS], [-1], [0, 5, N_USERS + 7]):
+        with pytest.raises(ValueError, match="user ids"):
+            trec.recommend(bad, k=5)
+    assert not calls  # raised before the kernel's wrapper was reached
+
+
 def test_refresh_tracks_params(data):
     jrec, trec = _pair(data, "lgn", _params("lgn", 0), use_inference_edges=False)
     before = trec.recommend(USERS, k=10)[0]

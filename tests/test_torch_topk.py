@@ -112,6 +112,72 @@ def test_matches_jax_recommender_topk(jax_recommenders, name, k):
             assert (row[: k - n_pos] > MASK_SENTINEL).all()
 
 
+def _jax_rows(u, n):
+    """(score row, mask row or None) that the JAX ``Recommender._topk`` uses
+    for user id u of N: ``user_emb[u]`` wraps a negative id once and clamps
+    the rest; ``csr_gather_padded`` indexes ``indptr`` [N + 1] the same way,
+    so the mask row is off by one for negative ids, and empty for -1 and for
+    ids >= N (its degree comes out <= 0)."""
+    emb = min(max(u + n if u < 0 else u, 0), n - 1)
+    lo = min(max(u + n + 1 if u < 0 else u, 0), n)
+    hi = min(max(u + 1 + n + 1 if u + 1 < 0 else u + 1, 0), n)
+    return emb, (lo if hi > lo else None)
+
+
+@pytest.mark.parametrize("name", ["mf", "lgn"])
+def test_out_of_range_users_against_jax_recommender(jax_recommenders, name):
+    """Ids outside [0, N): the port clamps them (score and mask row of the
+    clamped id), which is a deviation from the JAX ``Recommender._topk``.
+    JAX's answer is shown here row by row (``_jax_rows``), next to the
+    port's; in range the two agree."""
+    ds, rec = jax_recommenders[name]
+    g = ds.graph
+    n, k = ds.n_users, 12
+    indptr, indices = np.asarray(g.user_pos.indptr), np.asarray(g.user_pos.indices)
+    U, I = np.asarray(rec._user_emb), np.asarray(rec._item_emb)
+    users = np.array([-3, -1, -n - 5, 0, n - 1, n, 999], dtype=np.int32)
+    jv, ji = rec._topk(jnp.asarray(users), rec._user_emb, rec._item_emb, rec._mask_graph, k)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    rows = [_jax_rows(int(u), n) for u in users]
+    assert rows[:2] == [(n - 3, n - 2), (n - 1, None)] and rows[-2:] == [(n - 1, None)] * 2
+    # JAX's answer: score row `emb` with the train row of `mask` (or none)
+    masks = [indices[indptr[m]:indptr[m + 1]] if m is not None else np.zeros(0, np.int32)
+             for _, m in rows]
+    sel_ptr = np.concatenate([[0], np.cumsum([len(x) for x in masks])]).astype(np.int32)
+    wv, wi = masked_topk(
+        _t(U[[e for e, _ in rows]]), _t(I), torch.arange(len(users)), k,
+        _t(sel_ptr), _t(np.concatenate(masks).astype(np.int32)), sigmoid=rec.model.score_sigmoid,
+    )
+    np.testing.assert_array_equal(wi.numpy(), ji)
+    np.testing.assert_allclose(wv.numpy(), jv, rtol=1e-5, atol=1e-6)
+    # the port's: the clamped id's own row and mask, equal to JAX in range only
+    mk = (_t(indptr), _t(indices))
+    tv, ti = masked_topk(_t(U), _t(I), _t(users), k, *mk, sigmoid=rec.model.score_sigmoid)
+    cv, ci = masked_topk(_t(U), _t(I), _t(np.clip(users, 0, n - 1)), k, *mk,
+                         sigmoid=rec.model.score_sigmoid)
+    np.testing.assert_array_equal(ti.numpy(), ci.numpy())
+    np.testing.assert_array_equal(tv.numpy(), cv.numpy())
+    in_range = (users >= 0) & (users < n)
+    np.testing.assert_array_equal(ti.numpy()[in_range], ji[in_range])
+    assert (ti.numpy()[:2] != ji[:2]).any(axis=1).all()  # -3 and -1: other score rows
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_reference_clamps_user_ids(masked):
+    """Ids outside [0, N) score as the nearest valid row, with that row's
+    mask, as the CUDA kernel clamps them (a deviation from the JAX package
+    for negative ids and for the mask of ids >= N; see the test above)."""
+    u, i = _tied_inputs(3, n=12, m=40)
+    rng = np.random.default_rng(0)
+    rows = [np.sort(rng.choice(40, size=5, replace=False)) for _ in range(12)]
+    indptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])]).astype(np.int32)
+    mk = (_t(indptr), _t(np.concatenate(rows).astype(np.int32))) if masked else (None, None)
+    tv, ti = st.masked_topk_reference(_t(u), _t(i), torch.tensor([-3, 0, 11, 12, 999]), 9, *mk)
+    wv, wi = st.masked_topk_reference(_t(u), _t(i), torch.tensor([0, 0, 11, 11, 11]), 9, *mk)
+    np.testing.assert_array_equal(ti.numpy(), wi.numpy())
+    np.testing.assert_array_equal(tv.numpy(), wv.numpy())
+
+
 def test_rejects_bad_arguments():
     u, i = _tied_inputs(0, m=20)
     users = torch.arange(3)

@@ -55,13 +55,50 @@ Phases (any failure raises and exits non-zero):
                through masked_topk_reference on the card: ids equal where
                neighbouring values differ by more than 1e-5 relative, metric
                sums equal (bit-equal when every id is)
-  8. numbers   one JSON line of kernels (time, plain time, library time,
+  8. numbers   the train path's numbers (samples/s, the step split by
+               torch.profiler into SpMM forward / backward, scatter, gather,
+               sampler, Adam and the rest, the evaluation, the card's idle
+               share)
+  9. serve-textsage-100k
+               the TextSAGE flagship (ddp_flagship_config: d=32, L=2, fanout 5,
+               features n / w / t, bfloat16 SpMM) on synthetic_dataset(100000
+               users, 30000 items, avg degree 8, seed 0) with
+               synthetic_features(seed 0), random xavier parameters from a
+               seeded generator: data and features built (host time), the
+               index refreshed (host and device time), requests of 1 / 8 / 64
+               / 512 users at k = 20 and two over HTTP, each answer held
+               against the plain version under rule 3(b); the propagation on
+               the card held against a CPU propagation of the same parameters
+               (rtol 2e-2, atol 2e-3 x the largest magnitude: both round the
+               SpMM operands to bfloat16, and a float32 sum on the other side of
+               a rounding boundary moves an element by a bfloat16 step)
+ 10. train-textsage-100k
+               Trainer(ddp_recipe=True), B=5000, lr 1e-3: an evaluation, a
+               warm-up of 10 steps, one timed epoch (421 steps of alias-sampled
+               triplets, fanout trees and dropout on the card), an evaluation;
+               the loss of the epoch's last tenth below its first tenth's;
+               scatter_add_rows launched twice a step (one tree gather per
+               side), masked_topk once per evaluation tile; one evaluation
+               through the kernel against the plain version (phase 7's rule);
+               one --inference sample pass over all 130000 entities, timed;
+               one step on the card and on the CPU from the same parameters on
+               the same batch and trees, dropout 0: losses within rtol 1e-4,
+               every parameter within 2 x lr, all but 1e-3 of them within 1e-6
+               + 1e-5 |p| (Adam's first step is +-lr, so a gradient within
+               rounding of 0 may take the other sign)
+ 11. numbers   one JSON line of kernels (time, plain time, library time,
                bound, launches on the main paths; masked_topk also at the
-               evaluation's tile; scatter_add_rows and index_add_ timed in ten
-               alternating rounds, median and quartiles), the serve line, and the
-               train line (samples/s, the step split by torch.profiler into
-               SpMM forward / backward, scatter, gather, sampler, Adam and
-               the rest, the evaluation, and the card's idle share)
+               evaluation's tile and at TextSAGE's d = 32 over 30000 items;
+               scatter_add_rows and index_add_ timed in ten alternating rounds,
+               median and quartiles, also at the TextSAGE step's tree gathers
+               and a categorical gather), the serve and train lines of the lgn
+               paths and of the TextSAGE paths (samples/s, host and device ms a
+               step with the profiler's split, the idle share)
+
+Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
+30000, B in {1, 64, 512, 1024}, k in {10, 20}; scatter_add_rows at (N, R, D) =
+(100000, 180000, 32), (30000, 285000, 32) (a step's tree gathers; on ids of
+sampled trees in phase 11) and (40, 400000, 32).
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -79,11 +116,13 @@ import warnings
 import numpy as np
 import torch
 
-from furusato_recommend_tpu_torch.config import Config
-from furusato_recommend_tpu_torch.convert import params_from_jax, params_to_numpy
+from furusato_recommend_tpu_torch.config import Config, ddp_flagship_config
+from furusato_recommend_tpu_torch.convert import flatten_params, params_from_jax, params_to_numpy
 from furusato_recommend_tpu_torch.data import synthetic_dataset
+from furusato_recommend_tpu_torch.data.features import synthetic_features
 from furusato_recommend_tpu_torch.data.graph import CSR
 from furusato_recommend_tpu_torch.eval.metrics import batch_metric_sums
+from furusato_recommend_tpu_torch.models import sage
 from furusato_recommend_tpu_torch.models.registry import build_model
 from furusato_recommend_tpu_torch.obs.log import MetricLogger
 from furusato_recommend_tpu_torch.ops import _cuda
@@ -111,12 +150,23 @@ RTOL, ATOL, TIE_RTOL = 1e-5, 1e-6, 1e-5
 TRAIN_B, TRAIN_LR = 8192, 1e-3
 SCATTER_SHAPES = ((50_000, 8_192), (20_000, 16_384))  # (N, R) at D = 64
 SC_TOL = 1e-5
+# the TextSAGE flagship: the shape of benchmarks/textsage_bench.py
+TS_USERS, TS_ITEMS, TS_DEGREE = 100_000, 30_000, 8
+TS_D = 32
+TS_TILES = (1, 8, 64, 512)
+TS_K = 20
+TS_WARMUP = 10
+# (N, R) of a flagship step's two tree gathers at D = 32 (B = 5000, fanout 5,
+# L = 2: users 5000 + 2 x 25000 + 125000, items 25000 + 2 x (5000 + 125000)),
+# and a categorical gather (100000 users x 4 fields into 40 categories)
+TS_SCATTER = ((TS_USERS, 180_000), (TS_ITEMS, 285_000), (40, 400_000))
 # profiler ranges (ops/segment.py, ops/scatter.py, sampling/bpr.py,
-# eval/evaluate.py, torch.optim's own) and the step part each one names
+# sampling/neighbor.py, eval/evaluate.py, torch.optim's own) and the step part
+# each one names
 RANGES = {
     "spmm_fwd": "spmm_fwd", "spmm_bwd": "spmm_bwd", "table_gather": "gather",
     "scatter_add_rows": "scatter", "sample_bpr": "sampler", "evaluate": "eval",
-    "Optimizer.step#Adam.step": "adam",
+    "sample_neighbors": "trees", "Optimizer.step#Adam.step": "adam",
 }
 # the port's kernels, launched through ctypes outside any torch operation
 OWN_KERNELS = {
@@ -205,6 +255,9 @@ def kernel_cases(dev) -> float:
     for m, d in TOPK_EDGES:
         c, e = _topk_cases(dev, rng, 1100, m, d, (1, 33, 65, 1000), (1, 20, 128), True)
         n, max_err = n + c, max(max_err, e)
+    # TextSAGE's serving and evaluation shape
+    c, e = _topk_cases(dev, rng, 1100, TS_ITEMS, TS_D, (1, 64, 512, 1024), (10, 20), True)
+    n, max_err = n + c, max(max_err, e)
     log(f"kernels: {n} cases equal to the plain version (max abs err {max_err:.3g}); "
         f"no host sync in the wrapper")
     return max_err
@@ -320,6 +373,14 @@ def scatter_cases(dev) -> float:
         (500, np.zeros(0, np.int64), D),  # no rows: a zero table
         (100, np.concatenate([np.full(5000, 7), rng.integers(0, 100, 300)]), D),  # a hub
         (300, np.concatenate([rng.integers(0, 300, 2000), [-3, 300, 10**6]]), 50),  # clamped
+    ]
+    # TextSAGE's tree gathers (Zipf items hit often, as tree neighbours are)
+    # and a categorical gather, at D = 32
+    zipf = np.minimum(rng.zipf(1.2, TS_SCATTER[1][1]) - 1, TS_ITEMS - 1)
+    cases += [
+        (TS_USERS, rng.integers(0, TS_USERS, TS_SCATTER[0][1]), TS_D),
+        (TS_ITEMS, zipf, TS_D),
+        (40, rng.integers(0, 40, TS_SCATTER[2][1]), TS_D),
     ]
     max_err, n_cases = 0.0, 0
     for n, ids, d in cases:
@@ -587,23 +648,188 @@ def scatter_numbers(trainer, dev) -> list:
     of a sampled batch."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     batch = sample_bpr(gen, trainer.graph, TRAIN_B, trainer.config.neg_candidates)
-    rows_gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    cases = [(n, ids) for (n, _), ids in zip(SCATTER_SHAPES, (batch.user, torch.cat([batch.pos, batch.neg])))]
+    assert [ids.shape[0] for _, ids in cases] == [r for _, r in SCATTER_SHAPES]
+    return scatter_numbers_at(cases, dev, D, rows_seed=SEED + 4)
+
+
+def textsage_config() -> Config:
+    return ddp_flagship_config().replace(seed=SEED, topks=(10, 20), eval_user_batch=EVAL_TILE)
+
+
+def textsage_data():
+    """Phase 9's data: the flagship graph and its side features (host)."""
+    t0 = time.perf_counter()
+    ds = synthetic_dataset(n_users=TS_USERS, m_items=TS_ITEMS, avg_degree=TS_DEGREE, seed=SEED)
+    graph = ds.graph
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fs = synthetic_features(ds, textsage_config(), seed=SEED)
+    features_s = time.perf_counter() - t0
+    log(f"textsage data: {ds.n_users} users, {ds.m_items} items, {graph.train_size} train edges "
+        f"({data_s:.1f} s); features ({features_s:.1f} s)")
+    return ds, fs, {"data_s": data_s, "features_s": features_s}
+
+
+def _textsage_model(ds, fs, seed):
+    cfg = textsage_config()
+    return build_model("textsage", cfg, ds.graph, features=fs,
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def serve_textsage(ds, fs, dev, host_s) -> dict:
+    """Phase 9: the flagship's serving path and its numbers."""
+    cfg = textsage_config()
+    model = _textsage_model(ds, fs, SEED)
+    params = params_to_numpy(model)
+    users = {b: np.random.default_rng(SEED + 10 + b).choice(ds.n_users, size=b, replace=False)
+             for b in TS_TILES}
+
+    st.launches = sc.launches = 0
+    t0 = time.perf_counter()
+    rec = Recommender(model, ds, cfg, None, device="cuda")
+    torch.cuda.synchronize()
+    first_refresh_s = time.perf_counter() - t0
+    answers = {}
+    for b in TS_TILES:
+        before = st.launches
+        answers[b] = rec.recommend(users[b], k=TS_K)
+        assert st.launches == before + 1, "a request did not launch the kernel"
+    srv = make_server(rec, host="127.0.0.1", port=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        before = st.launches
+        one = json.load(urllib.request.urlopen(f"{base}/recommend?user=17&k={TS_K}", timeout=60))
+        req = urllib.request.Request(
+            f"{base}/recommend", data=json.dumps({"users": [3, ds.n_users - 1], "k": TS_K}).encode(),
+            method="POST",
+        )
+        batch = json.load(urllib.request.urlopen(req, timeout=60))
+        assert st.launches == before + 2, "an HTTP request did not launch the kernel"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
+    assert not th.is_alive()
+    assert launches["scatter_add_rows"] == 0, "the serve path launched the scatter kernel"
+
+    U, I = rec._user_emb, rec._item_emb
+    mask = (rec._mask.indptr, rec._mask.indices)
+    max_err = 0.0
+    pos = ds.all_pos()
+    for b, (ids, scores) in answers.items():
+        assert ids.shape == (b, TS_K) and np.isfinite(scores).all()
+        rv, ri = st.masked_topk_reference(U, I, torch.from_numpy(users[b]).to(dev), TS_K, *mask)
+        max_err = max(max_err, compare(torch.from_numpy(scores), torch.from_numpy(ids), rv, ri, exact=False))
+        for u, row in zip(users[b], ids):
+            assert not set(row.tolist()) & set(pos[u].tolist()), "a train positive was served"
+    assert one["items"] == rec.recommend([17], k=TS_K)[0][0].tolist()
+    assert [r["items"] for r in batch] == rec.recommend([3, ds.n_users - 1], k=TS_K)[0].tolist()
+
+    # the propagation on the card against the CPU's on the same parameters
+    cpu_model = build_model("textsage", cfg, ds.graph, features=fs)
+    params_from_jax(params, cpu_model)
+    with torch.no_grad():
+        cu, ci = cpu_model.propagate(ds.graph)
+    got = torch.cat([U, I]).cpu().numpy()
+    want = torch.cat([cu, ci]).numpy()
+    assert got.shape == (ds.n_users + ds.m_items, TS_D) and np.isfinite(got).all()
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-3 * scale)
+    prop_err = float(np.abs(got - want).max())
+    log(f"serve-textsage: {len(answers) + 2} requests, {launches['masked_topk']} masked_topk launches, "
+        f"answers equal to the plain version (max abs err {max_err:.3g}); propagation equal to the "
+        f"CPU's (max abs err {prop_err:.3g} of max |x| {scale:.3g}); first refresh {first_refresh_s:.2f} s")
+
+    refresh_ms = host_ms(lambda: rec.refresh(None), reps=10)
+    refresh_profile = device_profile(lambda: rec.refresh(None), n=5)
+    if refresh_profile is not None:
+        log(f"serve-textsage: refresh {refresh_ms:.3f} ms on the host, "
+            f"{refresh_profile['device_ms']:.3f} ms on the device")
+    tiles = []
+    pos_csr = CSR(*mask)
+    for b in TS_TILES + (EVAL_TILE,):
+        u = torch.from_numpy(np.random.default_rng(SEED + 20 + b).choice(ds.n_users, b, replace=False)).to(dev)
+        tiles.append(topk_numbers(U, I, u, TS_K, mask, pos_csr, dev,
+                                  request=(lambda u=u: rec.recommend(u.cpu().numpy(), k=TS_K))))
+    return {
+        **host_s,
+        "first_refresh_s": first_refresh_s,
+        "refresh_ms": refresh_ms,
+        "refresh_profile": refresh_profile,
+        "launches": launches,
+        "max_abs_err": max_err,
+        "propagate_vs_cpu_max_abs_err": prop_err,
+        "tiles": tiles,
+    }
+
+
+def topk_numbers(U, I, users, k, mask, pos_csr, dev, request=None) -> dict:
+    """masked_topk's times at one tile, beside its plain version's, the
+    library call's (matmul + index_put_ + topk) and its bound."""
+    b, d, m = users.shape[0], U.shape[1], I.shape[0]
+    deg = pos_csr.degrees()[users.long()]
+    cols, valid = csr_gather_padded(pos_csr, users, int(deg.max()))
+    rows = torch.arange(b, device=dev)[:, None].expand_as(cols)
+    mrows, mcols = rows[valid], cols[valid].long()
+    sentinel = torch.tensor(float(st.MASK_SENTINEL), device=dev)
+
+    def library():
+        s = U[users] @ I.T
+        s.index_put_((mrows, mcols), sentinel)
+        return torch.topk(s, k)
+
+    nbytes = 4 * (I.numel() + b * d + b + 2 * b + int(deg.sum())) + 12 * b * k
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, 2 * b * m * d / F32_FLOP_PER_S
+    out = {
+        "B": b, "k": k, "M": m, "d": d,
+        "ms": event_ms(lambda: st.masked_topk(U, I, users, k, *mask)),
+        "plain_ms": event_ms(lambda: st.masked_topk_reference(U, I, users, k, *mask)),
+        "library_ms": event_ms(library),
+        "bound_ms": 1e3 * max(t_bytes, t_flops),
+        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "kernel_profile": device_profile(lambda: st.masked_topk(U, I, users, k, *mask)),
+    }
+    if request is not None:
+        out["request_ms"] = host_ms(request)
+        out["request_profile"] = device_profile(request)
+    return out
+
+
+def tree_gather_ids(model, graph, batch, gen):
+    """The ids a flagship step's two table gathers take: every level of the
+    (user, pos, neg) trees, users and items apart, in the model's order."""
+    ids = {"user": [], "item": []}
+    for seeds, side in ((batch.user, "user"), (batch.pos, "item"), (batch.neg, "item")):
+        tree = model.sample_seed_tree(graph, seeds, side, gen)
+        for s, lvl in zip(model._sides(side), [seeds] + [t.ids for t in tree]):
+            ids[s].append(lvl.reshape(-1))
+    return torch.cat(ids["user"]), torch.cat(ids["item"])
+
+
+def scatter_numbers_at(cases, dev, d, rows_seed) -> list:
+    """scatter_add_rows at each (N, ids) with Gaussian rows of width d: the
+    call against index_add_ in ten alternating rounds (the two are close and
+    host-bound), the plain version, the bound and the device profiles."""
+    rows_gen = torch.Generator(device=dev).manual_seed(rows_seed)
     out = []
-    for (n, r), ids in zip(SCATTER_SHAPES, (batch.user, torch.cat([batch.pos, batch.neg]))):
-        assert ids.shape[0] == r
-        rows = torch.randn((r, D), generator=rows_gen, device=dev)
+    for n, ids in cases:
+        r = ids.shape[0]
+        rows = torch.randn((r, d), generator=rows_gen, device=dev)
         ids_long = ids.long()
-        t_bytes = 4 * r * (D + 1) / HBM_BYTES_PER_S + 4 * n * D / HBM_BYTES_PER_S
-        t_flops = r * D / F32_FLOP_PER_S
+        t_bytes = 4 * r * (d + 1) / HBM_BYTES_PER_S + 4 * n * d / HBM_BYTES_PER_S
+        t_flops = r * d / F32_FLOP_PER_S
 
-        def library():
-            return torch.zeros((n, D), device=dev).index_add_(0, ids_long, rows)
+        def library(n=n, ids_long=ids_long, rows=rows):
+            return torch.zeros((n, d), device=dev).index_add_(0, ids_long, rows)
 
-        # the call and index_add_'s are close and host-bound: taken in turns
-        alt = alternating_ms({"kernel": lambda: sc.scatter_add_rows(ids, rows, n),
+        alt = alternating_ms({"kernel": lambda n=n, ids=ids, rows=rows: sc.scatter_add_rows(ids, rows, n),
                               "library": library})
         out.append({
-            "N": n, "R": r, "D": D,
+            "N": n, "R": r, "D": d,
             "ms": alt["kernel"]["ms"],
             "plain_ms": event_ms(lambda: sc.scatter_add_rows_reference(ids, rows, n)),
             "library_ms": alt["library"]["ms"],
@@ -611,10 +837,125 @@ def scatter_numbers(trainer, dev) -> list:
             "bound_ms": 1e3 * max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "distinct_ids": int(torch.unique(ids).numel()),
+            "largest_id_share": float(torch.bincount(ids_long, minlength=n).max()) / r,
             "kernel_profile": device_profile(lambda: sc.scatter_add_rows(ids, rows, n)),
             "library_profile": device_profile(library),
         })
     return out
+
+
+def train_textsage(ds, fs, dev) -> tuple:
+    """Phase 10: the flagship's training path; returns (trainer, facts)."""
+    cfg = textsage_config()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, ds, _textsage_model(ds, fs, SEED + 1), logger=MetricLogger(quiet=True),
+                      ddp_recipe=True, device=dev)
+    trainer.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_tiles = int(trainer.eval_data.users.shape[0])
+    bs = cfg.bpr_batch_size
+    warm = sample_bpr(trainer.generator, trainer.graph, TS_WARMUP * bs, cfg.neg_candidates,
+                      edge_alias=trainer.edge_alias, neg_alias=trainer.neg_alias)
+
+    sc.launches = st.launches = 0
+    t0 = time.perf_counter()
+    before = trainer.test()
+    first_eval_s = time.perf_counter() - t0
+    for i in range(TS_WARMUP):
+        trainer.train_step(warm.slice(i * bs, (i + 1) * bs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean_loss = trainer.train_one_epoch()  # ends in the epoch's one host sync
+    epoch_s = time.perf_counter() - t0
+    losses = trainer.epoch_losses.cpu().numpy()
+    t0 = time.perf_counter()
+    after = trainer.test()
+    eval_s = time.perf_counter() - t0
+    launches = {"scatter_add_rows": sc.launches, "masked_topk": st.launches}
+
+    steps = TS_WARMUP + trainer.num_batches
+    tenth = max(1, len(losses) // 10)
+    first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
+    assert launches["scatter_add_rows"] == 2 * steps, f"scatter launched {launches} in {steps} steps"
+    assert launches["masked_topk"] == 2 * n_tiles, f"masked_topk launched {launches} for {n_tiles} tiles"
+    for res in (before, after):
+        assert all(np.isfinite(v) for v in res.values()), res
+    assert np.isfinite(losses).all() and last < first, f"loss did not fall: {first} -> {last}"
+    log(f"train-textsage: {trainer.num_batches} steps of {bs} triplets in {epoch_s:.2f} s "
+        f"({trainer.samples_per_epoch / epoch_s:.0f} samples/s), loss {first:.5f} -> {last:.5f} "
+        f"(first and last tenth), recall@20 {before['recall@20']:.5f} -> {after['recall@20']:.5f}; "
+        f"scatter launches {launches['scatter_add_rows']} ({launches['scatter_add_rows'] / steps:g} per "
+        f"step), masked_topk launches {launches['masked_topk']} ({n_tiles} tiles per evaluation)")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    su, si = trainer.model.propagate_sampled(trainer.graph, gen)
+    torch.cuda.synchronize()
+    sample_inference_s = time.perf_counter() - t0
+    assert su.shape == (ds.n_users, TS_D) and si.shape == (ds.m_items, TS_D)
+    assert bool(torch.isfinite(su).all()) and bool(torch.isfinite(si).all())
+    log(f"train-textsage: --inference sample over {ds.n_users + ds.m_items} entities in "
+        f"{sample_inference_s:.2f} s")
+    return trainer, {
+        "steps_per_epoch": trainer.num_batches,
+        "samples_per_epoch": trainer.samples_per_epoch,
+        "epoch_s": epoch_s,
+        "samples_per_s": trainer.samples_per_epoch / epoch_s,
+        "step_ms": 1e3 * epoch_s / trainer.num_batches,
+        "loss_mean": mean_loss,
+        "loss_first_last_tenth": [first, last],
+        "recall@20": [before["recall@20"], after["recall@20"]],
+        "ndcg@20": [before["ndcg@20"], after["ndcg@20"]],
+        "eval_s": eval_s,
+        "first_eval_s": first_eval_s,
+        "setup_s": setup_s,
+        "eval_tiles": n_tiles,
+        "launches": launches,
+        "scatter_launches_per_step": launches["scatter_add_rows"] / steps,
+        "sample_inference_s": sample_inference_s,
+    }
+
+
+def card_vs_cpu_textsage(ds, fs, trainer) -> dict:
+    """Phase 10's card-against-CPU step (dropout 0)."""
+    cfg = trainer.config
+    params = params_to_numpy(trainer.model)
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 9)
+    batch = sample_bpr(gen, trainer.graph, cfg.bpr_batch_size, cfg.neg_candidates,
+                       edge_alias=trainer.edge_alias, neg_alias=trainer.neg_alias)
+    trees = [trainer.model.sample_seed_tree(trainer.graph, s, side, gen)
+             for s, side in ((batch.user, "user"), (batch.pos, "item"), (batch.neg, "item"))]
+    out = {}
+    rate, sage.DROPOUT_RATE = sage.DROPOUT_RATE, 0.0
+    try:
+        for name, dev, graph in (("card", trainer.device, trainer.graph),
+                                 ("cpu", torch.device("cpu"), ds.graph)):
+            model = build_model("textsage", cfg, ds.graph, features=fs)
+            params_from_jax(params, model)
+            model.to(dev)
+            opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+            loss, _ = model.loss(graph, batch.to(dev), trees=[[lvl.to(dev) for lvl in t] for t in trees])
+            loss.backward()
+            opt.step()
+            out[name] = (flatten_params(params_to_numpy(model)), float(loss.detach()))
+    finally:
+        sage.DROPOUT_RATE = rate
+    (pc, lc), (pp, lp) = out["card"], out["cpu"]
+    np.testing.assert_allclose(lc, lp, rtol=1e-4)
+    worst, off, total = 0.0, 0, 0
+    for k in pp:
+        diff = np.abs(pc[k] - pp[k])
+        assert (diff <= 2 * cfg.lr).all(), f"{k}: {diff.max()}"
+        off += int((diff > 1e-6 + 1e-5 * np.abs(pp[k])).sum())
+        total += diff.size
+        worst = max(worst, float(diff.max()))
+    assert off <= 1e-3 * total, f"{off} of {total} parameters differ"
+    log(f"textsage card vs CPU: loss {lc} / {lp}; parameters within 1e-6 + 1e-5 |p| but "
+        f"{off} of {total} (max abs diff {worst:.3g})")
+    return {"loss_card": lc, "loss_cpu": lp, "params_off": off, "params_total": total,
+            "max_abs_diff": worst}
 
 
 def main() -> int:
@@ -729,32 +1070,8 @@ def main() -> int:
     pos_csr = CSR(*mask)
     for b, k in [(b, k) for b in TILES for k in (10, 20)] + [(EVAL_TILE, 20)]:
         users = torch.from_numpy(request_users[b]).to(dev)
-        deg = pos_csr.degrees()[users.long()]
-        pad_to = int(deg.max())
-        cols, valid = csr_gather_padded(pos_csr, users, pad_to)
-        rows = torch.arange(b, device=dev)[:, None].expand_as(cols)
-        mrows, mcols = rows[valid], cols[valid].long()
-        sentinel = torch.tensor(float(st.MASK_SENTINEL), device=dev)
-
-        def library():
-            s = U[users] @ I.T
-            s.index_put_((mrows, mcols), sentinel)
-            return torch.topk(s, k)
-
-        nbytes = 4 * (I.numel() + b * D + b + 2 * b + int(deg.sum())) + 12 * b * k
-        flops = 2 * b * ds.m_items * D
-        t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-        tiles.append({
-            "B": b, "k": k,
-            "ms": event_ms(lambda: st.masked_topk(U, I, users, k, *mask)),
-            "plain_ms": event_ms(lambda: st.masked_topk_reference(U, I, users, k, *mask)),
-            "library_ms": event_ms(library),
-            "bound_ms": 1e3 * max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "request_ms": host_ms(lambda: rec.recommend(request_users[b], k=k)),
-            "kernel_profile": device_profile(lambda: st.masked_topk(U, I, users, k, *mask)),
-            "request_profile": device_profile(lambda: rec.recommend(request_users[b], k=k)),
-        })
+        tiles.append(topk_numbers(U, I, users, k, mask, pos_csr, dev,
+                                  request=lambda b=b, k=k: rec.recommend(request_users[b], k=k)))
     head = next(t for t in tiles if t["B"] == 512 and t["k"] == 20)
     eval_tile = next(t for t in tiles if t["B"] == EVAL_TILE)
 
@@ -785,13 +1102,60 @@ def main() -> int:
         train["idle_share_unprofiled"] = 1.0 - train["step_profile"]["device_ms"] / train["step_ms"]
     sc_shapes = scatter_numbers(trainer, dev)
     sc_head = sc_shapes[0]
+    del trainer, rec
+
+    # 9. serve-textsage-100k
+    ts_ds, ts_fs, ts_host = textsage_data()
+    ts_serve = serve_textsage(ts_ds, ts_fs, dev, ts_host)
+
+    # 10. train-textsage-100k
+    ts_trainer, ts_train = train_textsage(ts_ds, ts_fs, dev)
+    ts_train["eval_vs_plain"] = eval_kernel_vs_plain(ts_trainer)
+    ts_train["card_vs_cpu"] = card_vs_cpu_textsage(ts_ds, ts_fs, ts_trainer)
+
+    # 11. numbers
+    cfg_ts = ts_trainer.config
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    ts_batch = sample_bpr(gen, ts_trainer.graph, cfg_ts.bpr_batch_size, cfg_ts.neg_candidates,
+                          edge_alias=ts_trainer.edge_alias, neg_alias=ts_trainer.neg_alias)
+    ts_train["host_syncs_per_step"] = host_syncs(lambda: ts_trainer.train_step(ts_batch))
+    ts_train["host_syncs_sampler"] = host_syncs(ts_trainer.sample_epoch)
+    torch.cuda.synchronize()
+    ts_train["step_profile"] = split_profile(lambda: ts_trainer.train_step(ts_batch), n=20)
+    ts_train["sampler_profile"] = split_profile(ts_trainer.sample_epoch, n=1)
+    ts_train["eval_profile"] = split_profile(ts_trainer.test, n=1)
+    if ts_train["step_profile"] is not None:
+        ts_train["idle_share_unprofiled"] = (
+            1.0 - ts_train["step_profile"]["device_ms"] / ts_train["step_ms"])
+        split = ", ".join(f"{k} {v:.3f}" for k, v in ts_train["step_profile"]["split_ms"].items())
+        log(f"train-textsage: {ts_train['samples_per_s']:.0f} samples/s; a step {ts_train['step_ms']:.2f} ms "
+            f"on the host, {ts_train['step_profile']['device_ms']:.3f} ms on the device ({split}); "
+            f"idle {ts_train['idle_share_unprofiled']:.3f}")
+    user_ids, item_ids = tree_gather_ids(ts_trainer.model, ts_trainer.graph, ts_batch, gen)
+    assert (user_ids.numel(), item_ids.numel()) == tuple(r for _, r in TS_SCATTER[:2])
+    cat_ids = torch.randint(0, TS_SCATTER[2][0], (TS_SCATTER[2][1],), generator=gen, device=dev,
+                            dtype=torch.int32)
+    ts_sc_shapes = scatter_numbers_at(
+        [(TS_USERS, user_ids), (TS_ITEMS, item_ids), (TS_SCATTER[2][0], cat_ids)], dev, TS_D,
+        rows_seed=SEED + 7)
+    ts_head = next(t for t in ts_serve["tiles"] if t["B"] == 512)
+
+    ts_serve_launches = ts_serve["launches"]["masked_topk"]
+    ts_train_launches = ts_train["launches"]
     kernels = [{
         "name": "masked_topk",
         "route": "cuda",
         "source": "furusato_recommend_tpu_torch/csrc/streaming_topk.cu",
         "replaces": "furusato_recommend_tpu/ops/pallas_topk.py:152",
-        "launches": serve_launches + train["launches"]["masked_topk"],
-        "launches_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"]},
+        "launches": (serve_launches + train["launches"]["masked_topk"] + ts_serve_launches
+                     + ts_train_launches["masked_topk"]),
+        "launches_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"],
+                             "serve_textsage": ts_serve_launches,
+                             "train_textsage": ts_train_launches["masked_topk"]},
+        "textsage": {"at": {"B": 512, "k": TS_K, "M": ts_ds.m_items, "d": TS_D},
+                     **{key: ts_head[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                      "bound_by")},
+                     "tiles": ts_serve["tiles"]},
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -808,9 +1172,13 @@ def main() -> int:
         "route": "cuda",
         "source": "furusato_recommend_tpu_torch/csrc/scatter_add_rows.cu",
         "replaces": "furusato_recommend_tpu/ops/pallas_scatter.py:97",
-        "launches": train["launches"]["scatter_add_rows"],
-        "launches_by_path": {"serve": 0, "train": train["launches"]["scatter_add_rows"]},
+        "launches": train["launches"]["scatter_add_rows"] + ts_train_launches["scatter_add_rows"],
+        "launches_by_path": {"serve": 0, "train": train["launches"]["scatter_add_rows"],
+                             "serve_textsage": ts_serve["launches"]["scatter_add_rows"],
+                             "train_textsage": ts_train_launches["scatter_add_rows"]},
         "launches_per_step": train["scatter_launches_per_step"],
+        "launches_per_step_textsage": ts_train["scatter_launches_per_step"],
+        "textsage_shapes": ts_sc_shapes,
         "max_abs_err": sc_max_err,
         "ms": sc_head["ms"],
         "plain_ms": sc_head["plain_ms"],
@@ -831,6 +1199,13 @@ def main() -> int:
         "model": "lgn", "d": D, "layers": 2, "B": TRAIN_B, "lr": TRAIN_LR,
         "compute_dtype": "bfloat16", "users": ds.n_users, "items": ds.m_items,
         "train_edges": ds.train_size, **train}}))
+    ts_shape = {"model": "textsage", "d": TS_D, "layers": cfg_ts.n_layers, "fanout": cfg_ts.num_neighbors,
+                "compute_dtype": cfg_ts.compute_dtype, "users": ts_ds.n_users, "items": ts_ds.m_items,
+                "train_edges": ts_ds.train_size}
+    log(json.dumps({"serve_textsage": {**ts_shape, **ts_serve}}))
+    log(json.dumps({"train_textsage": {**ts_shape, "B": cfg_ts.bpr_batch_size, "lr": cfg_ts.lr,
+                                       **ts_train}}))
+    log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -4,10 +4,13 @@
         --bpr_batch 8192 --lr 1e-3 --data_path ./data [--device cpu]
 
 The flags are the JAX package's, plus ``--device`` (default ``cuda``; raises
-without CUDA unless ``--device cpu``). The MF / LightGCN family trains (``mf``,
-``lgn``, ``rgcn``, ``radj``, ``lgcnssm``); other models, the weighted sampling
-recipes, ``--inference sample``, a mesh and the wandb / tensorboard sinks are
-not ported yet and raise.
+without CUDA unless ``--device cpu``). The MF / LightGCN family trains, and so
+does the SAGE family's ported part (``textsage``, ``textsage_id``, ``sage``,
+``fsage``, ``fastsage``, ``lightsage``, ``pinsage``, ``mrec``, ``nssage``,
+``gnn``), on the reference's feature artifacts under ``--data_path``
+(``data/features.py::load_reference_features``), with ``--ddp_recipe``,
+``--sample_pow`` and ``--inference sample``. Other models, a mesh and the
+wandb / tensorboard sinks are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -42,16 +45,21 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=1000)
     p.add_argument("--seed", type=int, default=2020)
     p.add_argument("--model", type=str, default="lgn")
+    p.add_argument("--train_emb", action="store_true")
     p.add_argument("--sample_pow", type=float, default=0.0)
     p.add_argument("--r", type=float, default=0.5)
     p.add_argument("--test_span", type=int, default=10)
     p.add_argument("--suffix", type=str, default="")
+    p.add_argument("--conv", type=str, default="gcn")
     p.add_argument("--for_lgbm", action="store_true")
     p.add_argument("--lgbm_ratio", type=float, default=0.1)
     p.add_argument("--cold_start", action="store_true")
+    p.add_argument("--user_feature", type=str, default="ntw")
+    p.add_argument("--item_feature", type=str, default="ntw")
+    p.add_argument("--factorization", action="store_true")
     p.add_argument("--mesh_data", type=int, default=1)
     p.add_argument("--mesh_model", type=int, default=1)
-    p.add_argument("--ddp_recipe", action="store_true")
+    p.add_argument("--ddp_recipe", action="store_true", help="weighted+capped DDP sampler recipe")
     p.add_argument("--loss_fn", type=str, default="bpr", choices=["bpr", "infonce"])
     p.add_argument("--auc", action="store_true")
     p.add_argument("--device", type=str, default="cuda")
@@ -76,13 +84,18 @@ def config_from_args(args: argparse.Namespace) -> Config:
         test_span=args.test_span,
         seed=args.seed,
         r=args.r,
+        conv=args.conv,
         inference=args.inference,
+        train_emb=args.train_emb,
         sample_pow=args.sample_pow,
+        factorization=args.factorization,
         test_mode=args.test,
         cold_start=args.cold_start,
         for_lgbm=args.for_lgbm,
         lgbm_ratio=args.lgbm_ratio,
         suffix=args.suffix,
+        user_feature=args.user_feature,
+        item_feature=args.item_feature,
         path=args.path,
         data_path=args.data_path,
         wandb=args.wandb,
@@ -93,6 +106,20 @@ def config_from_args(args: argparse.Namespace) -> Config:
         loss_fn=args.loss_fn,
         compute_auc=args.auc,
     )
+
+
+def build_model_inputs(config: Config, dataset):
+    """(graph, model keyword arguments) for ``build_model``: the SAGE-family
+    keys get ``features=``, the reference's artifacts under
+    config.data_path."""
+    from .models.registry import SAGE_KEYS
+
+    model_kw = {}
+    if config.model in SAGE_KEYS:
+        from .data.features import load_reference_features
+
+        model_kw["features"] = load_reference_features(config, config.data_path)
+    return dataset.graph, model_kw
 
 
 def main(argv=None):
@@ -114,7 +141,8 @@ def main(argv=None):
         f"{dataset.train_size} train / {dataset.test_size} test interactions; "
         f"sparsity {dataset.sparsity():.6f}"
     )
-    model = build_model(config.model, config, dataset.graph)
+    graph, model_kw = build_model_inputs(config, dataset)
+    model = build_model(config.model, config, graph, **model_kw)
     logger = MetricLogger(jsonl_path=f"{config.path}/{config.model}/metrics.jsonl")
     try:
         trainer = Trainer(config, dataset, model, logger=logger, ddp_recipe=args.ddp_recipe, device=device)

@@ -1,10 +1,10 @@
 """Typed configuration: the port's own copy of ``furusato_recommend_tpu.config``.
 
 Same fields, defaults, validation and JSON form as the JAX package's ``Config``,
-so a config JSON written by either package reads in both. Fields that only the
-JAX package's trainer or mesh code reads are kept for that round trip; the port
-reads the ones its modules use (model, latent_dim, n_layers, r, seed,
-compute_dtype, data_path and the dataset slicing flags).
+so a config JSON written by either package reads in both; ``ddp_flagship_config``
+is its flagship recipe. Fields that only the JAX package's XLA or mesh code
+reads (``pipeline_dispatch``, ``compile_cache``, ``donate_params``, ``mesh``
+beyond one device, ...) are kept for that round trip.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import json
 from dataclasses import dataclass, field
 from typing import Sequence
 
-__all__ = ["Config", "MeshConfig"]
+__all__ = ["Config", "MeshConfig", "ddp_flagship_config"]
 
 USER_FEATURE_ALPHABET = "ncwtbs"
 ITEM_FEATURE_ALPHABET = "ncwtsrb"
@@ -151,3 +151,25 @@ class Config:
         known = {f.name for f in dataclasses.fields(cls)}
         d = {k: v for k, v in d.items() if k in known}
         return cls(**d)
+
+
+def ddp_flagship_config() -> Config:
+    """The reference's DDP flagship recipe: TextSAGE, d = 32, 2 layers,
+    fanout 5, batch 5000, lr 1e-3, decay 1e-6, features n / w / t, 200 epochs,
+    3 x the dataset's size in samples an epoch (train with
+    ``Trainer(..., ddp_recipe=True)``)."""
+    return Config(
+        model="textsage",
+        latent_dim=32,
+        n_layers=2,
+        num_neighbors=5,
+        bpr_batch_size=5000,
+        lr=1e-3,
+        decay=1e-6,
+        user_feature="nwt",
+        item_feature="nwt",
+        epochs=200,
+        train_iterative=3,
+        positive_num_limit=3000,
+        negative_pow=0.2,
+    )

@@ -1,8 +1,11 @@
 """Parameters across the two packages.
 
 The JAX package keeps a model's parameters as a dict of arrays (for the MF /
-LightGCN family ``{"user_emb": [N, d], "item_emb": [M, d]}``); the port keeps
-them as ``nn.Parameter``s of the same names on the module.
+LightGCN family ``{"user_emb": [N, d], "item_emb": [M, d]}``); the SAGE family
+nests its conv layers' dicts in a list, ``{"layers": [{"w": ...}, ...],
+...}``. The port keeps them as ``nn.Parameter``s of the same names on the
+module, a layer's as ``layers.{i}.{name}`` (``flatten_params`` maps the
+nested tree to those names, ``nest_params`` back).
 
 Adam's state: ``optax.adam`` keeps ``ScaleByAdamState(count, mu, nu)`` with
 ``mu`` / ``nu`` trees shaped like the parameters; ``torch.optim.Adam`` keeps,
@@ -18,13 +21,51 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_jax", "params_to_numpy", "adam_state_from_jax", "adam_state_to_numpy"]
+__all__ = [
+    "params_from_jax", "params_to_numpy", "adam_state_from_jax", "adam_state_to_numpy",
+    "flatten_params", "nest_params",
+]
+
+
+def flatten_params(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX parameter tree with its ``layers`` list spelled out as
+    ``layers.{i}.{name}``; a flat dict comes back as it is."""
+    flat = {k: v for k, v in tree.items() if k != "layers"}
+    for i, layer in enumerate(tree.get("layers", ())):
+        flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    return flat
+
+
+def nest_params(flat: Mapping[str, Any], n_layers: int = 0) -> Dict[str, Any]:
+    """Inverse of ``flatten_params``: ``layers.{i}.{name}`` back into the
+    ``layers`` list of dicts, which has at least ``n_layers`` entries (a
+    conv without parameters has empty ones) and is present when any name
+    has that form or ``n_layers`` > 0."""
+    tree: Dict[str, Any] = {}
+    layers: Dict[int, Dict[str, Any]] = {}
+    for name, v in flat.items():
+        if name.startswith("layers."):
+            _, i, key = name.split(".", 2)
+            layers.setdefault(int(i), {})[key] = v
+        else:
+            tree[name] = v
+    n = max([n_layers] + [i + 1 for i in layers])
+    if n:
+        tree["layers"] = [layers.get(i, {}) for i in range(n)]
+    return tree
+
+
+def _n_layers(model: nn.Module) -> int:
+    layers = getattr(model, "layers", None)
+    return len(layers) if isinstance(layers, nn.ModuleList) else 0
 
 
 def params_from_jax(np_params: Mapping[str, Any], model: nn.Module) -> nn.Module:
-    """Copy the JAX parameter dict (numpy arrays, or tensors) into ``model``'s
-    parameters of the same names, on the model's device. Every parameter of
-    the model must be given, with its shape."""
+    """Copy the JAX parameter tree (numpy arrays, or tensors; nested as the
+    JAX package keeps it, or flat) into ``model``'s parameters of the same
+    names, on the model's device. Every parameter of the model must be
+    given, with its shape."""
+    np_params = flatten_params(np_params)
     own = dict(model.named_parameters())
     if set(np_params) != set(own):
         raise KeyError(f"parameters {sorted(np_params)} do not match the model's {sorted(own)}")
@@ -39,9 +80,12 @@ def params_from_jax(np_params: Mapping[str, Any], model: nn.Module) -> nn.Module
     return model
 
 
-def params_to_numpy(model: nn.Module) -> Dict[str, np.ndarray]:
-    """The model's parameters as a dict of numpy arrays, the JAX layout."""
-    return {name: p.detach().cpu().numpy() for name, p in model.named_parameters()}
+def params_to_numpy(model: nn.Module) -> Dict[str, Any]:
+    """The model's parameters as numpy arrays in the JAX layout (a conv
+    layer's inside the ``layers`` list)."""
+    return nest_params(
+        {name: p.detach().cpu().numpy() for name, p in model.named_parameters()}, _n_layers(model)
+    )
 
 
 def _as_tensor(value) -> torch.Tensor:
@@ -56,7 +100,9 @@ def adam_state_from_jax(
     model: nn.Module,
 ) -> torch.optim.Adam:
     """Set ``optimizer``'s state for each of ``model``'s parameters from the
-    optax moments ``mu`` / ``nu`` (name -> array) after ``count`` steps."""
+    optax moments ``mu`` / ``nu`` (trees like the parameters', nested or
+    flat) after ``count`` steps."""
+    mu, nu = flatten_params(mu), flatten_params(nu)
     own = dict(model.named_parameters())
     if set(mu) != set(own) or set(nu) != set(own):
         raise KeyError(f"moments {sorted(mu)} / {sorted(nu)} do not match the model's {sorted(own)}")
@@ -75,16 +121,18 @@ def adam_state_from_jax(
 
 def adam_state_to_numpy(
     optimizer: torch.optim.Adam, model: nn.Module
-) -> Tuple[int, Dict[str, np.ndarray], Dict[str, np.ndarray]]:
-    """(count, mu, nu) in the optax layout; zeros before the first step."""
+) -> Tuple[int, Dict[str, Any], Dict[str, Any]]:
+    """(count, mu, nu) in the optax layout (nested as ``params_to_numpy``);
+    zeros before the first step."""
     count, mu, nu = 0, {}, {}
     for name, p in model.named_parameters():
         st = optimizer.state.get(p)
         if st:
+            # a parameter that never had a gradient has no state yet
             count = int(st["step"])
             mu[name] = st["exp_avg"].detach().cpu().numpy()
             nu[name] = st["exp_avg_sq"].detach().cpu().numpy()
         else:
             mu[name] = np.zeros(tuple(p.shape), np.float32)
             nu[name] = np.zeros(tuple(p.shape), np.float32)
-    return count, mu, nu
+    return count, nest_params(mu, _n_layers(model)), nest_params(nu, _n_layers(model))

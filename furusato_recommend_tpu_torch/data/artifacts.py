@@ -1,0 +1,84 @@
+"""Seeded synthetic side features for a text dataset, written in the
+reference's artifact layout, so the SAGE family can train on that dataset
+through the CLIs (``features.load_reference_features`` reads them back).
+
+    python -m furusato_recommend_tpu_torch.data.artifacts --data_path ./data [--seed 0] [--suffix ""]
+
+The dataset is ``{data_path}/cf/train{suffix}.txt`` + ``test{suffix}.txt``;
+the features are ``synthetic_features`` with every flag (numeric,
+categorical, word2vec, sentence, bert and the four text fields), written as
+``cb/*.npy``, ``text/*.npy``, ``text/*_deberta_feature*.pt`` and pickled
+scipy CSR count matrices ``text/*_count*.pkl`` / ``text/product_review*.pkl``.
+Writing the count matrices needs scipy, the reference's format.
+"""
+
+from __future__ import annotations
+
+import argparse
+import pickle
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..config import Config
+from .dataset import load_text_dataset
+from .features import TEXT_FIELDS, FeatureStore, synthetic_features
+
+__all__ = ["write_reference_features"]
+
+_FIELD_NAMES = ("name", "main_comment", "main_list_comment")
+
+
+def _counts(text: np.ndarray, vocab: int):
+    """[N, W] padded word ids -> an N x vocab scipy CSR matrix of ones."""
+    import scipy.sparse as sp
+
+    rows, cols = np.nonzero(text >= 0)
+    return sp.csr_matrix(
+        (np.ones(len(rows), np.int64), (rows, text[rows, cols])), shape=(text.shape[0], vocab)
+    )
+
+
+def write_reference_features(store: FeatureStore, base_path, suffix: str = "") -> None:
+    """Every array of ``store`` (all of them present) under ``base_path`` in
+    the reference's names."""
+    base = Path(base_path)
+    cb = base / "cb" / suffix if suffix else base / "cb"
+    tx = base / "text" / suffix if suffix else base / "text"
+    cb.mkdir(parents=True, exist_ok=True)
+    tx.mkdir(parents=True, exist_ok=True)
+    for side, prefix, long_prefix, f in (
+        ("user", "user", "customer", store.user),
+        ("item", "product", "product", store.item),
+    ):
+        np.save(cb / f"{prefix}_numeric_feature{suffix}.npy", f.numeric.numpy())
+        np.save(cb / f"{long_prefix}_feature_pad{suffix}.npy", f.categorical.numpy())
+        np.save(tx / f"{prefix}_text_emb{suffix}.npy", f.word2vec.numpy())
+        torch.save(f.bert, tx / f"{long_prefix}_deberta_feature{suffix}.pt")
+        text = f.text.numpy()
+        for i, field in enumerate(_FIELD_NAMES[:TEXT_FIELDS]):
+            with open(tx / f"{prefix}_{field}_count{suffix}.pkl", "wb") as out:
+                pickle.dump(_counts(text[:, i], store.text_vocab), out)
+        if side == "item":
+            np.save(cb / f"product_sentence_emb{suffix}.npy", f.sentence.numpy())
+            review = text[:, TEXT_FIELDS] if text.shape[1] > TEXT_FIELDS else np.full(text.shape[::2], -1)
+            with open(tx / f"product_review{suffix}.pkl", "wb") as out:
+                pickle.dump(_counts(review, store.text_vocab), out)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="furusato_recommend_tpu_torch.data.artifacts")
+    ap.add_argument("--data_path", default="./data")
+    ap.add_argument("--suffix", default="")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    config = Config(data_path=args.data_path, suffix=args.suffix, user_feature="ncwtb",
+                    item_feature="ncwtsrb")
+    dataset = load_text_dataset(config)
+    write_reference_features(synthetic_features(dataset, config, seed=args.seed), args.data_path, args.suffix)
+    print(f"wrote features of {dataset.n_users} users and {dataset.m_items} items under {args.data_path}")
+
+
+if __name__ == "__main__":
+    main()

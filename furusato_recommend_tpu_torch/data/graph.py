@@ -9,9 +9,15 @@
 Host construction is numpy, in exactly the JAX package's order
 (``np.lexsort`` / stable ``argsort``), so every integer array is equal to the
 reference's. ``pos_hash`` is the cuckoo membership set over the train pairs
-(``ops/cuckoo.py``), the sampler's negative-rejection test. The degree-bucketed
-padded adjacencies and the relational message graphs of the JAX
-``BipartiteGraph`` are not ported.
+(``ops/cuckoo.py``), the sampler's negative-rejection test.
+
+The SAGE family's mean aggregation (the JAX ``user_agg`` / ``item_agg``) is
+``mean_aggregation(side)``: one CSR matrix per direction with weights
+1 / deg over the message edges, and its transpose for the backward, both
+read straight from ``user_pos`` / ``item_pos`` and made once per graph. The
+degree-bucketed, hub-dense padded layouts of the JAX package are not carried
+over. The relational message graphs (``msg_*``) are not ported: the
+``prop_*`` accessors are the train CSRs.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops.cuckoo import CuckooSet, build_cuckoo_set
+from ..ops.segment import SparsePair, sorted_layout
 
 __all__ = ["CSR", "COOEdges", "BipartiteGraph", "build_bipartite_graph"]
 
@@ -87,6 +94,50 @@ class BipartiteGraph:
     pos_hash: Optional[CuckooSet] = None
     max_user_degree: int = 0
     max_test_degree: int = 0
+
+    def __post_init__(self):
+        # mean-aggregation operators, made on first use (a new graph, from
+        # dataclasses.replace or .to, starts without them)
+        object.__setattr__(self, "_agg", {})
+
+    # -- propagation accessors (the JAX package's message CSRs when present;
+    # the port has none, so the train CSRs) --
+    @property
+    def prop_user_pos(self) -> CSR:
+        return self.user_pos
+
+    @property
+    def prop_item_pos(self) -> CSR:
+        return self.item_pos
+
+    @property
+    def prop_item_edge_perm(self) -> Optional[torch.Tensor]:
+        return self.item_edge_perm
+
+    def mean_aggregation(self, side: str) -> SparsePair:
+        """The mean over each ``side`` node's neighbours as a sparse operator:
+        A [n_side, n_other] with weight 1 / deg(row) on each message edge (0
+        rows for nodes without one), and A^T, both CSR matrices read from
+        ``user_pos`` / ``item_pos`` without sorting (``item_edge_perm`` maps
+        the item CSR's entries to the edges). Made once per graph."""
+        if side not in self._agg:
+            up, ip = self.prop_user_pos, self.prop_item_pos
+            e = up.nnz
+            user_order = torch.arange(e, device=up.indptr.device)
+            item_order = self.prop_item_edge_perm.long()
+            if side == "user":
+                deg, row_of_edge = up.degrees(), self.user_pos_row.long()
+            elif side == "item":
+                deg, row_of_edge = ip.degrees(), up.indices.long()
+            else:
+                raise ValueError(f"side must be 'user' or 'item', got {side!r}")
+            # 1 / deg in float64, stored float32, as the JAX package's weights
+            weight = (1.0 / deg.double().clamp_min(1.0))[row_of_edge].float()
+            users = sorted_layout(up.indptr, up.indices, user_order, self.m_items)
+            items = sorted_layout(ip.indptr, ip.indices, item_order, self.n_users)
+            fwd, bwd = (users, items) if side == "user" else (items, users)
+            self._agg[side] = SparsePair(fwd, bwd, weight)
+        return self._agg[side]
 
     @property
     def num_nodes(self) -> int:

@@ -11,7 +11,10 @@ Metrics are divided by the number of test users; coverage is corpus-level;
 ``cold_*`` metrics cover users with id < 10000 when ``config.cold_start``.
 ``config.compute_auc`` scores the full [B, M] matrix per tile with
 ``torch.matmul`` (off the main path, as the JAX package leaves it to XLA).
-``--inference sample`` and the multi-device evaluation are not ported yet.
+``--inference sample`` encodes every entity through its sampled fanout tree
+(``propagate_sampled``, drawn from a generator seeded with config.seed) for
+the models that have it, the SAGE family; the others propagate as usual. The
+multi-device evaluation is not ported yet.
 """
 
 from __future__ import annotations
@@ -86,14 +89,21 @@ class Evaluator:
     ):
         if mesh is not None:
             raise NotImplementedError("multi-device evaluation is not ported yet")
-        if config.inference == "sample":
-            raise NotImplementedError("--inference sample is not ported yet")
         self.model = model
         self.config = config
         self.topks = tuple(config.topks)
         self.kmax = max(self.topks)
         self.max_train_degree = int(max_train_degree)
         self.graph = graph
+
+    @torch.no_grad()
+    def embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The (user, item) embeddings the evaluation scores with."""
+        if self.config.inference == "sample" and hasattr(self.model, "propagate_sampled"):
+            gen = torch.Generator(device=self.graph.user_pos.indptr.device)
+            gen.manual_seed(self.config.seed)
+            return self.model.propagate_sampled(self.graph, gen)
+        return self.model.propagate(self.graph)
 
     def _scores(self, user_emb, item_emb, users) -> torch.Tensor:
         """The full [B, M] masked score matrix (for AUC)."""
@@ -122,7 +132,7 @@ class Evaluator:
         """(sums, cold_sums, coverage counts [nk], top-K ids [nb, B, Kmax]) as
         device tensors; cold_sums is None unless config.cold_start."""
         with torch.profiler.record_function("evaluate"):
-            user_emb, item_emb = self.model.propagate(self.graph)
+            user_emb, item_emb = self.embeddings()
             user_emb = user_emb.detach().float().contiguous()
             item_emb = item_emb.detach().float().contiguous()
             g = self.graph

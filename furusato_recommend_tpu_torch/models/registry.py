@@ -1,5 +1,8 @@
 """Model registry (port of ``models/registry.py``): name -> constructor, for
-the keys this port has. The SAGE family and sasrec are not ported yet."""
+the keys this port has. The SAGE-family keys need ``features=`` (a
+``FeatureStore``). Not ported yet: the attention and edge-feature keys
+(``tgrec``, ``tgrec2``, ``tgsrec``, ``sasgnn``, ``rsage``), ``dask``,
+``sasrec`` and ``asage``."""
 
 from __future__ import annotations
 
@@ -11,7 +14,20 @@ from .base import PairwiseModel
 from .lightgcn import LightGCN
 from .mf import MF
 
-__all__ = ["build_model", "available_models"]
+__all__ = ["build_model", "available_models", "SAGE_KEYS"]
+
+
+def _sage(conv=None, **fixed):
+    def make(c, g, features=None, **kw):
+        from .sage import SAGE
+
+        if features is None:
+            raise ValueError("SAGE-family models require features=FeatureStore(...)")
+        # the gnn key takes its conv from --conv
+        return SAGE(c, g, features, conv=c.conv if conv is None else conv, **{**fixed, **kw})
+
+    return make
+
 
 _REGISTRY: Dict[str, Callable[..., PairwiseModel]] = {
     "mf": lambda c, g, **kw: MF(c, g, **kw),
@@ -19,7 +35,20 @@ _REGISTRY: Dict[str, Callable[..., PairwiseModel]] = {
     "rgcn": lambda c, g, **kw: LightGCN(c, g, norm="sym", **kw),
     "radj": lambda c, g, **kw: LightGCN(c, g, norm="asym", **kw),
     "lgcnssm": lambda c, g, **kw: LightGCN(c, g, norm="sym", loss_mode="softmax", **kw),
+    "textsage": _sage("sage_cat"),
+    "textsage_id": _sage("sage_cat", use_id_embedding=True),
+    "sage": _sage("sage_cat", use_id_embedding=True),
+    "fsage": _sage("sage_cat", use_id_embedding=True),
+    "fastsage": _sage("sage_w2"),
+    "lightsage": _sage("light"),
+    "pinsage": _sage("pinsage"),
+    "mrec": _sage("sage_cat", towers=True),
+    "nssage": _sage("sage_cat", full_graph_train=True),
+    "gnn": _sage(),
 }
+
+#: the keys whose models take features (build_model_inputs loads them)
+SAGE_KEYS = frozenset(k for k in _REGISTRY if k not in ("mf", "lgn", "rgcn", "radj", "lgcnssm"))
 
 
 def build_model(name: str, config: Config, graph: BipartiteGraph, **kw) -> PairwiseModel:

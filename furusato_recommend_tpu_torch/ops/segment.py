@@ -1,14 +1,19 @@
-"""Graph propagation operator y = A x and its gradient (port of
-``ops/segment.py::spmm`` and of the transpose VJP of ``ops/padded_adj.py``).
+"""Sparse propagation y = A x and its gradient (port of ``ops/segment.py::spmm``
+and of the transpose VJP of ``ops/padded_adj.py``), and ``segment_mean``.
 
-The JAX package computes it outside any Pallas kernel: a gather plus a
+The JAX package computes propagation outside any Pallas kernel: a gather plus a
 destination-sorted segment sum, or on its default path the degree-bucketed
 padded layout of ``ops/padded_adj.py``. Here it is one ``torch.sparse.mm`` on a
 CSR matrix whose rows are the destinations.
 
-- ``csr_layout`` sorts an edge list into CSR order once; ``Adjacency`` holds
-  that order and makes matrices from per-edge weights without sorting again,
-  so a model builds it once per graph and edge dropout only rewrites values.
+- ``csr_layout`` sorts an edge list into CSR order once, for a square matrix
+  over one node space (LightGCN's joint graph) or a rectangular one (bags x
+  vocabulary for the SAGE family's text bags); ``_Layout.matrix`` makes a
+  matrix from per-edge weights without sorting again.
+- ``Adjacency`` holds the layout of A over the joint node space (and of A^T
+  when A is not symmetric), so a model builds it once per graph and edge
+  dropout only rewrites values. ``SparsePair`` holds a rectangular A and its
+  transpose with fixed weights, and keeps the matrices it made per type.
 - ``spmm`` is an ``autograd.Function``: its backward is ``A^T g`` on the
   transpose matrix (the same matrix when A is symmetric), never a transpose
   built per step.
@@ -24,13 +29,14 @@ where this exact float32 product does not.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import TYPE_CHECKING, Dict, Optional, Tuple
 
 import torch
 
-from ..data.graph import COOEdges
+if TYPE_CHECKING:
+    from ..data.graph import COOEdges
 
-__all__ = ["Adjacency", "csr_layout", "spmm"]
+__all__ = ["Adjacency", "SparsePair", "csr_layout", "segment_mean", "sorted_layout", "spmm"]
 
 
 @dataclass(frozen=True)
@@ -38,32 +44,38 @@ class _Layout:
     crow: torch.Tensor  # [num_rows + 1] int32
     col: torch.Tensor  # [E] int32, ascending within each row
     order: torch.Tensor  # [E] int64: CSR position -> edge index
-    num_nodes: int
+    shape: Tuple[int, int]
 
     def matrix(self, weight: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
         w = weight[self.order].to(compute_dtype).float()
         return torch.sparse_csr_tensor(
-            self.crow, self.col, w, size=(self.num_nodes, self.num_nodes),
-            check_invariants=False,
+            self.crow, self.col, w, size=self.shape, check_invariants=False
         )
 
+    def to(self, device) -> "_Layout":
+        return _Layout(self.crow.to(device), self.col.to(device), self.order.to(device), self.shape)
 
-def csr_layout(rows: torch.Tensor, cols: torch.Tensor, num_nodes: int) -> _Layout:
-    """CSR structure of the edges (rows[e], cols[e]): rows sorted, columns
-    sorted within each row, duplicates kept as separate entries."""
+
+def csr_layout(
+    rows: torch.Tensor, cols: torch.Tensor, num_rows: int, num_cols: Optional[int] = None
+) -> _Layout:
+    """CSR structure of the edges (rows[e], cols[e]) of a [num_rows, num_cols]
+    matrix (square when ``num_cols`` is None): rows sorted, columns sorted
+    within each row, duplicates kept as separate entries."""
+    num_cols = num_rows if num_cols is None else num_cols
     rows, cols = rows.long(), cols.long()
-    order = torch.argsort(rows * num_nodes + cols, stable=True)
-    counts = torch.bincount(rows, minlength=num_nodes)
-    crow = torch.zeros(num_nodes + 1, dtype=torch.int64, device=rows.device)
+    order = torch.argsort(rows * num_cols + cols, stable=True)
+    counts = torch.bincount(rows, minlength=num_rows)
+    crow = torch.zeros(num_rows + 1, dtype=torch.int64, device=rows.device)
     crow[1:] = torch.cumsum(counts, 0)
-    return _Layout(crow.to(torch.int32), cols[order].to(torch.int32), order, num_nodes)
+    return _Layout(crow.to(torch.int32), cols[order].to(torch.int32), order, (num_rows, num_cols))
 
 
 class Adjacency:
     """A = weight at (dst, src) over ``num_nodes`` joint nodes, with its
     transpose layout when A is not symmetric."""
 
-    def __init__(self, edges: COOEdges, num_nodes: int, symmetric: bool):
+    def __init__(self, edges: "COOEdges", num_nodes: int, symmetric: bool):
         self.fwd = csr_layout(edges.dst, edges.src, num_nodes)
         self.bwd = None if symmetric else csr_layout(edges.src, edges.dst, num_nodes)
 
@@ -72,6 +84,44 @@ class Adjacency:
         ``compute_dtype``; A^T is A itself when A is symmetric."""
         a = self.fwd.matrix(weight, compute_dtype)
         return a, (a if self.bwd is None else self.bwd.matrix(weight, compute_dtype))
+
+
+def sorted_layout(
+    indptr: torch.Tensor, indices: torch.Tensor, order: torch.Tensor, num_cols: int
+) -> _Layout:
+    """The layout of a CSR whose columns are already sorted within rows;
+    ``order`` maps its positions to the indices of the weight array."""
+    return _Layout(indptr, indices, order.long(), (indptr.shape[0] - 1, num_cols))
+
+
+class SparsePair:
+    """A (layout ``fwd``) and A^T (layout ``bwd``) over one per-edge ``weight``
+    array that stays fixed, so the matrices of each compute type are made
+    once."""
+
+    def __init__(self, fwd: _Layout, bwd: _Layout, weight: torch.Tensor):
+        self.fwd, self.bwd, self.weight = fwd, bwd, weight
+        self._made: Dict[torch.dtype, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    @classmethod
+    def from_edges(cls, rows, cols, weight, num_rows: int, num_cols: int) -> "SparsePair":
+        """A [num_rows, num_cols] = weight at (rows[e], cols[e]), both layouts
+        sorted once here."""
+        return cls(
+            csr_layout(rows, cols, num_rows, num_cols), csr_layout(cols, rows, num_cols, num_rows), weight
+        )
+
+    def matrices(self, compute_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(A, A^T) with the weights rounded to ``compute_dtype``."""
+        if compute_dtype not in self._made:
+            self._made[compute_dtype] = (
+                self.fwd.matrix(self.weight, compute_dtype),
+                self.bwd.matrix(self.weight, compute_dtype),
+            )
+        return self._made[compute_dtype]
+
+    def to(self, device) -> "SparsePair":
+        return SparsePair(self.fwd.to(device), self.bwd.to(device), self.weight.to(device))
 
 
 class _SpMM(torch.autograd.Function):
@@ -99,3 +149,13 @@ def spmm(
     """y = adj @ x with x rounded to ``compute_dtype``; float32 result. Its
     gradient is ``adj_t @ g`` (``adj_t`` defaults to ``adj``: symmetric)."""
     return _SpMM.apply(x, adj, adj if adj_t is None else adj_t, compute_dtype)
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Mean of the rows of ``data`` [E, ...] per segment id; empty segments
+    give 0 (``ops/segment.py::segment_mean``)."""
+    ids = segment_ids.long()
+    s = torch.zeros((num_segments,) + data.shape[1:], dtype=data.dtype, device=data.device)
+    s = s.index_add(0, ids, data)
+    cnt = torch.bincount(ids, minlength=num_segments).to(data.dtype).clamp_min(1.0)
+    return s / cnt.reshape((num_segments,) + (1,) * (data.dim() - 1))

@@ -6,14 +6,14 @@ from a ``torch.Generator`` on the graph's device:
 - user: uniform over [0, n_users); users without train items give rows with
   ``valid`` False, which contribute nothing to the loss;
 - positive: ``randint(0, 2^30) % deg`` into the user's sorted train row;
-- negative: ``neg_candidates`` uniform item draws, tested against the user's
-  positives by the graph's cuckoo set (``pos_hash``; binary search of the
-  train row without one); the first candidate that is not a positive wins,
-  and the last one when all are (probability (deg / m)^K).
-
-The weighted recipes of the JAX package (an edge alias table for positives,
-a popularity alias table for negatives: ``--sample_pow`` and the ddp recipe)
-are not ported yet and raise.
+- or, with ``edge_alias`` (an alias table over the train edges in CSR order:
+  the ddp recipe's capped weights, ``--sample_pow``), one edge draw gives both:
+  the user is ``user_pos_row[e]``, the positive ``indices[e]``, every row valid;
+- negative: ``neg_candidates`` uniform item draws (or draws from
+  ``neg_alias``, popularity^pow), tested against the user's positives by the
+  graph's cuckoo set (``pos_hash``; binary search of the train row without
+  one); the first candidate that is not a positive wins, and the last one
+  when all are (probability (deg / m)^K).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from ..data.graph import BipartiteGraph
+from ..ops.alias import AliasTable
 from ..ops.csr_search import csr_contains
 from ..ops.cuckoo import cuckoo_contains
 
@@ -55,18 +56,20 @@ def sample_bpr(
     graph: BipartiteGraph,
     num_samples: int,
     neg_candidates: int = 8,
-    edge_alias=None,
-    neg_alias=None,
+    edge_alias: Optional[AliasTable] = None,
+    neg_alias: Optional[AliasTable] = None,
 ) -> BPRBatch:
     """Draw ``num_samples`` (user, pos, neg) triplets on the graph's device;
-    ``generator`` must live on that device."""
-    if edge_alias is not None or neg_alias is not None:
-        raise NotImplementedError("alias-table sampling (sample_pow, ddp recipe) is not ported yet")
+    ``generator`` and the alias tables must live on that device."""
+    if edge_alias is not None and edge_alias.n != graph.train_size:
+        raise ValueError(f"edge_alias has {edge_alias.n} outcomes, the graph {graph.train_size} edges")
+    if neg_alias is not None and neg_alias.n != graph.m_items:
+        raise ValueError(f"neg_alias has {neg_alias.n} outcomes, the graph {graph.m_items} items")
     with torch.profiler.record_function("sample_bpr"):  # names it in a trace
-        return _sample_uniform(generator, graph, num_samples, neg_candidates)
+        return _sample(generator, graph, num_samples, neg_candidates, edge_alias, neg_alias)
 
 
-def _sample_uniform(generator, graph, num_samples, neg_candidates) -> BPRBatch:
+def _sample(generator, graph, num_samples, neg_candidates, edge_alias, neg_alias) -> BPRBatch:
     csr = graph.user_pos
     dev = csr.indptr.device
     nnz = csr.nnz
@@ -74,16 +77,25 @@ def _sample_uniform(generator, graph, num_samples, neg_candidates) -> BPRBatch:
     def randint(high, shape):
         return torch.randint(0, high, shape, generator=generator, device=dev)
 
-    user = randint(graph.n_users, (num_samples,))
-    start = csr.indptr[user]
-    deg = csr.indptr[user + 1] - start
-    valid = deg > 0
-    r = randint(1 << 30, (num_samples,)) % deg.clamp_min(1)
-    if nnz:
-        pos = csr.indices[(start + r).clamp(0, nnz - 1)]
+    if edge_alias is not None:
+        e = edge_alias.sample(generator, (num_samples,))
+        user = graph.user_pos_row[e].long()
+        pos = csr.indices[e]
+        valid = torch.ones(num_samples, dtype=torch.bool, device=dev)
     else:
-        pos = torch.zeros(num_samples, dtype=torch.int32, device=dev)
-    cand = randint(graph.m_items, (num_samples, neg_candidates))
+        user = randint(graph.n_users, (num_samples,))
+        start = csr.indptr[user]
+        deg = csr.indptr[user + 1] - start
+        valid = deg > 0
+        r = randint(1 << 30, (num_samples,)) % deg.clamp_min(1)
+        if nnz:
+            pos = csr.indices[(start + r).clamp(0, nnz - 1)]
+        else:
+            pos = torch.zeros(num_samples, dtype=torch.int32, device=dev)
+    if neg_alias is not None:
+        cand = neg_alias.sample(generator, (num_samples, neg_candidates))
+    else:
+        cand = randint(graph.m_items, (num_samples, neg_candidates))
     if graph.pos_hash is not None:
         is_pos = cuckoo_contains(graph.pos_hash, user[:, None], cand)
     else:

@@ -101,7 +101,9 @@ class Recommender:
         cls, ckpt_path: str, data_path: Optional[str] = None, **kw
     ) -> "Recommender":
         """Build from a checkpoint of ``core.checkpoint.save_checkpoint`` and
-        the text dataset its config (or ``data_path``) names."""
+        the text dataset (and, for the SAGE family, the feature artifacts)
+        its config (or ``data_path``) names."""
+        from .cli import build_model_inputs
         from .core.checkpoint import load_checkpoint
         from .data.dataset import load_text_dataset
         from .models.registry import build_model
@@ -111,7 +113,8 @@ class Recommender:
         if data_path:
             config = config.replace(data_path=data_path)
         dataset = load_text_dataset(config)
-        model = build_model(config.model, config, dataset.graph)
+        graph, model_kw = build_model_inputs(config, dataset)
+        model = build_model(config.model, config, graph, **model_kw)
         return cls(model, dataset, config, state["params"], **kw)
 
 

@@ -1,5 +1,5 @@
 """Trainer: BPR epochs, the evaluation cadence and best-by-recall
-checkpoints (port of ``train/trainer.py``, MF / LightGCN family).
+checkpoints (port of ``train/trainer.py``).
 
 An epoch draws all of its triplets in one ``sample_bpr`` call on the device,
 then runs ``num_batches`` steps of forward, backward and ``torch.optim.Adam``
@@ -8,11 +8,22 @@ device; the epoch's mean is read once, at its end. ``fit`` evaluates before
 training, then every ``test_span`` epochs and after the last one, and saves
 the full training state whenever recall@topks[0] improves.
 
-The JAX package's XLA machinery (the compile cache, the epoch program split,
-``pipeline_dispatch``'s prefetch, the device mesh) has no counterpart here:
-PyTorch runs eagerly and its device queue already overlaps the host. The
-SAGE-only branches (cached initial tables, ``feature_update_every``,
-out-of-core features) and the weighted sampling recipes raise.
+``ddp_recipe`` is the reference's distributed recipe on one device:
+``train_iterative`` x the dataset's size in samples an epoch, positives drawn
+from an alias table of edge weights capped at ``positive_num_limit`` expected
+draws an item, negatives from an alias table of popularity^``negative_pow``,
+and the evaluation cut to ``test_count`` user tiles. ``config.sample_pow``
+draws positives by popularity instead (the reference's ``sample_prob_*.pkl``
+when the data path has one).
+
+The SAGE family's loss computes the initial (feature) tables inside each step
+(one autograd pass): the JAX trainer's ``relin_every=1``, which is also its
+``train_emb`` path. Its other cadences (``relin_every`` other than 1,
+``feature_update_every`` > 1) and the out-of-core features belong to the next
+SAGE slice and raise. The JAX package's XLA machinery (the compile cache, the
+epoch program split, ``pipeline_dispatch``'s prefetch, the device mesh) has no
+counterpart here: PyTorch runs eagerly and its device queue already overlaps
+the host.
 """
 
 from __future__ import annotations
@@ -24,16 +35,27 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..convert import adam_state_from_jax, adam_state_to_numpy, params_from_jax, params_to_numpy
+from ..convert import adam_state_from_jax, adam_state_to_numpy, flatten_params, params_from_jax
 from ..core.checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
 from ..core.device import resolve_device
 from ..data.dataset import Dataset
 from ..eval.evaluate import EvalData, Evaluator, build_eval_data
 from ..models.base import PairwiseModel
 from ..obs.log import MetricLogger, cprint
+from ..ops.alias import AliasTable
 from ..sampling.bpr import sample_bpr
+from ..sampling.weights import (
+    capped_positive_edge_weights,
+    edge_alias_from_weights,
+    load_sample_prob,
+    negative_alias,
+    popularity_positive_edge_weights,
+    sample_prob_edge_weights,
+)
 
 __all__ = ["Trainer"]
+
+_NEXT_SAGE_SLICE = "belongs to the next SAGE slice of the port"
 
 
 class Trainer:
@@ -47,16 +69,22 @@ class Trainer:
         ddp_recipe: bool = False,
         device=None,
     ):
-        if ddp_recipe or config.sample_pow:
-            raise NotImplementedError("weighted sampling recipes (ddp, sample_pow) are not ported yet")
         if config.mesh.num_devices > 1:
             raise NotImplementedError("multi-device training is not ported yet")
         if config.feature_update_every > 1:
-            raise NotImplementedError("feature_update_every > 1 belongs to the SAGE family, not ported yet")
+            raise NotImplementedError(f"feature_update_every > 1 {_NEXT_SAGE_SLICE}")
         if config.compile_cache:
             raise NotImplementedError("compile_cache is XLA's; the port compiles nothing per shape")
         if config.relin_every < 0:
             raise ValueError(f"relin_every must be >= 0, got {config.relin_every}")
+        # the JAX trainer's cached-tables path (its relin_every cadence)
+        cached_tables = (
+            not config.train_emb
+            and hasattr(model, "initial_tables")
+            and not getattr(model, "full_graph_train", False)
+        )
+        if cached_tables and config.relin_every != 1:
+            raise NotImplementedError(f"relin_every={config.relin_every} {_NEXT_SAGE_SLICE}")
         self.config = config
         self.dataset = dataset
         self.device = resolve_device(device)
@@ -65,11 +93,30 @@ class Trainer:
         self.logger = logger or MetricLogger(quiet=config.test_mode)
         self.max_recall = -1.0
         self.step = 0
+        #: the last epoch's per-step losses, on the device
+        self.epoch_losses: Optional[torch.Tensor] = None
 
         bs = config.bpr_batch_size
-        # one epoch draws train_size triplets, rounded up to whole batches
-        self.num_batches = -(-max(dataset.train_size, bs) // bs)
+        # one epoch draws train_size triplets (train_iterative x that in the
+        # ddp recipe), rounded up to whole batches
+        mult = config.train_iterative if ddp_recipe else 1
+        self.num_batches = -(-max(dataset.train_size * mult, bs) // bs)
         self.samples_per_epoch = self.num_batches * bs
+
+        self.edge_alias: Optional[AliasTable] = None
+        self.neg_alias: Optional[AliasTable] = None
+        if ddp_recipe:
+            w = capped_positive_edge_weights(dataset, self.samples_per_epoch, config.positive_num_limit)
+            self.edge_alias = edge_alias_from_weights(w).to(self.device)
+            if config.negative_pow:
+                self.neg_alias = negative_alias(dataset, config.negative_pow).to(self.device)
+        elif config.sample_pow:
+            probs = load_sample_prob(config.data_path, config.sample_pow)
+            if probs is not None:
+                w = sample_prob_edge_weights(dataset, probs)
+            else:
+                w = popularity_positive_edge_weights(dataset, config.sample_pow)
+            self.edge_alias = edge_alias_from_weights(w).to(self.device)
 
         self.optimizer = self._new_optimizer()
         #: the sampler's stream (and edge dropout's); saved and restored with
@@ -80,7 +127,8 @@ class Trainer:
         max_deg = int(np.max(np.bincount(dataset.train_user, minlength=dataset.n_users)))
         self.evaluator = Evaluator(model, self.graph, config, max_train_degree=max_deg)
         self.eval_data: EvalData = build_eval_data(
-            dataset, config.eval_user_batch, item_categories=item_categories, device=self.device
+            dataset, config.eval_user_batch, item_categories=item_categories,
+            max_batches=config.test_count if ddp_recipe else None, device=self.device,
         )
 
     def _new_optimizer(self) -> torch.optim.Adam:
@@ -99,24 +147,31 @@ class Trainer:
 
     def train_step(self, batch) -> torch.Tensor:
         """One forward, backward and Adam step on ``batch``; the loss stays
-        on the device."""
+        on the device. The trainer's generator draws the step's randomness
+        (edge dropout under config.dropout; the SAGE family's trees and
+        dropout)."""
         self.optimizer.zero_grad(set_to_none=True)
-        gen = self.generator if self.config.dropout else None
-        loss, _ = self.model.loss(self.graph, batch, generator=gen)
+        loss, _ = self.model.loss(self.graph, batch, generator=self.generator)
         loss.backward()
         self.optimizer.step()
         return loss.detach()
 
+    def sample_epoch(self):
+        """The epoch's triplets, drawn on the device."""
+        return sample_bpr(
+            self.generator, self.graph, self.samples_per_epoch, self.config.neg_candidates,
+            edge_alias=self.edge_alias, neg_alias=self.neg_alias,
+        )
+
     def train_one_epoch(self) -> float:
         """One epoch; returns its mean loss (the epoch's one host sync)."""
         bs = self.config.bpr_batch_size
-        batches = sample_bpr(
-            self.generator, self.graph, self.samples_per_epoch, self.config.neg_candidates
-        )
+        batches = self.sample_epoch()
         losses = torch.empty(self.num_batches, device=self.device)
         for b in range(self.num_batches):
             losses[b] = self.train_step(batches.slice(b * bs, (b + 1) * bs))
         self.step += 1
+        self.epoch_losses = losses
         return float(losses.mean())
 
     def test(self) -> Dict[str, float]:
@@ -161,13 +216,13 @@ class Trainer:
         generator state, the epoch count and the best recall."""
         count, mu, nu = adam_state_to_numpy(self.optimizer, self.model)
         state = {"adam_count": np.int64(count)}
-        state.update({f"adam_mu/{k}": v for k, v in mu.items()})
-        state.update({f"adam_nu/{k}": v for k, v in nu.items()})
+        state.update({f"adam_mu/{k}": v for k, v in flatten_params(mu).items()})
+        state.update({f"adam_nu/{k}": v for k, v in flatten_params(nu).items()})
         state["generator"] = self.generator.get_state()
         state["step"] = np.int64(self.step)
         state["max_recall"] = np.float64(self.max_recall)
         save_checkpoint(
-            path or checkpoint_path(self.config), params_to_numpy(self.model), self.config, state
+            path or checkpoint_path(self.config), dict(self.model.named_parameters()), self.config, state
         )
 
     def restore(self, path=None) -> None:

@@ -161,5 +161,13 @@ def test_pmi_and_unexpectedness_match_jax():
 def test_unported_evaluation_modes_raise():
     td = tds.synthetic_dataset(n_users=N_USERS, m_items=M_ITEMS, avg_degree=9, seed=4)
     cfg = Config(latent_dim=DIM, inference="sample")
+    model = build_model("lgn", cfg, td.graph)
     with pytest.raises(NotImplementedError):
-        tev.Evaluator(build_model("lgn", cfg, td.graph), td.graph, cfg, 10)
+        tev.Evaluator(model, td.graph, cfg, 10, mesh=object())
+    # --inference sample is ported for the SAGE family (tests/test_torch_sage.py);
+    # a model without sampled inference propagates, as in the JAX package
+    ev = tev.Evaluator(model, td.graph, cfg, 10)
+    with torch.no_grad():
+        want = model.propagate(td.graph)
+    for a, b in zip(ev.embeddings(), want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())

@@ -134,6 +134,14 @@ def test_cuda_kernel_tiling_edges(m, d):
 
 
 @pytest.mark.cuda
+def test_cuda_kernel_at_the_textsage_shape():
+    """The TextSAGE flagship's serving and evaluation shape: d = 32 over
+    30,000 items, requests of 1-512 users and the evaluation's 1024."""
+    _need_card()
+    _check_topk(1100, 30000, 32, (1, 8, 64, 512, 1024), (10, 20), torch.device("cuda"))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,d", [(20001, 30), (3000, 300), (500, 4096)])
 def test_cuda_kernel_odd_widths(m, d):
     """d not a multiple of 4 (4-byte copies), several chunks, the widest d."""
@@ -192,6 +200,9 @@ def _scatter_rows(r, d, exact, rng):
         (1000, 999, 64),  # R not a multiple of 32
         (500, 0, 64),  # no rows: a zero table, and still one launch
         (300, 2003, 50),  # D not a multiple of 32
+        (100_000, 180_000, 32),  # the TextSAGE step's user-side tree gather
+        (30_000, 285_000, 32),  # its item-side tree gather
+        (40, 400_000, 32),  # a categorical gather: 100k users x 4 fields, 40 categories
     ],
 )
 @pytest.mark.parametrize("exact", [True, False])

@@ -105,10 +105,12 @@ def test_params_round_trip_and_registry():
         params_from_jax({"user_emb": p["user_emb"][:3], "item_emb": p["item_emb"]}, tm)
     with pytest.raises(KeyError):
         params_from_jax({"user_emb": p["user_emb"]}, tm)
-    assert available_models() == ["lgcnssm", "lgn", "mf", "radj", "rgcn"]
-    for missing in ("textsage", "sasrec", "nope"):
+    assert {"lgcnssm", "lgn", "mf", "radj", "rgcn", "textsage"} <= set(available_models())
+    for missing in ("tgrec", "sasrec", "nope"):
         with pytest.raises(KeyError, match="available"):
             build_model(missing, cfg, td.graph)
+    with pytest.raises(ValueError, match="features"):  # the SAGE family needs them
+        build_model("textsage", cfg, td.graph)
 
 
 def test_init_is_seeded():

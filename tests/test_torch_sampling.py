@@ -118,5 +118,12 @@ def test_zero_degree_users_masked_and_without_hash():
 
 
 def test_alias_recipes_raise(tiny):
-    with pytest.raises(NotImplementedError):
-        sample_bpr(torch.Generator(), tiny.graph, 10, edge_alias=object())
+    """The alias recipes are ported (tests/test_torch_alias.py); a table that
+    does not cover the graph's edges raises."""
+    from furusato_recommend_tpu_torch.ops.alias import build_alias_table
+
+    with pytest.raises(ValueError, match="edge_alias"):
+        sample_bpr(torch.Generator(), tiny.graph, 10, edge_alias=build_alias_table(np.ones(3)))
+    table = build_alias_table(np.ones(tiny.train_size))
+    batch = sample_bpr(torch.Generator().manual_seed(0), tiny.graph, 10, edge_alias=table)
+    assert batch.valid.all()

@@ -271,9 +271,13 @@ def test_trainer_raises_on_what_is_not_ported(tmp_path):
     cfg = Config(latent_dim=DIM)
     m = build_model("lgn", cfg, td.graph)
     with pytest.raises(NotImplementedError):
-        Trainer(cfg, td, m, ddp_recipe=True, device="cpu")
+        Trainer(cfg.replace(mesh=dataclasses.replace(cfg.mesh, data=2)), td, m, device="cpu")
     with pytest.raises(NotImplementedError):
-        Trainer(cfg.replace(sample_pow=0.5), td, m, device="cpu")
+        Trainer(cfg.replace(feature_update_every=2), td, m, device="cpu")
+    # the weighted recipes are ported: lgn takes them as the JAX trainer does
+    t = Trainer(cfg, td, m, ddp_recipe=True, device="cpu")
+    assert t.edge_alias.n == td.train_size and t.neg_alias.n == td.m_items
+    assert Trainer(cfg.replace(sample_pow=0.5), td, m, device="cpu").neg_alias is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(cfg, td, m)

@@ -23,7 +23,11 @@ Phases (any failure raises and exits non-zero):
                the first call runs under torch.cuda.set_sync_debug_mode("error")
                scatter_add_rows ((N, R, D) = (50000, 8192, 64) and
                (20000, 16384, 64), the bench step's user and item gathers;
-               R = 999; R = 0; one id 5,000 times; ids out of range, D = 50):
+               R = 999; R = 0; one id 5,000 times; ids out of range, D = 50;
+               and the kernel's edges: one id 285,000 times, ids that are all
+               multiples of a tile's hash slot count, R = T - 1, T and T + 1
+               under the item-side tree gather's tile plan, and the row mode
+               forced at that gather's shape):
                (a) exact inputs (multiples of 1/8): bit-equal
                (b) Gaussian inputs: within 1e-5 + 1e-5 * (the sum of the
                    magnitudes added into the element): only the order of the
@@ -89,16 +93,21 @@ Phases (any failure raises and exits non-zero):
  11. numbers   one JSON line of kernels (time, plain time, library time,
                bound, launches on the main paths; masked_topk also at the
                evaluation's tile and at TextSAGE's d = 32 over 30000 items;
-               scatter_add_rows and index_add_ timed in ten alternating rounds,
-               median and quartiles, also at the TextSAGE step's tree gathers
-               and a categorical gather), the serve and train lines of the lgn
-               paths and of the TextSAGE paths (samples/s, host and device ms a
-               step with the profiler's split, the idle share)
+               scatter_add_rows at each shape: its plan (mode, T, blocks,
+               shared memory), the kernel, its row mode forced and index_add_
+               timed in ten alternating rounds, median and quartiles, each
+               one's device time, and the global adds the plan implies for
+               those ids, counted on the card outside the timed window; also
+               at the TextSAGE step's tree gathers and a categorical gather),
+               the serve and train lines of the lgn paths and of the TextSAGE
+               paths (samples/s, host and device ms a step with the profiler's
+               split, the idle share)
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
 30000, B in {1, 64, 512, 1024}, k in {10, 20}; scatter_add_rows at (N, R, D) =
-(100000, 180000, 32), (30000, 285000, 32) (a step's tree gathers; on ids of
-sampled trees in phase 11) and (40, 400000, 32).
+(100000, 180000, 32), (30000, 285000, 32) (a step's tree gathers, Zipf(1.2)
+ids here, ids of sampled trees in phase 11) and (40, 400000, 32), all in tile
+mode.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -170,7 +179,8 @@ RANGES = {
 }
 # the port's kernels, launched through ctypes outside any torch operation
 OWN_KERNELS = {
-    "scatter_add_rows_kernel": "scatter", "score_segments": "masked_topk",
+    "scatter_add_rows_kernel": "scatter", "scatter_tile_kernel": "scatter",
+    "score_segments": "masked_topk",
     "merge_segments": "masked_topk",
 }
 
@@ -367,23 +377,37 @@ def scatter_cases(dev) -> float:
     """Phase 3, scatter_add_rows: the kernel against its plain version;
     returns the max abs error of the Gaussian cases."""
     rng = np.random.default_rng(SEED + 1)
-    cases = [(n, rng.integers(0, n, r), D) for n, r in SCATTER_SHAPES]
+    cases = [(n, rng.integers(0, n, r), D, None) for n, r in SCATTER_SHAPES]
     cases += [
-        (1000, rng.integers(0, 1000, 999), D),  # R not a multiple of 32
-        (500, np.zeros(0, np.int64), D),  # no rows: a zero table
-        (100, np.concatenate([np.full(5000, 7), rng.integers(0, 100, 300)]), D),  # a hub
-        (300, np.concatenate([rng.integers(0, 300, 2000), [-3, 300, 10**6]]), 50),  # clamped
+        (1000, rng.integers(0, 1000, 999), D, None),  # R not a multiple of 32
+        (500, np.zeros(0, np.int64), D, None),  # no rows: a zero table
+        (100, np.concatenate([np.full(5000, 7), rng.integers(0, 100, 300)]), D, None),  # a hub
+        (300, np.concatenate([rng.integers(0, 300, 2000), [-3, 300, 10**6]]), 50, None),  # clamped
     ]
     # TextSAGE's tree gathers (Zipf items hit often, as tree neighbours are)
     # and a categorical gather, at D = 32
     zipf = np.minimum(rng.zipf(1.2, TS_SCATTER[1][1]) - 1, TS_ITEMS - 1)
     cases += [
-        (TS_USERS, rng.integers(0, TS_USERS, TS_SCATTER[0][1]), TS_D),
-        (TS_ITEMS, zipf, TS_D),
-        (40, rng.integers(0, 40, TS_SCATTER[2][1]), TS_D),
+        (TS_USERS, rng.integers(0, TS_USERS, TS_SCATTER[0][1]), TS_D, None),
+        (TS_ITEMS, zipf, TS_D, None),
+        (40, rng.integers(0, 40, TS_SCATTER[2][1]), TS_D, None),
     ]
+    # the modes' edges: every row on one id; ids that are all multiples of a
+    # tile's hash slot count; R = T - 1, T, T + 1 under the item-side gather's
+    # tile plan; and the row mode forced at that gather's shape
+    sms = sc.sm_count(_cuda.device_index(dev))
+    user_plan = sc.plan_scatter(TS_USERS, TS_SCATTER[0][1], TS_D, sms)
+    item_plan = sc.plan_scatter(TS_ITEMS, TS_SCATTER[1][1], TS_D, sms)
+    assert (user_plan.mode, item_plan.mode) == ("tile", "tile"), (user_plan, item_plan)
+    slots = 2 * user_plan.tile
+    cases += [
+        (TS_ITEMS, np.full(TS_SCATTER[1][1], TS_ITEMS - 1), TS_D, None),
+        (TS_USERS, rng.integers(0, TS_USERS // slots, TS_SCATTER[0][1]) * slots, TS_D, None),
+    ]
+    cases += [(TS_ITEMS, zipf[: item_plan.tile + e], TS_D, item_plan) for e in (-1, 0, 1)]
+    cases.append((TS_ITEMS, zipf, TS_D, sc.plan_scatter(TS_ITEMS, len(zipf), TS_D, sms, "row")))
     max_err, n_cases = 0.0, 0
-    for n, ids, d in cases:
+    for n, ids, d, plan in cases:
         ids_t = torch.from_numpy(ids.astype(np.int32)).to(dev)
         for exact in (True, False):
             if exact:
@@ -398,8 +422,10 @@ def scatter_cases(dev) -> float:
                     got = sc.scatter_add_rows(ids_t, rows_t, n)
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
-            else:
+            elif plan is None:
                 got = sc.scatter_add_rows(ids_t, rows_t, n)
+            else:
+                got = sc._launch(ids_t, rows_t, n, plan)
             want = sc.scatter_add_rows_reference(ids_t, rows_t, n)
             mag = sc.scatter_add_rows_reference(ids_t, rows_t.abs(), n)
             torch.cuda.synchronize()
@@ -810,36 +836,76 @@ def tree_gather_ids(model, graph, batch, gen):
     return torch.cat(ids["user"]), torch.cat(ids["item"])
 
 
+def implied_global_adds(plan, ids, n, d) -> dict:
+    """The global adds (and the longest chain of them into one address) that
+    ``plan`` makes for these ids: one a column for each distinct id of a tile
+    in tile mode, one an element in row mode. Counted on the card."""
+    ids = ids.long().clamp(0, n - 1)
+    r = ids.shape[0]
+    if plan.mode == "row" or r == 0:
+        return {"adds": r * d, "share": 1.0 if r else 0.0,
+                "longest_chain": int(torch.bincount(ids, minlength=n).max()) if r else 0}
+    tile_of = torch.arange(r, device=ids.device) // plan.tile
+    distinct = torch.unique(tile_of * n + ids)
+    return {"adds": int(distinct.numel()) * d, "share": distinct.numel() / r,
+            "longest_chain": int(torch.bincount(distinct % n, minlength=n).max())}
+
+
 def scatter_numbers_at(cases, dev, d, rows_seed) -> list:
     """scatter_add_rows at each (N, ids) with Gaussian rows of width d: the
-    call against index_add_ in ten alternating rounds (the two are close and
-    host-bound), the plain version, the bound and the device profiles."""
+    plan, the call against its row mode forced and index_add_ in ten
+    alternating rounds (they are close and host-bound), the device profiles
+    of all three, the plain version, the bound and the global adds that the
+    plan implies for these ids."""
     rows_gen = torch.Generator(device=dev).manual_seed(rows_seed)
+    sms = sc.sm_count(_cuda.device_index(dev))
     out = []
     for n, ids in cases:
         r = ids.shape[0]
         rows = torch.randn((r, d), generator=rows_gen, device=dev)
         ids_long = ids.long()
+        plan = sc.plan_scatter(n, r, d, sms)
+        row_plan = sc.plan_scatter(n, r, d, sms, "row")
         t_bytes = 4 * r * (d + 1) / HBM_BYTES_PER_S + 4 * n * d / HBM_BYTES_PER_S
         t_flops = r * d / F32_FLOP_PER_S
 
         def library(n=n, ids_long=ids_long, rows=rows):
             return torch.zeros((n, d), device=dev).index_add_(0, ids_long, rows)
 
-        alt = alternating_ms({"kernel": lambda n=n, ids=ids, rows=rows: sc.scatter_add_rows(ids, rows, n),
-                              "library": library})
+        fns = {"kernel": lambda n=n, ids=ids, rows=rows: sc.scatter_add_rows(ids, rows, n),
+               "row_mode": lambda n=n, ids=ids, rows=rows, p=row_plan: sc._launch(ids, rows, n, p),
+               "library": library}
+        alt = alternating_ms(fns)
+        profiles = {name: device_profile(fn) for name, fn in fns.items()}
+        adds = implied_global_adds(plan, ids, n, d)
+        row_adds = implied_global_adds(row_plan, ids, n, d)
+        dev_ms = {name: (p or {}).get("device_ms") for name, p in profiles.items()}
+        log(f"scatter (N={n}, R={r}, D={d}): {plan.mode} mode (T {plan.tile}, {plan.blocks} blocks, "
+            f"{plan.smem_bytes} B shared); device ms: kernel {dev_ms['kernel']}, row mode "
+            f"{dev_ms['row_mode']}, index_add_ {dev_ms['library']}; bound "
+            f"{1e3 * max(t_bytes, t_flops):.5f}; global adds {adds['adds']} "
+            f"({adds['share']:.3f} of R x D), longest chain {adds['longest_chain']} "
+            f"(row mode {row_adds['longest_chain']})")
         out.append({
             "N": n, "R": r, "D": d,
+            "plan": plan._asdict(),
             "ms": alt["kernel"]["ms"],
+            "row_mode_ms": alt["row_mode"]["ms"],
             "plain_ms": event_ms(lambda: sc.scatter_add_rows_reference(ids, rows, n)),
             "library_ms": alt["library"]["ms"],
+            "device_ms": dev_ms["kernel"],
+            "row_mode_device_ms": dev_ms["row_mode"],
+            "library_device_ms": dev_ms["library"],
             "alternating": alt,
             "bound_ms": 1e3 * max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "global_adds": adds,
+            "row_mode_global_adds": row_adds,
             "distinct_ids": int(torch.unique(ids).numel()),
             "largest_id_share": float(torch.bincount(ids_long, minlength=n).max()) / r,
-            "kernel_profile": device_profile(lambda: sc.scatter_add_rows(ids, rows, n)),
-            "library_profile": device_profile(library),
+            "kernel_profile": profiles["kernel"],
+            "row_mode_profile": profiles["row_mode"],
+            "library_profile": profiles["library"],
         })
     return out
 
@@ -1181,6 +1247,7 @@ def main() -> int:
         "textsage_shapes": ts_sc_shapes,
         "max_abs_err": sc_max_err,
         "ms": sc_head["ms"],
+        "row_mode_ms": sc_head["row_mode_ms"],
         "plain_ms": sc_head["plain_ms"],
         "bound_ms": sc_head["bound_ms"],
         "bound_by": sc_head["bound_by"],

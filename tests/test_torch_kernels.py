@@ -191,6 +191,31 @@ def _scatter_rows(r, d, exact, rng):
     return rng.standard_normal((r, d)).astype(np.float32)
 
 
+def _check_scatter(n, ids_np, d, exact, rng, plan=None, dtype=np.int32):
+    """The kernel (under ``plan``, default the wrapper's own) against the plain
+    version: exact rows bit-equal, Gaussian rows within 1e-5 + 1e-5 * the
+    summed magnitudes."""
+    dev = torch.device("cuda")
+    ids = torch.from_numpy(np.asarray(ids_np).astype(dtype)).to(dev)
+    rows = torch.from_numpy(_scatter_rows(ids.shape[0], d, exact, rng)).to(dev)
+    before = sc.launches
+    got = sc.scatter_add_rows(ids, rows, n) if plan is None else sc._launch(ids, rows, n, plan)
+    want = sc.scatter_add_rows_reference(ids, rows, n)
+    mag = sc.scatter_add_rows_reference(ids, rows.abs(), n)
+    torch.cuda.synchronize()
+    assert sc.launches == before + 1
+    got, want, mag = (x.cpu().numpy() for x in (got, want, mag))
+    assert got.shape == (n, d)
+    if exact:
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert (np.abs(got - want) <= 1e-5 + 1e-5 * mag).all()
+
+
+def _zipf_ids(n, r, rng):
+    return np.minimum(rng.zipf(1.2, r) - 1, n - 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "n,r,d",
@@ -201,29 +226,71 @@ def _scatter_rows(r, d, exact, rng):
         (500, 0, 64),  # no rows: a zero table, and still one launch
         (300, 2003, 50),  # D not a multiple of 32
         (100_000, 180_000, 32),  # the TextSAGE step's user-side tree gather
-        (30_000, 285_000, 32),  # its item-side tree gather
+        (30_000, 285_000, 32),  # its item-side tree gather: Zipf(1.2) ids, as tree neighbours
         (40, 400_000, 32),  # a categorical gather: 100k users x 4 fields, 40 categories
     ],
 )
 @pytest.mark.parametrize("exact", [True, False])
 def test_cuda_scatter_matches_plain_version(n, r, d, exact):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc")
+    _need_card()
     rng = np.random.default_rng(n + r + d)
-    dev = torch.device("cuda")
-    ids = torch.from_numpy(rng.integers(0, n, r).astype(np.int32)).to(dev)
-    rows = torch.from_numpy(_scatter_rows(r, d, exact, rng)).to(dev)
-    before = sc.launches
-    got = sc.scatter_add_rows(ids, rows, n)
-    want = sc.scatter_add_rows_reference(ids, rows, n)
-    mag = sc.scatter_add_rows_reference(ids, rows.abs(), n)
-    torch.cuda.synchronize()
-    assert sc.launches == before + 1
-    got, want, mag = (x.cpu().numpy() for x in (got, want, mag))
-    if exact:
-        np.testing.assert_array_equal(got, want)
-    else:
-        assert (np.abs(got - want) <= 1e-5 + 1e-5 * mag).all()
+    ids = _zipf_ids(n, r, rng) if (n, r) == (30_000, 285_000) else rng.integers(0, n, r)
+    _check_scatter(n, ids, d, exact, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+def test_cuda_scatter_one_id_takes_every_row(exact):
+    _need_card()
+    rng = np.random.default_rng(21)
+    _check_scatter(30_000, np.full(285_000, 29_999), 32, exact, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", [(100_000, 180_000), (30_000, 285_000)])
+@pytest.mark.parametrize("exact", [True, False])
+def test_cuda_scatter_colliding_ids(n, r, exact):
+    """Ids that are all multiples of the tile's hash slot count."""
+    _need_card()
+    rng = np.random.default_rng(22)
+    plan = sc.plan_scatter(n, r, 32, sc.sm_count(0))
+    assert plan.mode == "tile"
+    slots = 2 * plan.tile
+    _check_scatter(n, rng.integers(0, n // slots, r) * slots, 32, exact, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+@pytest.mark.parametrize("mode", ["plan", "tile"])
+def test_cuda_scatter_tile_edges(edge, mode):
+    """R = T - 1, T, T + 1 for the item-side gather's T (the last tile partial,
+    one tile, one tile and a row), under the plan that R itself gets and under
+    the item-side gather's tile plan."""
+    _need_card()
+    rng = np.random.default_rng(23)
+    tile_plan = sc.plan_scatter(30_000, 285_000, 32, sc.sm_count(0))
+    r = tile_plan.tile + edge
+    for exact in (True, False):
+        _check_scatter(30_000, _zipf_ids(30_000, r, rng), 32, exact, rng,
+                       plan=tile_plan if mode == "tile" else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4, 50, 300, 4096])
+@pytest.mark.parametrize("mode", ["plan", "tile", "row"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n", [3, 2000])
+def test_cuda_scatter_widths_modes_and_id_types(d, mode, dtype, n):
+    """Every mode at odd and wide D (column chunks in tile mode at D = 4096),
+    on skewed ids of both widths, out-of-range ids included, into a table of
+    3 rows and of 2000."""
+    _need_card()
+    rng = np.random.default_rng(d)
+    r = 5000
+    ids = np.concatenate([_zipf_ids(n, r - 3, rng), [-3, n, 10**6]])
+    plan = None if mode == "plan" else sc.plan_scatter(n, r, d, sc.sm_count(0), mode)
+    for exact in (True, False):
+        _check_scatter(n, ids, d, exact, rng, plan=plan, dtype=dtype)
 
 
 @pytest.mark.cuda

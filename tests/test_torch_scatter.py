@@ -1,5 +1,6 @@
 """Port vs JAX package: the row scatter-add and the table gather whose
-gradient it is (``ops/scatter.py`` against ``ops/pallas_scatter.py``).
+gradient it is (``ops/scatter.py`` against ``ops/pallas_scatter.py``), and the
+CUDA kernel's launch plan, which runs anywhere.
 
 On the CPU the port's wrapper runs its plain ``index_add_`` version; the JAX
 kernel runs in interpret mode. Both sum float32 rows in different orders:
@@ -42,6 +43,33 @@ def test_scatter_add_rows_matches_jax_kernel(n, d, r, exact):
     want = np.asarray(jps.scatter_add_rows(jnp.asarray(ids), jnp.asarray(rows), n, interpret=True))
     got = ts.scatter_add_rows(torch.from_numpy(ids), torch.from_numpy(rows), n).numpy()
     assert got.shape == (n, d) and got.dtype == np.float32
+    if exact:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _skewed_ids(n, r, rng):
+    """Zipf(1.2) ids with the most frequent id on about a tenth of the rows,
+    as a hub item is in a SAGE step's sampled trees."""
+    ids = np.minimum(rng.zipf(1.2, r) - 1, n - 1)
+    ids[rng.permutation(r)[: r // 10]] = n // 3
+    return rng.permutation(n)[ids].astype(np.int32)
+
+
+@pytest.mark.parametrize("skew", ["hub", "small_table"])
+@pytest.mark.parametrize("exact", [True, False])
+def test_scatter_add_rows_matches_jax_kernel_on_repeated_ids(skew, exact):
+    # what the kernel's tile mode is for: one id on ~10% of the
+    # rows (a hub item), and a table of 40 rows that every update hits
+    rng = np.random.default_rng(11)
+    n, d, r = (3000, 32, 6000) if skew == "hub" else (40, 32, 6000)
+    ids = _skewed_ids(n, r, rng) if skew == "hub" else rng.integers(0, n, r).astype(np.int32)
+    if skew == "hub":
+        assert np.bincount(ids).max() >= r // 10
+    _, rows = _case(n, d, r, seed=12, exact=exact)
+    want = np.asarray(jps.scatter_add_rows(jnp.asarray(ids), jnp.asarray(rows), n, interpret=True))
+    got = ts.scatter_add_rows(torch.from_numpy(ids), torch.from_numpy(rows), n).numpy()
     if exact:
         np.testing.assert_array_equal(got, want)
     else:
@@ -110,3 +138,65 @@ def test_table_gather_value_and_grad_match_jax(shape):
     got_v.backward()
     np.testing.assert_allclose(float(got_v.detach()), float(want_v), rtol=1e-5)
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(want_g), rtol=1e-5, atol=1e-6)
+
+
+SMS = 132  # an H100's SMs
+CHIP_SHAPES = {  # (N, R, D) of the main paths -> (mode, T, blocks)
+    (30_000, 285_000, 32): ("tile", 1088, 262),  # the TextSAGE item-side tree gather
+    (100_000, 180_000, 32): ("tile", 704, 256),  # its user-side tree gather
+    (40, 400_000, 32): ("tile", 1536, 261),  # a categorical gather
+    (50_000, 8_192, 64): ("row", 8, 1024),  # the lgn step's user gather
+    (20_000, 16_384, 64): ("row", 8, 2048),  # its item gather
+}
+
+
+def _block_rows(plan, r):
+    """Rows each block of the grid adds, as the kernel walks them."""
+    if plan.mode == "tile":  # block b takes tiles b, b + blocks, ...
+        return [np.concatenate([np.arange(t * plan.tile, min(r, (t + 1) * plan.tile))
+                                for t in range(b, plan.tiles, plan.blocks)] or [np.zeros(0, int)])
+                for b in range(plan.blocks)]
+    warps = plan.blocks * ts.ROW_WARPS  # row mode: warp w takes rows w, w + warps, ...
+    return [np.arange(w, r, warps) for w in range(warps)]
+
+
+@pytest.mark.parametrize("n", [1, 40, 20_000, 100_000])
+@pytest.mark.parametrize("d", [1, 4, 32, 50, 64, 300, 4096])
+@pytest.mark.parametrize("r", [0, 1, 31, 8192, 285_000])
+def test_plan_scatter_invariants(n, d, r):
+    chosen = ts.plan_scatter(n, r, d, SMS)
+    tile_plan = ts.plan_scatter(n, r, d, SMS, "tile")
+    # tiles, unless they would be too short to repay their pass in shared
+    # memory and the row mode's chains stay short
+    assert (chosen.mode == "row") == (tile_plan.tile < ts.ROW_BELOW_TILE and r < ts.ROW_CHAIN * n)
+    for plan in (chosen, tile_plan, ts.plan_scatter(n, r, d, SMS, "row")):  # every D has a plan
+        assert plan.tiles == -(-r // plan.tile) and plan.blocks >= 1
+        covered = np.bincount(np.concatenate(_block_rows(plan, r) + [np.zeros(0, int)]),
+                              minlength=r)
+        assert (covered == 1).all()  # the tiles cover R exactly once
+        if plan.mode == "row":
+            assert plan.tile == ts.ROW_WARPS and plan.smem_bytes == 0
+            continue
+        assert plan.tile % 32 == 0 and plan.tile <= ts.MAX_TILE
+        # shared memory: a block's most, and the SM's for the two blocks it holds
+        assert plan.smem_bytes == ts.tile_smem(plan.tile, plan.chunk, 4 if d % 4 == 0 else 1)
+        assert plan.smem_bytes <= ts.SMEM_PER_BLOCK
+        assert ts.TILE_BLOCKS_PER_SM * (plan.smem_bytes + ts.SMEM_RESERVED) <= ts.SMEM_PER_SM
+        # column chunks: aligned for float4s, as few as fit
+        assert 1 <= plan.chunk and (d % 4 or plan.chunk % 4 == 0)
+        assert plan.chunk >= d or -(-d // plan.chunk) * plan.chunk - d < plan.chunk
+        # one wave: every tile has its block, and the grid fills 2 x SMs
+        # wherever there are that many tiles
+        slots = ts.TILE_BLOCKS_PER_SM * SMS
+        assert plan.blocks == max(1, min(plan.tiles, slots))
+        # the tiles are as long as one wave of 2 x SMs blocks needs, and no longer
+        assert plan.tiles <= slots or plan.tile == ts.MAX_TILE
+        if plan.tile > 32 and plan.tiles <= slots:
+            assert -(-r // (plan.tile - 32)) > slots
+
+
+@pytest.mark.parametrize("shape", sorted(CHIP_SHAPES))
+def test_plan_scatter_at_the_main_paths_shapes(shape):
+    plan = ts.plan_scatter(*shape, SMS)
+    assert (plan.mode, plan.tile, plan.blocks) == CHIP_SHAPES[shape]
+    assert plan.chunk == shape[2]  # one pass over the columns

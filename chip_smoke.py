@@ -102,21 +102,53 @@ Phases (any failure raises and exits non-zero):
                the serve and train lines of the lgn paths and of the TextSAGE
                paths (samples/s, host and device ms a step with the profiler's
                split, the idle share)
+ 12. train-textsage-20k
+               the flagship recipe (eval tiles of 2048 users) on the anchor20k
+               shape of the TPU records (benchmarks/anchor20k.py):
+               synthetic_structured_dataset(20000, 10000, avg degree 8, seed
+               0, rank 16, signal 3, popularity 0.8), 139,576 train edges, with
+               informative_synthetic_features(seed 0). relin_every R = 8 for 6
+               epochs: the loss falls, recall@10 at epoch 6 at least 0.10 (the
+               records, at R = 1: 0.1533-0.1624); one epoch each of R = 0 (its
+               loss only finite), feature_update_every T = 8 (the feature
+               parameters bit-identical inside each super-step, moved at its
+               end; optimizer step hooks) and dask (the numeric columns in
+               .npy files under a temporary directory, read through
+               MemmapNumeric; the numeric linears held inside the epoch and
+               moved after it; stream_project on the card, in one chunk and
+               in chunks of 2048 rows, equal to the in-core projection within
+               rtol 1e-5; stream_project_grad in chunks of 2048 rows equal to
+               X^T G within 1e-5 of the magnitudes summed into each element),
+               the loss of T = 8 and dask falling from the epoch's first
+               tenth to its last; scatter_add_rows launched twice a step and
+               masked_topk once per evaluation tile over the whole phase; one
+               evaluation of the R = 8 trainer through the kernel against the
+               plain version (phase 7's rule); one R = 8 block and
+               one T = 8 super-step on the card and on the CPU from the same
+               parameters, batches and trees, dropout 0, under phase 10's
+               rule; then samples/s, host and device ms a step, device
+               operations a step and the idle share for R = 1, R = 8, T = 8
+               and dask at this shape, and train-textsage-100k at R = 8
+               beside phase 10's R = 1 (a {"train_cadences": ...} line)
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
-30000, B in {1, 64, 512, 1024}, k in {10, 20}; scatter_add_rows at (N, R, D) =
-(100000, 180000, 32), (30000, 285000, 32) (a step's tree gathers, Zipf(1.2)
-ids here, ids of sampled trees in phase 11) and (40, 400000, 32), all in tile
-mode.
+30000, B in {1, 64, 512, 1024}, k in {10, 20}, and at phase 12's evaluation
+tile (M = 10000, B = 2048); scatter_add_rows at (N, R, D) = (100000, 180000,
+32), (30000, 285000, 32) (a step's tree gathers, Zipf(1.2) ids here, ids of
+sampled trees in phase 11), (40, 400000, 32), all in tile mode, and the same
+gathers on phase 12's graph, (20000, 180000, 32) and (10000, 285000, 32).
 
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -128,8 +160,10 @@ import torch
 from furusato_recommend_tpu_torch.config import Config, ddp_flagship_config
 from furusato_recommend_tpu_torch.convert import flatten_params, params_from_jax, params_to_numpy
 from furusato_recommend_tpu_torch.data import synthetic_dataset
-from furusato_recommend_tpu_torch.data.features import synthetic_features
+from furusato_recommend_tpu_torch.data.dataset import synthetic_structured_dataset
+from furusato_recommend_tpu_torch.data.features import informative_synthetic_features, synthetic_features
 from furusato_recommend_tpu_torch.data.graph import CSR
+from furusato_recommend_tpu_torch.data.ooc import MemmapNumeric, stream_project, stream_project_grad
 from furusato_recommend_tpu_torch.eval.metrics import batch_metric_sums
 from furusato_recommend_tpu_torch.models import sage
 from furusato_recommend_tpu_torch.models.registry import build_model
@@ -169,6 +203,15 @@ TS_WARMUP = 10
 # L = 2: users 5000 + 2 x 25000 + 125000, items 25000 + 2 x (5000 + 125000)),
 # and a categorical gather (100000 users x 4 fields into 40 categories)
 TS_SCATTER = ((TS_USERS, 180_000), (TS_ITEMS, 285_000), (40, 400_000))
+# the anchor20k shape (benchmarks/anchor20k.py): a structured 20k x 10k graph
+# with informative features, whose TPU records (benchmarks/results/
+# anchor20k_textsage_tpu_inf_s*.jsonl, relin_every 1) reach recall@10
+# 0.1533-0.1624 at epoch 6 and passed 0.10 by epoch 3 in every seed
+A20_USERS, A20_ITEMS, A20_EDGES = 20_000, 10_000, 139_576
+A20_EPOCHS, A20_RECALL10_FLOOR, A20_RECORDS_EPOCH6 = 6, 0.10, (0.1533, 0.1624)
+A20_EVAL_TILE = 2048  # the anchor20k evaluation's users per masked_topk call
+OOC_CHUNK = 2048  # rows a streamed chunk takes in the dask check: ten chunks
+CADENCE_BLOCK = 8  # R = 8 and T = 8
 # profiler ranges (ops/segment.py, ops/scatter.py, sampling/bpr.py,
 # sampling/neighbor.py, eval/evaluate.py, torch.optim's own) and the step part
 # each one names
@@ -267,6 +310,9 @@ def kernel_cases(dev) -> float:
         n, max_err = n + c, max(max_err, e)
     # TextSAGE's serving and evaluation shape
     c, e = _topk_cases(dev, rng, 1100, TS_ITEMS, TS_D, (1, 64, 512, 1024), (10, 20), True)
+    n, max_err = n + c, max(max_err, e)
+    # the anchor20k evaluation's tile (phase 12)
+    c, e = _topk_cases(dev, rng, A20_USERS, A20_ITEMS, TS_D, (A20_EVAL_TILE,), (10, 20), True)
     n, max_err = n + c, max(max_err, e)
     log(f"kernels: {n} cases equal to the plain version (max abs err {max_err:.3g}); "
         f"no host sync in the wrapper")
@@ -406,6 +452,12 @@ def scatter_cases(dev) -> float:
     ]
     cases += [(TS_ITEMS, zipf[: item_plan.tile + e], TS_D, item_plan) for e in (-1, 0, 1)]
     cases.append((TS_ITEMS, zipf, TS_D, sc.plan_scatter(TS_ITEMS, len(zipf), TS_D, sms, "row")))
+    # the flagship step's tree gathers on the anchor20k graph (phase 12)
+    rng20 = np.random.default_rng(SEED + 20)
+    cases += [
+        (A20_USERS, rng20.integers(0, A20_USERS, TS_SCATTER[0][1]), TS_D, None),
+        (A20_ITEMS, np.minimum(rng20.zipf(1.2, TS_SCATTER[1][1]) - 1, A20_ITEMS - 1), TS_D, None),
+    ]
     max_err, n_cases = 0.0, 0
     for n, ids, d, plan in cases:
         ids_t = torch.from_numpy(ids.astype(np.int32)).to(dev)
@@ -1023,6 +1075,276 @@ def card_vs_cpu_textsage(ds, fs, trainer) -> dict:
     return {"loss_card": lc, "loss_cpu": lp, "params_off": off, "params_total": total,
             "max_abs_diff": worst}
 
+def anchor20k_data():
+    """Phase 12's data: the anchor20k graph and its informative features."""
+    t0 = time.perf_counter()
+    ds = synthetic_structured_dataset(A20_USERS, A20_ITEMS, avg_degree=8, seed=0, rank=16, signal=3.0,
+                                      popularity_alpha=0.8)
+    assert ds.train_size == A20_EDGES, f"{ds.train_size} train edges, the TPU records have {A20_EDGES}"
+    _ = ds.graph
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fs = informative_synthetic_features(ds, a20_config(), dataset_seed=0, rank=16, seed=0)
+    features_s = time.perf_counter() - t0
+    log(f"train-textsage-20k data: {ds.n_users} users, {ds.m_items} items, {ds.train_size} train edges "
+        f"({data_s:.1f} s); informative features ({features_s:.1f} s)")
+    return ds, fs, {"data_s": data_s, "features_s": features_s}
+
+
+def a20_config(**over) -> Config:
+    return ddp_flagship_config().replace(eval_user_batch=A20_EVAL_TILE, topks=(10, 20), seed=SEED, **over)
+
+
+def _no_numeric(fs):
+    return dataclasses.replace(fs, user=dataclasses.replace(fs.user, numeric=None),
+                               item=dataclasses.replace(fs.item, numeric=None))
+
+
+def cadence_trainer(ds, fs, dev, name="textsage", ooc=None, **over) -> Trainer:
+    cfg = a20_config(model=name, **over)
+    model = build_model(name, cfg, ds.graph, features=_no_numeric(fs) if ooc else fs,
+                        generator=torch.Generator().manual_seed(SEED), ooc_numeric=ooc)
+    trainer = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=True, device=dev)
+    trainer.init_state()
+    return trainer
+
+
+def _timed_epoch(trainer) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean = trainer.train_one_epoch()  # ends in the epoch's one host sync
+    return time.perf_counter() - t0, mean, trainer.epoch_losses.cpu().numpy()
+
+
+def _falls(losses) -> tuple:
+    tenth = max(1, len(losses) // 10)
+    return float(losses[:tenth].mean()), float(losses[-tenth:].mean())
+
+
+def _params(model) -> dict:
+    return {k: p.detach().clone() for k, p in model.named_parameters()}
+
+
+def train_textsage_20k(ds, fs, dev, tmp) -> dict:
+    """Phase 12: the SAGE cadences on the anchor20k shape; returns facts (the
+    R = 8 trainer under "trainer")."""
+    n_eval = 0
+    facts = {}
+    sc.launches = st.launches = 0
+    steps = 0
+
+    # R = 8: six epochs, evaluated at 3 and 6
+    tr8 = cadence_trainer(ds, fs, dev, relin_every=CADENCE_BLOCK)
+    n_tiles = int(tr8.eval_data.users.shape[0])
+    epochs, recall = [], {}
+    for ep in range(1, A20_EPOCHS + 1):
+        dt, mean, _ = _timed_epoch(tr8)
+        epochs.append((dt, mean))
+        steps += tr8.num_batches
+        if ep % 3 == 0:
+            recall[ep] = tr8.test()["recall@10"]
+            n_eval += 1
+    assert np.isfinite([m for _, m in epochs]).all() and epochs[-1][1] < epochs[0][1], epochs
+    assert recall[A20_EPOCHS] >= A20_RECALL10_FLOOR, f"recall@10 {recall} below {A20_RECALL10_FLOOR}"
+    log(f"train-textsage-20k R=8: {A20_EPOCHS} epochs of {tr8.num_batches} steps, loss {epochs[0][1]:.4f} -> "
+        f"{epochs[-1][1]:.4f}, recall@10 {recall[3]:.4f} at epoch 3 and {recall[6]:.4f} at epoch 6 (TPU records, "
+        f"R=1: {A20_RECORDS_EPOCH6[0]}-{A20_RECORDS_EPOCH6[1]} at epoch 6; floor {A20_RECALL10_FLOOR})")
+    facts["R8"] = {"epoch_s": [e for e, _ in epochs], "loss": [m for _, m in epochs], "recall@10": recall,
+                   "steps_per_epoch": tr8.num_batches, "samples_per_epoch": tr8.samples_per_epoch}
+
+    # R = 0: one epoch (the epoch-start linearization only has to stay finite)
+    tr0 = cadence_trainer(ds, fs, dev, relin_every=0)
+    dt, mean, losses = _timed_epoch(tr0)
+    steps += tr0.num_batches
+    r0 = tr0.test()
+    n_eval += 1
+    assert np.isfinite(losses).all() and all(np.isfinite(v) for v in r0.values()), (mean, r0)
+    facts["R0"] = {"epoch_s": dt, "loss_first_last_tenth": _falls(losses), "recall@10": r0["recall@10"],
+                   "steps_per_epoch": tr0.num_batches}
+    log(f"train-textsage-20k R=0: loss {facts['R0']['loss_first_last_tenth']} (first and last tenth), "
+        f"recall@10 {r0['recall@10']:.4f}")
+    del tr0
+
+    # T = 8: the feature parameters held inside each super-step, moved at its end
+    tr_t = cadence_trainer(ds, fs, dev, feature_update_every=CADENCE_BLOCK)
+    feat = [dict(tr_t.model.named_parameters())[k] for k in tr_t.feature_names]
+    held = {"last": [p.detach().clone() for p in feat], "inner": 0, "super": 0, "bad": []}
+
+    def pre_feat(opt, args, kwargs):
+        if not all(torch.equal(p.detach(), q) for p, q in zip(feat, held["last"])):
+            held["bad"].append(f"a feature parameter moved inside super-step {held['super']}")
+        if held["inner"] != CADENCE_BLOCK:
+            held["bad"].append(f"{held['inner']} inner steps in super-step {held['super']}")
+
+    def post_feat(opt, args, kwargs):
+        now = [p.detach().clone() for p in feat]
+        if all(torch.equal(a, b) for a, b in zip(now, held["last"])):
+            held["bad"].append(f"the feature parameters did not move at super-step {held['super']}")
+        held.update(last=now, inner=0, super=held["super"] + 1)
+
+    def post_dense(opt, args, kwargs):
+        held["inner"] += 1
+
+    hooks = [tr_t.opt_feat.register_step_pre_hook(pre_feat), tr_t.opt_feat.register_step_post_hook(post_feat),
+             tr_t.optimizer.register_step_post_hook(post_dense)]
+    dt, mean, losses = _timed_epoch(tr_t)
+    for h in hooks:
+        h.remove()
+    steps += tr_t.num_batches
+    rt = tr_t.test()
+    n_eval += 1
+    first, last = _falls(losses)
+    assert not held["bad"], held["bad"][:5]
+    assert held["super"] == tr_t.num_batches // CADENCE_BLOCK, held["super"]
+    assert np.isfinite(losses).all() and last < first, (first, last)
+    facts["T8"] = {"epoch_s": dt, "loss_first_last_tenth": [first, last], "recall@10": rt["recall@10"],
+                   "super_steps": held["super"], "steps_per_epoch": tr_t.num_batches}
+    log(f"train-textsage-20k T=8: {held['super']} super-steps, the feature parameters bit-identical inside "
+        f"each and moved at its end; loss {first:.4f} -> {last:.4f}, recall@10 {rt['recall@10']:.4f}")
+
+    # dask: the numeric columns on disk, read through MemmapNumeric
+    mms = {}
+    for side in ("user", "item"):
+        path = os.path.join(tmp, f"{side}_numeric.npy")
+        mms[side] = MemmapNumeric.write(path, getattr(fs, side).numeric.numpy())
+    trd = cadence_trainer(ds, fs, dev, name="dask", ooc=mms)
+    numeric = {k: p for k, p in trd.model.named_parameters() if "_numeric_" in k}
+    start = {k: p.detach().clone() for k, p in numeric.items()}
+    moved_inside = []
+
+    def post_dask(opt, args, kwargs):
+        moved_inside.extend(k for k, p in numeric.items() if not torch.equal(p.detach(), start[k]))
+
+    h = trd.optimizer.register_step_post_hook(post_dask)
+    dt, mean, losses = _timed_epoch(trd)
+    h.remove()
+    steps += trd.num_batches
+    rd = trd.test()
+    n_eval += 1
+    first, last = _falls(losses)
+    assert not moved_inside, f"numeric linears moved inside the epoch: {sorted(set(moved_inside))}"
+    assert all(not torch.equal(p.detach(), start[k]) for k, p in numeric.items()), "no numeric linear moved"
+    assert np.isfinite(losses).all() and last < first, (first, last)
+    proj_err, grad_rel = 0.0, 0.0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    for side, mm in mms.items():
+        w, b = numeric[f"{side}_numeric_w"].detach(), numeric[f"{side}_numeric_b"].detach()
+        x = getattr(fs, side).numeric.to(dev)
+        in_core = x @ w + b
+        # one chunk (the default), and OOC_CHUNK rows a chunk: several in
+        # flight on the side stream
+        for chunk in (None, OOC_CHUNK):
+            streamed = stream_project(mm, w, b) if chunk is None else stream_project(mm, w, b, chunk=chunk)
+            torch.testing.assert_close(streamed, in_core, rtol=1e-5, atol=1e-6 * float(in_core.abs().max()))
+            proj_err = max(proj_err, float((streamed - in_core).abs().max()))
+        # X^T G against the in-core product: each element within 1e-5 of the
+        # sum of the magnitudes added into it (only the order of the float32
+        # sums differs)
+        g = torch.randn(in_core.shape, generator=gen, device=dev)
+        gw, gb = stream_project_grad(mm, g, chunk=OOC_CHUNK)
+        want_w, mag_w = x.T @ g, x.abs().T @ g.abs()
+        assert (gw - want_w).abs().le(1e-5 * mag_w).all(), f"{side}: stream_project_grad off X^T G"
+        torch.testing.assert_close(gb, g.sum(0), rtol=1e-5, atol=1e-5 * float(g.abs().sum(0).max()))
+        grad_rel = max(grad_rel, float(((gw - want_w).abs() / mag_w.clamp_min(1e-30)).max()))
+    n_chunks = -(-A20_USERS // OOC_CHUNK)
+    facts["dask"] = {"epoch_s": dt, "loss_first_last_tenth": [first, last], "recall@10": rd["recall@10"],
+                     "stream_project_max_abs_err": proj_err, "stream_project_grad_max_err_over_magnitude": grad_rel,
+                     "check_chunk": OOC_CHUNK, "steps_per_epoch": trd.num_batches}
+    log(f"train-textsage-20k dask: numeric linears held inside the epoch and moved after it; stream_project "
+        f"in one chunk and in chunks of {OOC_CHUNK} rows ({n_chunks} on the user side) equal to the in-core "
+        f"projection (max abs err {proj_err:.3g}); stream_project_grad equal to X^T G (max err / magnitude "
+        f"{grad_rel:.3g}); loss {first:.4f} -> {last:.4f}, recall@10 {rd['recall@10']:.4f}")
+
+    launches = {"scatter_add_rows": sc.launches, "masked_topk": st.launches}
+    assert launches["scatter_add_rows"] == 2 * steps, f"scatter launched {launches} in {steps} steps"
+    assert launches["masked_topk"] == n_eval * n_tiles, f"masked_topk {launches} for {n_eval} x {n_tiles} tiles"
+    log(f"train-textsage-20k: scatter launches {launches['scatter_add_rows']} (2 per step over {steps} steps), "
+        f"masked_topk launches {launches['masked_topk']} ({n_tiles} tiles per evaluation)")
+    facts.update(launches=launches, steps=steps, evaluations=n_eval, eval_tiles=n_tiles)
+    facts["trainers"] = {"R8": tr8, "T8": tr_t, "dask": trd}
+    return facts
+
+
+def _block(trainer, gen, n):
+    """n batches (and their trees) drawn on the card with the trainer's
+    alias tables."""
+    cfg = trainer.config
+    bs = cfg.bpr_batch_size
+    allb = sample_bpr(gen, trainer.graph, n * bs, cfg.neg_candidates,
+                      edge_alias=trainer.edge_alias, neg_alias=trainer.neg_alias)
+    batches = [allb.slice(i * bs, (i + 1) * bs) for i in range(n)]
+    trees = [[trainer.model.sample_seed_tree(trainer.graph, s, side, gen)
+              for s, side in ((b.user, "user"), (b.pos, "item"), (b.neg, "item"))] for b in batches]
+    return batches, trees
+
+
+def card_vs_cpu_cadences(ds, fs, trainer8, dev) -> dict:
+    """Phase 12's card-against-CPU check: one R = 8 block and one T = 8
+    super-step, dropout 0, from the same parameters, batches and trees."""
+    params = params_to_numpy(trainer8.model)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    batches, trees = _block(trainer8, gen, CADENCE_BLOCK)
+    out = {}
+    rate, sage.DROPOUT_RATE = sage.DROPOUT_RATE, 0.0
+    try:
+        for cadence, over in (("R8", {"relin_every": CADENCE_BLOCK}), ("T8", {"feature_update_every": CADENCE_BLOCK})):
+            got = {}
+            for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+                cfg = a20_config(**over)
+                model = build_model("textsage", cfg, ds.graph, features=fs)
+                params_from_jax(params, model)
+                tr = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=True, device=d)
+                losses = tr.train_epoch([b.to(d) for b in batches],
+                                        trees=[[[lvl.to(d) for lvl in t] for t in ts] for ts in trees])
+                got[name] = (flatten_params(params_to_numpy(tr.model)), losses.cpu().numpy())
+            (pc, lc), (pp, lp) = got["card"], got["cpu"]
+            np.testing.assert_allclose(lc, lp, rtol=1e-4)
+            lr = trainer8.config.lr
+            worst, off, total = 0.0, 0, 0
+            for k in pp:
+                diff = np.abs(pc[k] - pp[k])
+                assert (diff <= 2 * lr).all(), f"{cadence} {k}: {diff.max()}"
+                off += int((diff > 1e-6 + 1e-5 * np.abs(pp[k])).sum())
+                total += diff.size
+                worst = max(worst, float(diff.max()))
+            assert off <= 1e-3 * total, f"{cadence}: {off} of {total} parameters differ"
+            log(f"train-textsage-20k card vs CPU, {cadence} ({CADENCE_BLOCK} steps): losses within rtol 1e-4 "
+                f"(max rel {float(np.max(np.abs(lc - lp) / np.abs(lp))):.3g}); parameters within 1e-6 + 1e-5 |p| "
+                f"but {off} of {total} (max abs diff {worst:.3g})")
+            out[cadence] = {"losses_card": lc.tolist(), "losses_cpu": lp.tolist(), "params_off": off,
+                            "params_total": total, "max_abs_diff": worst}
+    finally:
+        sage.DROPOUT_RATE = rate
+    return out
+
+
+def cadence_numbers(trainer, label, profile_steps=2 * CADENCE_BLOCK) -> dict:
+    """Samples/s and host ms a step from a timed epoch; device ms and
+    operations a step from ``profile_steps`` profiled steps run through
+    ``train_epoch`` (whole blocks of the cadence; the dask epoch's streamed
+    passes count only when the whole epoch is profiled); and the idle share of
+    an unprofiled step (1 - device / host)."""
+    epoch_s, _, _ = _timed_epoch(trainer)
+    steps = trainer.num_batches
+    bs = trainer.config.bpr_batch_size
+    batches = trainer.sample_epoch()
+    blocks = [batches.slice(i * bs, (i + 1) * bs) for i in range(min(profile_steps, steps))]
+    torch.cuda.synchronize()
+    prof = split_profile(lambda: trainer.train_epoch(blocks), n=1)
+    out = {"epoch_s": epoch_s, "samples_per_s": trainer.samples_per_epoch / epoch_s,
+           "host_ms_per_step": 1e3 * epoch_s / steps, "steps_per_epoch": steps, "profiled_steps": len(blocks)}
+    if prof is not None:
+        k = len(blocks)
+        out.update(device_ms_per_step=prof["device_ms"] / k,
+                   device_ops_per_step=prof["device_ops_per_call"] / k,
+                   split_ms_per_step={name: v / k for name, v in prof["split_ms"].items()})
+        out["idle_share_unprofiled"] = 1.0 - out["device_ms_per_step"] / out["host_ms_per_step"]
+        log(f"{label}: {out['samples_per_s']:.0f} samples/s; a step {out['host_ms_per_step']:.2f} ms on the "
+            f"host, {out['device_ms_per_step']:.3f} ms on the device in {out['device_ops_per_step']:.0f} "
+            f"operations; idle {out['idle_share_unprofiled']:.3f}")
+    return out
+
+
 
 def main() -> int:
     # 1. device
@@ -1206,6 +1528,35 @@ def main() -> int:
         rows_seed=SEED + 7)
     ts_head = next(t for t in ts_serve["tiles"] if t["B"] == 512)
 
+    # 12. train-textsage-20k: the cadences on the anchor20k shape, and their
+    # numbers beside R = 1, and the 100k flagship at R = 8 beside phase 10's R = 1
+    with tempfile.TemporaryDirectory() as tmp:
+        a20_ds, a20_fs, a20_host = anchor20k_data()
+        a20 = train_textsage_20k(a20_ds, a20_fs, dev, tmp)
+        a20.update(a20_host)
+        a20_trainers = a20.pop("trainers")
+        a20["eval_vs_plain"] = eval_kernel_vs_plain(a20_trainers["R8"])
+        a20["card_vs_cpu"] = card_vs_cpu_cadences(a20_ds, a20_fs, a20_trainers["R8"], dev)
+        cadences_20k = {"R1": cadence_numbers(cadence_trainer(a20_ds, a20_fs, dev), "train-textsage-20k R=1")}
+        for key, trainer_c in a20_trainers.items():
+            cadences_20k[key] = cadence_numbers(
+                trainer_c, f"train-textsage-20k {key}",
+                profile_steps=trainer_c.num_batches if key == "dask" else 2 * CADENCE_BLOCK)
+        del a20_trainers, trainer_c
+    tr100 = Trainer(cfg_ts.replace(relin_every=CADENCE_BLOCK), ts_ds, _textsage_model(ts_ds, ts_fs, SEED + 1),
+                    logger=MetricLogger(quiet=True), ddp_recipe=True, device=dev)
+    tr100.init_state()
+    cadences_100k = {
+        "R1": {"samples_per_s": ts_train["samples_per_s"], "host_ms_per_step": ts_train["step_ms"],
+               "steps_per_epoch": ts_train["steps_per_epoch"],
+               **({"device_ms_per_step": ts_train["step_profile"]["device_ms"],
+                   "device_ops_per_step": ts_train["step_profile"]["device_ops_per_call"],
+                   "idle_share_unprofiled": ts_train["idle_share_unprofiled"]}
+                  if ts_train["step_profile"] is not None else {})},
+        "R8": cadence_numbers(tr100, "train-textsage-100k R=8", profile_steps=3 * CADENCE_BLOCK),
+    }
+    del tr100
+
     ts_serve_launches = ts_serve["launches"]["masked_topk"]
     ts_train_launches = ts_train["launches"]
     kernels = [{
@@ -1214,10 +1565,11 @@ def main() -> int:
         "source": "furusato_recommend_tpu_torch/csrc/streaming_topk.cu",
         "replaces": "furusato_recommend_tpu/ops/pallas_topk.py:152",
         "launches": (serve_launches + train["launches"]["masked_topk"] + ts_serve_launches
-                     + ts_train_launches["masked_topk"]),
+                     + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]),
         "launches_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"],
                              "serve_textsage": ts_serve_launches,
-                             "train_textsage": ts_train_launches["masked_topk"]},
+                             "train_textsage": ts_train_launches["masked_topk"],
+                             "train_textsage_20k": a20["launches"]["masked_topk"]},
         "textsage": {"at": {"B": 512, "k": TS_K, "M": ts_ds.m_items, "d": TS_D},
                      **{key: ts_head[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                       "bound_by")},
@@ -1238,10 +1590,12 @@ def main() -> int:
         "route": "cuda",
         "source": "furusato_recommend_tpu_torch/csrc/scatter_add_rows.cu",
         "replaces": "furusato_recommend_tpu/ops/pallas_scatter.py:97",
-        "launches": train["launches"]["scatter_add_rows"] + ts_train_launches["scatter_add_rows"],
+        "launches": (train["launches"]["scatter_add_rows"] + ts_train_launches["scatter_add_rows"]
+                     + a20["launches"]["scatter_add_rows"]),
         "launches_by_path": {"serve": 0, "train": train["launches"]["scatter_add_rows"],
                              "serve_textsage": ts_serve["launches"]["scatter_add_rows"],
-                             "train_textsage": ts_train_launches["scatter_add_rows"]},
+                             "train_textsage": ts_train_launches["scatter_add_rows"],
+                             "train_textsage_20k": a20["launches"]["scatter_add_rows"]},
         "launches_per_step": train["scatter_launches_per_step"],
         "launches_per_step_textsage": ts_train["scatter_launches_per_step"],
         "textsage_shapes": ts_sc_shapes,
@@ -1272,6 +1626,11 @@ def main() -> int:
     log(json.dumps({"serve_textsage": {**ts_shape, **ts_serve}}))
     log(json.dumps({"train_textsage": {**ts_shape, "B": cfg_ts.bpr_batch_size, "lr": cfg_ts.lr,
                                        **ts_train}}))
+    log(json.dumps({"train_cadences": {
+        "train_textsage_20k": {"model": "textsage", "d": TS_D, "users": A20_USERS, "items": A20_ITEMS,
+                               "train_edges": A20_EDGES, "features": "informative", **a20,
+                               "numbers": cadences_20k},
+        "train_textsage_100k": cadences_100k}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

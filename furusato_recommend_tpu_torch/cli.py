@@ -3,14 +3,18 @@
     python -m furusato_recommend_tpu_torch.cli --model lgn --recdim 64 --layer 2 \\
         --bpr_batch 8192 --lr 1e-3 --data_path ./data [--device cpu]
 
-The flags are the JAX package's, plus ``--device`` (default ``cuda``; raises
-without CUDA unless ``--device cpu``). The MF / LightGCN family trains, and so
-does the SAGE family's ported part (``textsage``, ``textsage_id``, ``sage``,
-``fsage``, ``fastsage``, ``lightsage``, ``pinsage``, ``mrec``, ``nssage``,
-``gnn``), on the reference's feature artifacts under ``--data_path``
-(``data/features.py::load_reference_features``), with ``--ddp_recipe``,
-``--sample_pow`` and ``--inference sample``. Other models, a mesh and the
-wandb / tensorboard sinks are not ported yet and raise.
+The flags are the JAX package's, with its defaults and choices, plus
+``--device`` (default ``cuda``; raises without CUDA unless ``--device cpu``).
+The MF / LightGCN family trains, and so does the SAGE family's ported part
+(``textsage``, ``textsage_id``, ``sage``, ``fsage``, ``fastsage``,
+``lightsage``, ``pinsage``, ``mrec``, ``nssage``, ``gnn``, and ``dask``, whose
+numeric matrices stay on disk), on the reference's feature artifacts under
+``--data_path`` (``data/features.py::load_reference_features``), with
+``--ddp_recipe``, ``--sample_pow``, ``--inference sample`` and
+``--feature_update_every``. ``--a_fold``, ``--compile_cache`` and
+``--pipeline_dispatch`` concern the TPU layout and XLA: each prints a notice
+and is ignored. ``--ckpt_backend orbax``, other models, a mesh and the wandb /
+tensorboard sinks raise.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--decay", type=float, default=1e-7)
     p.add_argument("--dropout", type=int, default=0)
     p.add_argument("--keepprob", type=float, default=0.6)
+    p.add_argument("--a_fold", type=int, default=1000)
     p.add_argument("--num_neighbors", type=int, default=5)
     p.add_argument("--testbatch", type=int, default=10000)
     p.add_argument("--dataset", type=str, default="furusato")
@@ -43,6 +48,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--comment", type=str, default="lgn")
     p.add_argument("--load", type=int, default=0)
     p.add_argument("--epochs", type=int, default=1000)
+    p.add_argument("--pretrain", type=int, default=0)
     p.add_argument("--seed", type=int, default=2020)
     p.add_argument("--model", type=str, default="lgn")
     p.add_argument("--train_emb", action="store_true")
@@ -50,6 +56,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--r", type=float, default=0.5)
     p.add_argument("--test_span", type=int, default=10)
     p.add_argument("--suffix", type=str, default="")
+    p.add_argument("--multi_relational", type=str, default="add")
     p.add_argument("--conv", type=str, default="gcn")
     p.add_argument("--for_lgbm", action="store_true")
     p.add_argument("--lgbm_ratio", type=float, default=0.1)
@@ -61,7 +68,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_model", type=int, default=1)
     p.add_argument("--ddp_recipe", action="store_true", help="weighted+capped DDP sampler recipe")
     p.add_argument("--loss_fn", type=str, default="bpr", choices=["bpr", "infonce"])
+    p.add_argument("--ckpt_backend", type=str, default="npz", choices=["npz", "orbax"])
     p.add_argument("--auc", action="store_true")
+    p.add_argument("--feature_update_every", type=int, default=1,
+                   help="T>1: the feature parameters take one Adam step per T steps")
+    p.add_argument("--compile_cache", type=str, default="", help="XLA's; ignored")
+    p.add_argument("--pipeline_dispatch", action=argparse.BooleanOptionalAction, default=True,
+                   help="the JAX package's epoch prefetch; ignored")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -83,8 +96,10 @@ def config_from_args(args: argparse.Namespace) -> Config:
         epochs=args.epochs,
         test_span=args.test_span,
         seed=args.seed,
+        pretrain=bool(args.pretrain),
         r=args.r,
         conv=args.conv,
+        multi_relational=args.multi_relational,
         inference=args.inference,
         train_emb=args.train_emb,
         sample_pow=args.sample_pow,
@@ -103,30 +118,59 @@ def config_from_args(args: argparse.Namespace) -> Config:
         comment=args.comment,
         load=bool(args.load),
         mesh=MeshConfig(data=args.mesh_data, model=args.mesh_model),
+        ckpt_backend=args.ckpt_backend,
         loss_fn=args.loss_fn,
         compute_auc=args.auc,
+        feature_update_every=args.feature_update_every,
+        compile_cache=args.compile_cache,
+        pipeline_dispatch=args.pipeline_dispatch,
     )
 
 
 def build_model_inputs(config: Config, dataset):
     """(graph, model keyword arguments) for ``build_model``: the SAGE-family
-    keys get ``features=``, the reference's artifacts under
-    config.data_path."""
+    keys get ``features=``, the reference's artifacts under config.data_path;
+    ``dask`` leaves the numeric matrices on disk and gets them as
+    ``ooc_numeric={side: MemmapNumeric}``."""
     from .models.registry import SAGE_KEYS
 
     model_kw = {}
     if config.model in SAGE_KEYS:
-        from .data.features import load_reference_features
+        from .data.features import load_reference_features, numeric_artifact_paths
 
-        model_kw["features"] = load_reference_features(config, config.data_path)
+        ooc = config.model == "dask"
+        model_kw["features"] = load_reference_features(
+            config, config.data_path, dataset=dataset, skip_numeric=ooc
+        )
+        if ooc:
+            from .data.ooc import MemmapNumeric
+
+            paths = numeric_artifact_paths(config, config.data_path)
+            if paths:
+                model_kw["ooc_numeric"] = {side: MemmapNumeric(p) for side, p in paths.items()}
     return dataset.graph, model_kw
 
 
+#: flags of the JAX package that concern its TPU layout or XLA, and why the
+#: port ignores them
+_IGNORED = {
+    "a_fold": "the port's SpMM needs no folding of the adjacency",
+    "compile_cache": "the port runs eagerly and compiles no epoch program",
+    "pipeline_dispatch": "the device queue already overlaps the host",
+}
+
+
 def main(argv=None):
-    args = build_argparser().parse_args(argv)
+    parser = build_argparser()
+    args = parser.parse_args(argv)
     config = config_from_args(args)
     if config.wandb or config.tensorboard:
         raise NotImplementedError("the wandb and tensorboard sinks are not ported yet")
+    if config.ckpt_backend == "orbax":
+        raise NotImplementedError("--ckpt_backend orbax is JAX's; the port writes its own .npz checkpoints")
+    for attr, why in _IGNORED.items():
+        if getattr(args, attr) != parser.get_default(attr):
+            print(f"[cli] --{attr} is ignored: {why}")
 
     from .core.device import resolve_device
     from .data import load_text_dataset

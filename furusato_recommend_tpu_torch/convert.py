@@ -10,7 +10,12 @@ nested tree to those names, ``nest_params`` back).
 Adam's state: ``optax.adam`` keeps ``ScaleByAdamState(count, mu, nu)`` with
 ``mu`` / ``nu`` trees shaped like the parameters; ``torch.optim.Adam`` keeps,
 per parameter, ``step``, ``exp_avg`` and ``exp_avg_sq``. The two hold the same
-numbers (first and second moments, and the number of steps taken).
+numbers (first and second moments, and the number of steps taken). The JAX
+trainer's partitioned optimizers (``optax.multi_transform`` of ``adam`` and
+``set_to_zero``, under ``feature_update_every`` > 1 and the out-of-core
+features) keep an Adam state whose moments are ``MaskedNode``s outside its
+group; the port keeps one ``torch.optim.Adam`` a group, and
+``adam_state_from_jax`` sets only the parameters its optimizer steps.
 """
 
 from __future__ import annotations
@@ -99,12 +104,15 @@ def adam_state_from_jax(
     optimizer: torch.optim.Adam,
     model: nn.Module,
 ) -> torch.optim.Adam:
-    """Set ``optimizer``'s state for each of ``model``'s parameters from the
-    optax moments ``mu`` / ``nu`` (trees like the parameters', nested or
-    flat) after ``count`` steps."""
+    """Set ``optimizer``'s state for each of ``model``'s parameters that it
+    steps from the optax moments ``mu`` / ``nu`` (trees like the parameters',
+    nested or flat; entries of parameters the optimizer does not step are
+    ignored) after ``count`` steps."""
     mu, nu = flatten_params(mu), flatten_params(nu)
-    own = dict(model.named_parameters())
-    if set(mu) != set(own) or set(nu) != set(own):
+    stepped = {id(p) for group in optimizer.param_groups for p in group["params"]}
+    own = {name: p for name, p in model.named_parameters() if id(p) in stepped}
+    missing = sorted(set(own) - (set(mu) & set(nu)))
+    if missing or set(mu) - set(dict(model.named_parameters())):
         raise KeyError(f"moments {sorted(mu)} / {sorted(nu)} do not match the model's {sorted(own)}")
     for name, p in own.items():
         m, v = _as_tensor(mu[name]), _as_tensor(nu[name])

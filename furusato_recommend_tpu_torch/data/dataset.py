@@ -5,8 +5,10 @@ or COO arrays -> host arrays + a lazily built ``BipartiteGraph``.
   ``for_lgbm``, ``cold_start`` and ``test_mode`` slicing rules;
 - the production inference edge set: an ``inference{suffix}.txt`` file, or
   train + test when ``suffix == "all"``;
-- ``synthetic_dataset``, which draws the same numpy stream as the JAX package's,
-  so one seed gives bit-identical arrays in both packages.
+- ``synthetic_dataset``, ``synthetic_zipf_dataset`` and
+  ``synthetic_structured_dataset`` (with its ground-truth latents,
+  ``structured_latents``) draw the same numpy streams as the JAX package's, so
+  one seed gives bit-identical arrays in both packages.
 """
 
 from __future__ import annotations
@@ -20,7 +22,10 @@ import numpy as np
 from ..config import Config
 from .graph import BipartiteGraph, build_bipartite_graph
 
-__all__ = ["Dataset", "load_text_dataset", "synthetic_dataset"]
+__all__ = [
+    "Dataset", "load_text_dataset", "synthetic_dataset", "synthetic_zipf_dataset",
+    "structured_latents", "synthetic_structured_dataset",
+]
 
 
 @dataclass
@@ -273,6 +278,114 @@ def synthetic_dataset(
         tr_i.extend(train_part.tolist())
         te_u.extend([u] * len(test_part))
         te_i.extend(test_part.tolist())
+
+    return Dataset(
+        n_users=n_users,
+        m_items=m_items,
+        train_user=np.asarray(tr_u, dtype=np.int64),
+        train_item=np.asarray(tr_i, dtype=np.int64),
+        test_user=np.asarray(te_u, dtype=np.int64),
+        test_item=np.asarray(te_i, dtype=np.int64),
+    )
+
+
+def synthetic_zipf_dataset(
+    n_users: int,
+    m_items: int,
+    avg_degree: int = 12,
+    test_holdout: int = 3,
+    seed: int = 0,
+    popularity_alpha: float = 1.2,
+) -> Dataset:
+    """``synthetic_dataset`` in one vectorized draw, for large graphs: every
+    user draws about 1.3 x k_u Zipf items with replacement, k_u ~
+    Uniform[test_holdout + 2, 2 avg_degree); its first k_u distinct items (in
+    id order) are kept, the last ``test_holdout`` of them held out. A user whose
+    distinct draws came up short keeps fewer."""
+    rng = np.random.default_rng(seed)
+    pop = 1.0 / np.arange(1, m_items + 1) ** popularity_alpha
+    pop = pop / pop.sum()
+    k_u = rng.integers(test_holdout + 2, max(test_holdout + 3, 2 * avg_degree), size=n_users)
+    draw = (k_u * 1.3).astype(np.int64) + 4
+    u = np.repeat(np.arange(n_users, dtype=np.int64), draw)
+    i = rng.choice(m_items, size=int(draw.sum()), p=pop)
+    keys = np.unique(u * m_items + i)  # sorted, distinct (user, item) pairs
+    uu, ii = keys // m_items, keys % m_items
+    deg = np.bincount(uu, minlength=n_users)
+    starts = np.cumsum(deg) - deg
+    pos = np.arange(len(uu)) - starts[uu]
+    kk = np.minimum(deg, k_u)
+    keep = pos < kk[uu]
+    uu, ii, pos = uu[keep], ii[keep], pos[keep]
+    is_test = pos >= (kk[uu] - test_holdout)
+    return Dataset(
+        n_users=n_users,
+        m_items=m_items,
+        train_user=uu[~is_test],
+        train_item=ii[~is_test],
+        test_user=uu[is_test],
+        test_item=ii[is_test],
+    )
+
+
+def structured_latents(
+    n_users: int,
+    m_items: int,
+    rank: int = 16,
+    seed: int = 0,
+    rng: Optional[np.random.Generator] = None,
+):
+    """(U [n_users, rank], V [m_items, rank]) float32 standard normal: the
+    ground-truth latents of ``synthetic_structured_dataset``, the first two
+    draws of its stream, so ``seed`` regenerates them without the dataset.
+    ``rng`` continues a stream instead (the dataset generator passes its own)."""
+    rng = np.random.default_rng(seed) if rng is None else rng
+    U = rng.standard_normal((n_users, rank), dtype=np.float32)
+    V = rng.standard_normal((m_items, rank), dtype=np.float32)
+    return U, V
+
+
+def synthetic_structured_dataset(
+    n_users: int = 1000,
+    m_items: int = 500,
+    avg_degree: int = 10,
+    test_holdout: int = 3,
+    seed: int = 0,
+    rank: int = 16,
+    signal: float = 3.0,
+    popularity_alpha: float = 0.8,
+    chunk: int = 2048,
+) -> Dataset:
+    """A bipartite dataset with collaborative structure: user u takes the
+    Gumbel top-k_u items of ``signal * <U_u, V_i> / sqrt(rank) + pop_i +
+    Gumbel noise`` over rank-``rank`` latents (``structured_latents``), with a
+    Zipf log-popularity shuffled over the item ids. k_u ~ Uniform[test_holdout
+    + 2, 2 avg_degree); the last ``test_holdout`` items of each user's set are
+    the test split. Users go in chunks of ``chunk``, so the [n_users, m_items]
+    score matrix is never whole."""
+    rng = np.random.default_rng(seed)
+    U, V = structured_latents(n_users, m_items, rank=rank, rng=rng)
+    pop = (-popularity_alpha * np.log(np.arange(1, m_items + 1))).astype(np.float32)
+    rng.shuffle(pop)
+
+    k_lo, k_hi = test_holdout + 2, max(test_holdout + 3, 2 * avg_degree)
+    k_u = rng.integers(k_lo, k_hi, size=n_users)
+    k_max = int(k_u.max())
+    scale = signal / np.sqrt(rank)
+
+    tr_u, tr_i, te_u, te_i = [], [], [], []
+    for lo in range(0, n_users, chunk):
+        hi = min(lo + chunk, n_users)
+        s = (U[lo:hi] @ V.T) * scale + pop[None, :]
+        s += rng.gumbel(size=s.shape).astype(np.float32)
+        top = np.argpartition(-s, k_max, axis=1)[:, :k_max]  # [B, k_max] distinct
+        for r, u in enumerate(range(lo, hi)):
+            k = int(k_u[u])
+            items = top[r, :k]
+            tr_u.extend([u] * (k - test_holdout))
+            tr_i.extend(items[:-test_holdout].tolist())
+            te_u.extend([u] * test_holdout)
+            te_i.extend(items[-test_holdout:].tolist())
 
     return Dataset(
         n_users=n_users,

@@ -9,11 +9,14 @@ Every feature is a dense tensor, held by the model on its device:
 - text [N, fields, W] int32: each text field's distinct word ids, -1 padded
   (3 fields, plus the review field for items with the ``r`` flag).
 
-``synthetic_features`` draws the same numpy stream as the JAX package's, so
-one seed gives bit-equal arrays in both. ``load_reference_features`` reads the
-reference's artifacts for the flags ``n c w t s r b``. Not ported yet:
-``informative_synthetic_features``, the per-edge purchase times
-(``buy_timestamp``, for tgsrec / sasgnn) and the out-of-core numeric paths.
+``synthetic_features`` (noise with respect to the graph) and
+``informative_synthetic_features`` (noisy views of the latents of
+``synthetic_structured_dataset``) draw the same numpy streams as the JAX
+package's, so one seed gives bit-equal arrays in both.
+``load_reference_features`` reads the reference's artifacts for the flags ``n
+c w t s r b``, and the per-edge purchase times (``buy_timestamp``) for tgsrec /
+sasgnn; ``numeric_artifact_paths`` names the numeric matrices that the
+out-of-core ``dask`` variant reads from disk instead (``data/ooc.py``).
 """
 
 from __future__ import annotations
@@ -22,18 +25,20 @@ import dataclasses
 import pickle
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..config import Config
-from .dataset import Dataset
+from .dataset import Dataset, structured_latents
 
 __all__ = [
     "SideFeatures",
     "FeatureStore",
     "synthetic_features",
+    "informative_synthetic_features",
+    "numeric_artifact_paths",
     "pad_text_rows",
     "text_from_scipy_csr",
     "load_reference_features",
@@ -171,7 +176,122 @@ def synthetic_features(
     )
 
 
-def load_reference_features(config: Config, base_path: str) -> FeatureStore:
+def informative_synthetic_features(
+    dataset: Dataset,
+    config: Config,
+    dataset_seed: int = 0,
+    rank: int = 16,
+    seed: int = 1,
+    n_numeric_user: int = 24,
+    n_numeric_item: int = 16,
+    n_cat_fields_user: int = 4,
+    n_cat_fields_item: int = 5,
+    n_clusters: int = 32,
+    tokens_per_cluster: int = 10,
+    text_vocab: int = 500,
+    text_width: int = 12,
+    numeric_noise: float = 0.15,
+    w2v_noise: float = 0.3,
+    cluster_fidelity: float = 0.85,
+) -> FeatureStore:
+    """Artifacts shaped as ``synthetic_features``'s that carry the latents of
+    ``synthetic_structured_dataset(..., seed=dataset_seed, rank=rank)``
+    (regenerated by ``structured_latents``), as CPU tensors; the same draws as
+    the JAX package's in the same order, from ``default_rng(seed +
+    7_777_777)``:
+
+    - numeric: the first ``rank`` columns are 0.5 x the latents, every column
+      has ``numeric_noise`` Gaussian noise;
+    - word2vec / sentence / bert: the latents through a random linear map, plus
+      ``w2v_noise`` Gaussian noise;
+    - text: each entity's cluster is its latent direction's nearest of
+      ``n_clusters`` shared centroids, and cluster c owns the token band [c
+      tokens_per_cluster, (c + 1) tokens_per_cluster); a field's tokens come
+      from the entity's band with probability ``cluster_fidelity``, else
+      uniformly;
+    - categorical: per field, the nearest of the field's own centroids."""
+    if n_clusters * tokens_per_cluster > text_vocab:
+        raise ValueError("n_clusters x tokens_per_cluster must fit in text_vocab")
+    rng = np.random.default_rng(seed + 7_777_777)
+    nu, mi = dataset.n_users, dataset.m_items
+    U, V = structured_latents(nu, mi, rank=rank, seed=dataset_seed)
+    Un = U / np.linalg.norm(U, axis=1, keepdims=True)
+    Vn = V / np.linalg.norm(V, axis=1, keepdims=True)
+
+    centroids = rng.standard_normal((n_clusters, rank)).astype(np.float32)
+    centroids /= np.linalg.norm(centroids, axis=1, keepdims=True)
+    t = torch.from_numpy
+
+    def dense_view(lat, width, noise):
+        R = rng.standard_normal((rank, width)).astype(np.float32) / np.sqrt(rank)
+        x = lat @ R + noise * rng.standard_normal((lat.shape[0], width)).astype(np.float32)
+        return x.astype(np.float32)  # R / sqrt(rank) is float64
+
+    def side(lat, latn, fn, fc):
+        n = lat.shape[0]
+        numeric = numeric_noise * rng.standard_normal((n, fn)).astype(np.float32)
+        numeric[:, :rank] += 0.5 * lat
+        cluster = np.argmax(latn @ centroids.T, axis=1)
+        n_fields = TEXT_FIELDS + (1 if (n == mi and "r" in config.item_feature) else 0)
+        text = np.full((n, n_fields, text_width), -1, dtype=np.int32)
+        band0 = cluster * tokens_per_cluster
+        for i in range(n):
+            for f in range(n_fields):
+                k = int(rng.integers(3, text_width))
+                own = rng.random(k) < cluster_fidelity
+                toks = np.where(
+                    own,
+                    band0[i] + rng.integers(0, tokens_per_cluster, size=k),
+                    rng.integers(0, text_vocab, size=k),
+                )
+                distinct = np.unique(toks)
+                text[i, f, : len(distinct)] = distinct
+        cat = np.empty((n, fc), dtype=np.int32)
+        for f in range(fc):
+            cf = rng.standard_normal((n_clusters, rank)).astype(np.float32)
+            cat[:, f] = np.argmax(latn @ cf.T, axis=1)
+        return SideFeatures(
+            numeric=t(numeric),
+            categorical=t(cat),
+            word2vec=t(dense_view(lat, WORD2VEC_DIM, w2v_noise)),
+            sentence=t(dense_view(lat, SENTENCE_DIM, w2v_noise)),
+            bert=t(dense_view(lat, BERT_DIM, w2v_noise)),
+            text=t(text),
+        )
+
+    return FeatureStore(
+        user=side(U, Un, n_numeric_user, n_cat_fields_user),
+        item=side(V, Vn, n_numeric_item, n_cat_fields_item),
+        user_cat_vocab=n_clusters,
+        item_cat_vocab=n_clusters,
+        text_vocab=text_vocab,
+    )
+
+
+def _cb_dir(config: Config, base_path: str) -> Path:
+    sfx = config.suffix
+    return Path(base_path) / "cb" / sfx if sfx else Path(base_path) / "cb"
+
+
+def numeric_artifact_paths(config: Config, base_path: str) -> Dict[str, str]:
+    """side -> the path of its numeric matrix (``cb/user_numeric_feature{sfx}.npy``,
+    ``cb/product_numeric_feature{sfx}.npy``) for each side whose flags hold
+    ``n``: what the out-of-core ``dask`` variant opens as a memmap."""
+    sfx, cb = config.suffix, _cb_dir(config, base_path)
+    out: Dict[str, str] = {}
+    if "n" in config.user_feature:
+        out["user"] = str(cb / f"user_numeric_feature{sfx}.npy")
+    if "n" in config.item_feature:
+        out["item"] = str(cb / f"product_numeric_feature{sfx}.npy")
+    return out
+
+
+def load_reference_features(
+    config: Config,
+    base_path: str,
+    dataset: Optional[Dataset] = None,
+    skip_numeric: bool = False,
+) -> FeatureStore:
     """The reference's on-disk artifacts under ``base_path``, for the flags
     the config names: ``cb/{customer,product}_feature_pad{sfx}.npy`` (c),
     ``cb/{user,product}_numeric_feature{sfx}.npy`` (n),
@@ -181,9 +301,14 @@ def load_reference_features(config: Config, base_path: str) -> FeatureStore:
     scipy CSR count matrices ``text/{user,product}_{name,main_comment,
     main_list_comment}_count{sfx}.pkl`` plus ``text/product_review{sfx}.pkl``
     (t, r), read into rows of at most 64 distinct words. With a suffix, the
-    ``cb`` and ``text`` directories are ``cb/{sfx}`` and ``text/{sfx}``."""
+    ``cb`` and ``text`` directories are ``cb/{sfx}`` and ``text/{sfx}``.
+
+    ``skip_numeric`` leaves the numeric matrices on disk (the ``dask``
+    variant). For tgsrec / sasgnn, ``cf/buy_timestamp{sfx}.pkl`` (a sparse
+    (user, item) matrix, or a flat array in the train edges' order) gives
+    ``edge_time`` in the user-CSR edge order, which needs ``dataset``."""
     sfx = config.suffix
-    cb = Path(base_path) / "cb" / sfx if sfx else Path(base_path) / "cb"
+    cb = _cb_dir(config, base_path)
     tx = Path(base_path) / "text" / sfx if sfx else Path(base_path) / "text"
     text_width = 64
 
@@ -222,24 +347,41 @@ def load_reference_features(config: Config, base_path: str) -> FeatureStore:
         item_text, vocab = side_text("product", extra_review="r" in itf)
 
     user = SideFeatures(
-        numeric=f32(np_load(cb / f"user_numeric_feature{sfx}.npy")) if "n" in uf else None,
+        numeric=f32(np_load(cb / f"user_numeric_feature{sfx}.npy")) if "n" in uf and not skip_numeric else None,
         categorical=None if user_cat is None else torch.from_numpy(user_cat),
         word2vec=f32(np_load(tx / f"user_text_emb{sfx}.npy")) if "w" in uf else None,
         bert=f32(pt_load(tx / f"customer_deberta_feature{sfx}.pt")) if "b" in uf else None,
         text=None if user_text is None else torch.from_numpy(user_text),
     )
     item = SideFeatures(
-        numeric=f32(np_load(cb / f"product_numeric_feature{sfx}.npy")) if "n" in itf else None,
+        numeric=f32(np_load(cb / f"product_numeric_feature{sfx}.npy"))
+        if "n" in itf and not skip_numeric
+        else None,
         categorical=None if item_cat is None else torch.from_numpy(item_cat),
         word2vec=f32(np_load(tx / f"product_text_emb{sfx}.npy")) if "w" in itf else None,
         sentence=f32(np_load(cb / f"product_sentence_emb{sfx}.npy")) if "s" in itf else None,
         bert=f32(pt_load(tx / f"product_deberta_feature{sfx}.pt")) if "b" in itf else None,
         text=None if item_text is None else torch.from_numpy(item_text),
     )
+    edge_time = None
+    ts_path = Path(base_path) / "cf" / f"buy_timestamp{sfx}.pkl"
+    if config.model in ("tgsrec", "sasgnn") and ts_path.exists():
+        if dataset is None:
+            raise ValueError(f"{config.model} needs dataset= to align {ts_path} to the edge order")
+        ts = pkl_load(ts_path)
+        tu, ti = dataset.train_user, dataset.train_item
+        if hasattr(ts, "tocsr"):  # scipy sparse, indexed [user, item]
+            raw = np.asarray(ts.tocsr()[tu, ti]).reshape(-1).astype(np.float32)
+        else:
+            raw = np.asarray(ts, dtype=np.float32).reshape(-1)
+            if raw.shape[0] != len(tu):
+                raise ValueError(f"buy_timestamp length {raw.shape[0]} != train edges {len(tu)}")
+        edge_time = torch.from_numpy(raw[np.lexsort((ti, tu))])  # user-CSR edge order
     return FeatureStore(
         user=user,
         item=item,
         user_cat_vocab=0 if user_cat is None else int(user_cat.max()) + 1,
         item_cat_vocab=0 if item_cat is None else int(item_cat.max()) + 1,
         text_vocab=vocab,
+        edge_time=edge_time,
     )

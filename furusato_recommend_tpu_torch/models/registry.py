@@ -1,8 +1,9 @@
 """Model registry (port of ``models/registry.py``): name -> constructor, for
 the keys this port has. The SAGE-family keys need ``features=`` (a
-``FeatureStore``). Not ported yet: the attention and edge-feature keys
-(``tgrec``, ``tgrec2``, ``tgsrec``, ``sasgnn``, ``rsage``), ``dask``,
-``sasrec`` and ``asage``."""
+``FeatureStore``); ``dask`` is ``textsage`` with out-of-core numeric features
+(``ooc_numeric={side: MemmapNumeric}``, ``data/ooc.py``). Not ported yet: the
+attention and edge-feature keys (``tgrec``, ``tgrec2``, ``tgsrec``,
+``sasgnn``, ``rsage``), ``sasrec`` and ``asage``."""
 
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ _REGISTRY: Dict[str, Callable[..., PairwiseModel]] = {
     "radj": lambda c, g, **kw: LightGCN(c, g, norm="asym", **kw),
     "lgcnssm": lambda c, g, **kw: LightGCN(c, g, norm="sym", loss_mode="softmax", **kw),
     "textsage": _sage("sage_cat"),
+    "dask": _sage("sage_cat"),
     "textsage_id": _sage("sage_cat", use_id_embedding=True),
     "sage": _sage("sage_cat", use_id_embedding=True),
     "fsage": _sage("sage_cat", use_id_embedding=True),

@@ -30,13 +30,20 @@ embedding gathers. The JAX package takes plain XLA gathers there.
 
 The parameters carry the JAX package's names; layer i's are
 ``layers.{i}.{name}``. ``loss`` computes the initial tables inside the
-differentiated function: one autograd pass is the JAX trainer's
-``relin_every=1`` (and ``train_emb``) gradient.
+differentiated function unless it is given them (``tables=``): one autograd
+pass is the JAX trainer's ``relin_every=1`` (and ``train_emb``) gradient, and
+the trainer's other cadences pass tables computed at an earlier parameter
+snapshot (``tables_at``; ``initial_param_keys`` names the parameters the
+tables depend on).
+
+The out-of-core ``dask`` variant (``ooc_numeric={side: MemmapNumeric}``) keeps
+a side's numeric matrix on disk: its projection ``X @ W + b`` is streamed once
+an epoch (``refresh_ooc_proj``, ``data/ooc.py``) and enters the tables as data.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -44,6 +51,7 @@ from torch import nn
 from ..config import Config
 from ..data.features import FeatureStore
 from ..data.graph import BipartiteGraph
+from ..data.ooc import CHUNK, stream_project
 from ..ops.scatter import table_gather
 from ..ops.segment import SparsePair, spmm
 from ..sampling.neighbor import SampledNeighbors, sample_neighbors
@@ -88,9 +96,17 @@ class SAGE(PairwiseModel):
         full_graph_train: bool = False,
         layer_mean_output: Optional[bool] = None,
         generator: Optional[torch.Generator] = None,
+        ooc_numeric=None,
     ):
         super().__init__(config, graph)
         self.features = features
+        #: side -> MemmapNumeric of the out-of-core numeric matrix (dask)
+        self.ooc_numeric = dict(ooc_numeric or {})
+        for side in self.ooc_numeric:
+            if (features.user if side == "user" else features.item).numeric is not None:
+                raise ValueError(f"{side}: both in-core numeric features and ooc_numeric given")
+        #: side -> the streamed projection X @ W + b [N, d] (refresh_ooc_proj)
+        self._ooc_proj: Dict[str, torch.Tensor] = {}
         self.dim = config.latent_dim
         self.n_layers = config.n_layers
         self.fanout = config.num_neighbors
@@ -167,7 +183,8 @@ class SAGE(PairwiseModel):
         p: dict = {}
         for side, feats, flags in (("user", f.user, self.user_flags), ("item", f.item, self.item_flags)):
             if "n" in flags:
-                p[f"{side}_numeric_w"] = xavier(g, (feats.numeric.shape[1], d))
+                fn = self.ooc_numeric[side].shape[1] if side in self.ooc_numeric else feats.numeric.shape[1]
+                p[f"{side}_numeric_w"] = xavier(g, (fn, d))
                 p[f"{side}_numeric_b"] = torch.zeros(d)
         if "c" in self.user_flags:
             p["user_cat_emb"] = xavier(g, (f.user_cat_vocab, d))
@@ -213,6 +230,7 @@ class SAGE(PairwiseModel):
         dev = next(self.parameters()).device
         self.features = self.features.to(dev)
         self._text_adj = {side: adj.to(dev) for side, adj in self._text_adj.items()}
+        self._ooc_proj = {side: x.to(dev) for side, x in self._ooc_proj.items()}
         return self
 
     # ---- initial (feature) embeddings ----
@@ -251,7 +269,10 @@ class SAGE(PairwiseModel):
         ids = ids.long()
         parts: List[torch.Tensor] = []
         if "n" in flags:
-            parts.append(feats.numeric[ids] @ getattr(self, f"{side}_numeric_w") + getattr(self, f"{side}_numeric_b"))
+            if side in self.ooc_numeric:
+                parts.append(self._proj(side, None)[ids])
+            else:
+                parts.append(feats.numeric[ids] @ getattr(self, f"{side}_numeric_w") + getattr(self, f"{side}_numeric_b"))
         if "t" in flags:
             text = feats.text[ids]
             parts.extend(self._text_bag(text, f) for f in range(3))
@@ -275,20 +296,38 @@ class SAGE(PairwiseModel):
         a, a_t = self._text_adj[side].matrices(self.compute_dtype)
         return spmm(a, self.word_emb, self.compute_dtype, a_t).reshape(n, fields, self.word_dim)
 
-    def _initial_all(self, side: str) -> torch.Tensor:
+    def _proj(self, side: str, ooc_proj: Optional[Dict[str, torch.Tensor]]) -> torch.Tensor:
+        """The out-of-core side's numeric projection: ``ooc_proj``'s, else the
+        one ``refresh_ooc_proj`` streamed last."""
+        proj = (self._ooc_proj if ooc_proj is None else ooc_proj).get(side)
+        if proj is None:
+            raise RuntimeError(f"no {side} numeric projection: call refresh_ooc_proj() first")
+        return proj
+
+    def _initial_all(self, side: str, ooc_proj: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """Initial embeddings of every entity of one side [n, node_dim]. The
         artifacts may cover more entities than the dataset: the first n rows
         count."""
         feats = self.features.user if side == "user" else self.features.item
         flags = self.user_flags if side == "user" else self.item_flags
         n = self.n_users if side == "user" else self.m_items
-        if feats.n_entities < n:
-            raise ValueError(
-                f"{side} feature artifacts cover {feats.n_entities} entities but the dataset has {n}"
+        n_ent = (
+            self.ooc_numeric[side].shape[0]
+            if side in self.ooc_numeric and all(
+                x is None for x in (feats.categorical, feats.word2vec, feats.sentence, feats.bert, feats.text)
             )
+            else feats.n_entities
+        )
+        if n_ent < n:
+            raise ValueError(f"{side} feature artifacts cover {n_ent} entities but the dataset has {n}")
         parts: List[torch.Tensor] = []
         if "n" in flags:
-            parts.append(feats.numeric[:n] @ getattr(self, f"{side}_numeric_w") + getattr(self, f"{side}_numeric_b"))
+            if side in self.ooc_numeric:
+                parts.append(self._proj(side, ooc_proj)[:n])
+            else:
+                parts.append(
+                    feats.numeric[:n] @ getattr(self, f"{side}_numeric_w") + getattr(self, f"{side}_numeric_b")
+                )
         if "t" in flags or (side == "item" and "r" in flags):
             bags = self._all_text_bags(side)[:n]
             if "t" in flags:
@@ -307,10 +346,54 @@ class SAGE(PairwiseModel):
         id_rows = getattr(self, f"{side}_id_emb") if self.use_id else None
         return self._finish(side, parts, ids, id_rows)
 
-    def initial_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def initial_tables(self, ooc_proj: Optional[Dict[str, torch.Tensor]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(user_x [N, node_dim], item_x [M, node_dim]): every entity's initial
-        embedding."""
-        return self._initial_all("user"), self._initial_all("item")
+        embedding. ``ooc_proj``: the out-of-core sides' numeric projections to
+        use in place of the streamed ones (the trainer differentiates through
+        them)."""
+        return self._initial_all("user", ooc_proj), self._initial_all("item", ooc_proj)
+
+    def forward(self, ooc_proj: Optional[Dict[str, torch.Tensor]] = None):
+        """The module's call is ``initial_tables``, so that
+        ``torch.func.functional_call`` evaluates them at other parameters."""
+        return self.initial_tables(ooc_proj)
+
+    def tables_at(
+        self, values: Dict[str, torch.Tensor], ooc_proj: Optional[Dict[str, torch.Tensor]] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``initial_tables`` computed with ``values`` (name -> tensor, the
+        names of ``initial_param_keys``) in place of those parameters, and
+        differentiable with respect to them; the module's parameters are not
+        read for those names."""
+        return torch.func.functional_call(self, values, (), {"ooc_proj": ooc_proj})
+
+    def initial_param_keys(self) -> FrozenSet[str]:
+        """The parameters whose gradient flows only through ``initial_tables``
+        (the feature parameters): the projections, the in-core numeric
+        linears, the categorical and id embeddings and the word table. The
+        trainer's ``feature_update_every`` cadence steps them apart."""
+        keys = set()
+        for side, flags in (("user", self.user_flags), ("item", self.item_flags)):
+            keys.update({f"{side}_proj_w", f"{side}_proj_b"})
+            if "n" in flags and side not in self.ooc_numeric:
+                keys.update({f"{side}_numeric_w", f"{side}_numeric_b"})
+            if "c" in flags:
+                keys.add(f"{side}_cat_emb")
+            if self.use_id:
+                keys.add(f"{side}_id_emb")
+        if "t" in self.user_flags or "t" in self.item_flags or "r" in self.item_flags:
+            keys.add("word_emb")
+        return frozenset(keys)
+
+    @torch.no_grad()
+    def refresh_ooc_proj(self, chunk: int = CHUNK) -> Dict[str, torch.Tensor]:
+        """Stream each out-of-core side's X @ W + b with the current numeric
+        linear onto the parameters' device (``data/ooc.py``)."""
+        self._ooc_proj = {
+            side: stream_project(mm, getattr(self, f"{side}_numeric_w"), getattr(self, f"{side}_numeric_b"), chunk)
+            for side, mm in self.ooc_numeric.items()
+        }
+        return self._ooc_proj
 
     def _head(self, x: torch.Tensor, side: str) -> torch.Tensor:
         if self.conv_name == "pinsage":
@@ -469,12 +552,15 @@ class SAGE(PairwiseModel):
         batch,
         generator: Optional[torch.Generator] = None,
         trees: Optional[Sequence[List[SampledNeighbors]]] = None,
+        tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ):
         """BPR on the encoded (user, pos, neg) seeds plus decay x the
         whole-parameter L2 over the number of valid rows. trees: presampled
         (user, pos, neg) fanout trees, else sampled from ``generator``, which
-        also draws the dropout. ``full_graph_train`` (nssage) runs the full
-        propagation and gathers the batch rows from it instead."""
+        also draws the dropout. tables: the (user_x, item_x) initial tables,
+        else computed here from the parameters. ``full_graph_train`` (nssage)
+        runs the full propagation and gathers the batch rows from it
+        instead."""
         if self.full_graph_train:
             user_emb, item_emb = self.propagate(graph)
             u, p, n = gather_batch_rows(user_emb, item_emb, batch)
@@ -486,7 +572,9 @@ class SAGE(PairwiseModel):
                 (self._sides(side), [s] + [lvl.ids for lvl in tree], [None] + [lvl.has_neighbors for lvl in tree])
                 for (s, side), tree in zip(seeds, trees)
             ]
-            xs_all = self._gather_levels(self.initial_tables(), [(sides, lv) for sides, lv, _ in specs])
+            if tables is None:
+                tables = self.initial_tables()
+            xs_all = self._gather_levels(tables, [(sides, lv) for sides, lv, _ in specs])
             u, p, n = (
                 self._combine(graph, xs, has_nbr, sides, generator, train=True)
                 for xs, (sides, _, has_nbr) in zip(xs_all, specs)

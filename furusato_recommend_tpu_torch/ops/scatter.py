@@ -28,9 +28,12 @@ trees, one call per side, and its categorical (``c``) feature columns through
 it (``models/sage.py``). (The JAX package's losses index the tables directly
 and take XLA's scatter-add as the gradient; the gradients are the same.)
 
-Ids outside [0, num_rows) are clamped into it by both versions, as the TPU
-kernel's callers clip them; the wrapper never checks them on the host, so
-it never waits for the card. The forward gather raises on such ids instead.
+Ids outside [0, num_rows) are clamped into it by both versions of the
+scatter, and ``table_gather`` clamps its ids once, on the device, for both
+directions: the forward reads the clamped row and the gradient adds into it.
+Nothing checks ids on the host, so nothing waits for the card. (Deviation: the
+JAX package's ``table[ids]`` wraps ids in [-N, 0) once and clips the rest, and
+its gradient drops the rows of ids that are out of range after the wrap.)
 """
 
 from __future__ import annotations
@@ -250,24 +253,26 @@ class _TableGather(torch.autograd.Function):
     # the profiler ranges name the two directions for a trace's step breakdown
     @staticmethod
     def forward(ctx, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(ids)
         ctx.num_rows = table.shape[0]
         ctx.table_dtype = table.dtype
         with torch.profiler.record_function("table_gather"):
-            flat = table.index_select(0, ids.reshape(-1))
+            flat_ids = ids.reshape(-1).clamp(0, table.shape[0] - 1)
+            flat = table.index_select(0, flat_ids)
+        ctx.save_for_backward(flat_ids)
         return flat.reshape(*ids.shape, table.shape[1])
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        (ids,) = ctx.saved_tensors
+        (flat_ids,) = ctx.saved_tensors
         d = g.shape[-1]
         with torch.profiler.record_function("scatter_add_rows"):
             rows = g.reshape(-1, d).to(torch.float32).contiguous()
-            grad = scatter_add_rows(ids.reshape(-1), rows, ctx.num_rows)
+            grad = scatter_add_rows(flat_ids, rows, ctx.num_rows)
         return grad.to(ctx.table_dtype), None
 
 
 def table_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` ([*ids.shape, D]) whose gradient with respect to
-    ``table`` is ``scatter_add_rows``. ids may have any shape."""
+    """``table[ids.clamp(0, N - 1)]`` ([*ids.shape, D]) whose gradient with
+    respect to ``table`` is ``scatter_add_rows`` of the same clamped ids. ids
+    may have any shape."""
     return _TableGather.apply(table, ids)

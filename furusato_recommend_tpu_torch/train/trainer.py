@@ -16,20 +16,39 @@ and the evaluation cut to ``test_count`` user tiles. ``config.sample_pow``
 draws positives by popularity instead (the reference's ``sample_prob_*.pkl``
 when the data path has one).
 
-The SAGE family's loss computes the initial (feature) tables inside each step
-(one autograd pass): the JAX trainer's ``relin_every=1``, which is also its
-``train_emb`` path. Its other cadences (``relin_every`` other than 1,
-``feature_update_every`` > 1) and the out-of-core features belong to the next
-SAGE slice and raise. The JAX package's XLA machinery (the compile cache, the
-epoch program split, ``pipeline_dispatch``'s prefetch, the device mesh) has no
-counterpart here: PyTorch runs eagerly and its device queue already overlaps
-the host.
+The SAGE family's cadences of the all-entity initial (feature) tables, as the
+JAX trainer runs them (``train_emb`` and ``full_graph_train`` have none, and
+train as R = 1):
+
+- ``relin_every`` R = 1, ``feature_update_every`` T = 1: the loss computes the
+  tables inside each step, one autograd pass;
+- R > 1, or R = 0 (once an epoch): at the top of each block of R steps the
+  tables are computed from a snapshot of the feature parameters
+  (``initial_param_keys``) and that graph is kept for the block; each step's
+  loss reads the tables as detached leaves, and its gradient is the direct one
+  plus the snapshot's pullback of the table gradient, then one Adam step. (The
+  snapshot is a copy: Adam updates the live parameters in place, which a graph
+  built on them would refuse.) Epochs round up to whole blocks;
+- T > 1: two Adams over disjoint groups. The other parameters step every step
+  on their direct gradient; the feature parameters stay put for T steps, then
+  take one step on the pullback of the mean table gradient plus the mean of
+  their direct (L2) gradients. The linearization is renewed every super-step,
+  or once an epoch when R = 0. Epochs round up to whole super-steps;
+- out-of-core numeric features (``dask``): the numeric linears are out of
+  Adam; the tables are linearized once an epoch with respect to the feature
+  parameters and the streamed projections, whose table gradients are summed
+  on the device over the epoch; after it, a streamed X^T G takes an SGD step at
+  lr / num_batches (``data/ooc.py``).
+
+The JAX package's XLA machinery (the compile cache, the epoch program split,
+``pipeline_dispatch``'s prefetch, the device mesh) has no counterpart here:
+PyTorch runs eagerly and its device queue already overlaps the host.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,11 +58,12 @@ from ..convert import adam_state_from_jax, adam_state_to_numpy, flatten_params, 
 from ..core.checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
 from ..core.device import resolve_device
 from ..data.dataset import Dataset
+from ..data.ooc import stream_project_grad
 from ..eval.evaluate import EvalData, Evaluator, build_eval_data
 from ..models.base import PairwiseModel
 from ..obs.log import MetricLogger, cprint
 from ..ops.alias import AliasTable
-from ..sampling.bpr import sample_bpr
+from ..sampling.bpr import BPRBatch, sample_bpr
 from ..sampling.weights import (
     capped_positive_edge_weights,
     edge_alias_from_weights,
@@ -55,7 +75,33 @@ from ..sampling.weights import (
 
 __all__ = ["Trainer"]
 
-_NEXT_SAGE_SLICE = "belongs to the next SAGE slice of the port"
+
+class _Linearization:
+    """The initial tables computed from a snapshot of the feature parameters
+    (and of the out-of-core projections), with their graph kept: ``leaves``
+    are the tables as a step reads them, ``pullback`` maps a table gradient
+    onto the snapshot."""
+
+    def __init__(self, model, names: Sequence[str], with_proj: bool):
+        params = dict(model.named_parameters())
+        self.names = list(names)
+        snap = {k: params[k].detach().clone().requires_grad_(True) for k in self.names}
+        self.proj_sides = sorted(model.ooc_numeric) if with_proj else []
+        proj = {s: model._ooc_proj[s].detach().requires_grad_(True) for s in self.proj_sides}
+        with torch.enable_grad():
+            self.tables = model.tables_at(snap, proj if with_proj else None)
+        self.inputs = list(snap.values()) + [proj[s] for s in self.proj_sides]
+        self.leaves = tuple(t.detach() for t in self.tables)
+
+    def pullback(self, g_tables):
+        """({name: gradient of each feature parameter}, {side: gradient of
+        each projection})."""
+        grads = torch.autograd.grad(
+            self.tables, self.inputs, grad_outputs=g_tables, retain_graph=True, allow_unused=True
+        )
+        grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, self.inputs)]
+        k = len(self.names)
+        return dict(zip(self.names, grads[:k])), dict(zip(self.proj_sides, grads[k:]))
 
 
 class Trainer:
@@ -71,20 +117,40 @@ class Trainer:
     ):
         if config.mesh.num_devices > 1:
             raise NotImplementedError("multi-device training is not ported yet")
-        if config.feature_update_every > 1:
-            raise NotImplementedError(f"feature_update_every > 1 {_NEXT_SAGE_SLICE}")
-        if config.compile_cache:
-            raise NotImplementedError("compile_cache is XLA's; the port compiles nothing per shape")
-        if config.relin_every < 0:
-            raise ValueError(f"relin_every must be >= 0, got {config.relin_every}")
-        # the JAX trainer's cached-tables path (its relin_every cadence)
-        cached_tables = (
+        self.feat_every = max(1, int(config.feature_update_every))
+        self.relin_every = int(config.relin_every)
+        #: side -> MemmapNumeric of the out-of-core numeric features (dask)
+        self.ooc = dict(getattr(model, "ooc_numeric", None) or {})
+        if self.feat_every > 1:
+            if self.ooc:
+                raise ValueError(
+                    "feature_update_every > 1 is incompatible with out-of-core numeric features "
+                    "(their update is already epoch-delayed)"
+                )
+            if not hasattr(model, "initial_param_keys"):
+                raise ValueError("feature_update_every > 1 needs a SAGE-family model with cached initial tables")
+        if self.relin_every < 0:
+            raise ValueError(f"relin_every must be >= 0, got {self.relin_every}")
+        if self.ooc and config.train_emb:
+            raise ValueError("out-of-core numeric features (dask) require train_emb=False")
+        # the JAX trainer's cached-tables path: the SAGE family's cadences
+        cached = (
             not config.train_emb
             and hasattr(model, "initial_tables")
             and not getattr(model, "full_graph_train", False)
         )
-        if cached_tables and config.relin_every != 1:
-            raise NotImplementedError(f"relin_every={config.relin_every} {_NEXT_SAGE_SLICE}")
+        if self.ooc and not cached:
+            raise ValueError("out-of-core numeric features need the cached-tables path (not full_graph_train)")
+        if self.feat_every > 1 and not cached:
+            raise ValueError("feature_update_every > 1 needs the cached-tables path (train_emb=False, SAGE family)")
+        if self.ooc:
+            self.cadence = "ooc"
+        elif self.feat_every > 1:
+            self.cadence = "super"
+        elif cached and self.relin_every != 1:
+            self.cadence = "relin"
+        else:
+            self.cadence = "fresh"
         self.config = config
         self.dataset = dataset
         self.device = resolve_device(device)
@@ -101,6 +167,9 @@ class Trainer:
         # ddp recipe), rounded up to whole batches
         mult = config.train_iterative if ddp_recipe else 1
         self.num_batches = -(-max(dataset.train_size * mult, bs) // bs)
+        # whole super-steps, or whole linearization blocks
+        block = {"super": self.feat_every, "relin": max(self.relin_every, 1)}.get(self.cadence, 1)
+        self.num_batches = -(-self.num_batches // block) * block
         self.samples_per_epoch = self.num_batches * bs
 
         self.edge_alias: Optional[AliasTable] = None
@@ -118,7 +187,9 @@ class Trainer:
                 w = popularity_positive_edge_weights(dataset, config.sample_pow)
             self.edge_alias = edge_alias_from_weights(w).to(self.device)
 
-        self.optimizer = self._new_optimizer()
+        #: the parameters the initial tables depend on (cached cadences)
+        self.feature_names = sorted(model.initial_param_keys()) if self.cadence != "fresh" else []
+        self._new_optimizers()
         #: the sampler's stream (and edge dropout's); saved and restored with
         #: the checkpoint so a resumed run draws what an uninterrupted one would
         self.generator = torch.Generator(device=self.device)
@@ -131,30 +202,132 @@ class Trainer:
             max_batches=config.test_count if ddp_recipe else None, device=self.device,
         )
 
-    def _new_optimizer(self) -> torch.optim.Adam:
-        return torch.optim.Adam(
-            self.model.parameters(), lr=self.config.lr, betas=(0.9, 0.999), eps=1e-8
-        )
+    def _adam(self, params) -> torch.optim.Adam:
+        return torch.optim.Adam(params, lr=self.config.lr, betas=(0.9, 0.999), eps=1e-8)
+
+    def _new_optimizers(self) -> None:
+        """``optimizer`` over the parameters that step every step, and under
+        T > 1 ``opt_feat`` over the feature parameters (None otherwise). The
+        out-of-core numeric linears are in neither."""
+        named = dict(self.model.named_parameters())
+        frozen = {f"{side}_numeric_{sfx}" for side in self.ooc for sfx in ("w", "b")}
+        apart = set(self.feature_names) if self.cadence == "super" else set()
+        self.optimizer = self._adam([p for k, p in named.items() if k not in frozen | apart])
+        self.opt_feat = self._adam([named[k] for k in self.feature_names]) if apart else None
 
     def init_state(self, seed: Optional[int] = None) -> None:
         """Fresh parameters (drawn from ``seed``, default config.seed), fresh
         Adam moments, the sampler's stream from ``seed``, step 0."""
         seed = self.config.seed if seed is None else seed
         self.model.init_parameters(torch.Generator().manual_seed(seed))
-        self.optimizer = self._new_optimizer()
+        self._new_optimizers()
         self.generator.manual_seed(seed)
         self.step = 0
 
-    def train_step(self, batch) -> torch.Tensor:
-        """One forward, backward and Adam step on ``batch``; the loss stays
-        on the device. The trainer's generator draws the step's randomness
-        (edge dropout under config.dropout; the SAGE family's trees and
-        dropout)."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, _ = self.model.loss(self.graph, batch, generator=self.generator)
+    def train_step(self, batch: BPRBatch, trees=None) -> torch.Tensor:
+        """One forward, backward and Adam step on ``batch`` with the tables
+        computed inside the loss (R = 1); the loss stays on the device. The
+        trainer's generator draws the step's randomness (edge dropout under
+        config.dropout; the SAGE family's trees, unless ``trees`` are given,
+        and dropout)."""
+        self.model.zero_grad(set_to_none=True)
+        kw = {} if trees is None else {"trees": trees}
+        loss, _ = self.model.loss(self.graph, batch, generator=self.generator, **kw)
         loss.backward()
         self.optimizer.step()
         return loss.detach()
+
+    def _direct_step(self, batch: BPRBatch, trees, lin: _Linearization):
+        """Zero the gradients, then forward and backward of the loss on the
+        linearization's tables as leaves: (loss, the tables' gradients); the
+        parameters hold their direct gradients."""
+        self.model.zero_grad(set_to_none=True)
+        leaves = tuple(t.detach().requires_grad_(True) for t in lin.leaves)
+        kw = {} if trees is None else {"trees": trees}
+        loss, _ = self.model.loss(self.graph, batch, generator=self.generator, tables=leaves, **kw)
+        loss.backward()
+        return loss.detach(), tuple(torch.zeros_like(t) if t.grad is None else t.grad for t in leaves)
+
+    def _linearize(self) -> _Linearization:
+        return _Linearization(self.model, self.feature_names, with_proj=bool(self.ooc))
+
+    def train_epoch(self, batches: Sequence[BPRBatch], trees: Optional[Sequence] = None) -> torch.Tensor:
+        """The steps of one epoch over ``batches`` under the configured
+        cadence (module docstring); ``trees``: presampled (user, pos, neg)
+        fanout trees per batch, else drawn from the generator. Returns the
+        per-step losses, on the device."""
+        n = len(batches)
+        tree = (lambda b: None) if trees is None else (lambda b: trees[b])
+        losses = torch.empty(n, device=self.device)
+        if self.cadence == "fresh":
+            for b in range(n):
+                losses[b] = self.train_step(batches[b], tree(b))
+            return losses
+        if self.cadence == "super":
+            t = self.feat_every
+            epoch_lin = self._linearize() if self.relin_every == 0 else None
+            for s in range(0, n, t):
+                steps = range(s, min(s + t, n))
+                losses[s : s + len(steps)] = self._super_step(
+                    [batches[b] for b in steps], [tree(b) for b in steps], epoch_lin or self._linearize()
+                )
+            return losses
+        if self.ooc:
+            self.model.refresh_ooc_proj()
+        # one linearization a block of R steps, or an epoch (R = 0, dask)
+        span = self.relin_every if self.cadence == "relin" and self.relin_every > 0 else n
+        named = dict(self.model.named_parameters())
+        acc: Dict[str, torch.Tensor] = {}
+        for b in range(n):
+            if b % span == 0:
+                lin = self._linearize()
+            losses[b], g_t = self._direct_step(batches[b], tree(b), lin)
+            g_feat, g_proj = lin.pullback(g_t)
+            for k, g in g_feat.items():  # the direct gradient plus the pullback
+                p = named[k]
+                p.grad = g if p.grad is None else p.grad + g
+            for side, g in g_proj.items():
+                acc[side] = g if side not in acc else acc[side] + g
+            self.optimizer.step()
+        if self.ooc:
+            self._apply_ooc_update(acc, n)
+        return losses
+
+    def _super_step(self, batches, trees, lin: _Linearization) -> torch.Tensor:
+        """T steps of the non-feature parameters with the feature parameters
+        held, then one step of the feature parameters on the pullback of the
+        mean table gradient plus the mean of their direct gradients."""
+        t = len(batches)
+        named = dict(self.model.named_parameters())
+        acc_t = [torch.zeros_like(x) for x in lin.leaves]
+        acc_p = {k: torch.zeros_like(named[k]) for k in self.feature_names}
+        losses = torch.empty(t, device=self.device)
+        for i, (batch, tr) in enumerate(zip(batches, trees)):
+            losses[i], g_t = self._direct_step(batch, tr, lin)
+            for a, g in zip(acc_t, g_t):
+                a += g
+            for k, a in acc_p.items():
+                if named[k].grad is not None:
+                    a += named[k].grad
+            self.optimizer.step()
+        self.model.zero_grad(set_to_none=True)
+        g_feat, _ = lin.pullback(tuple(a / t for a in acc_t))
+        for k, g in g_feat.items():
+            named[k].grad = g + acc_p[k] / t
+        self.opt_feat.step()
+        return losses
+
+    @torch.no_grad()
+    def _apply_ooc_update(self, acc: Dict[str, torch.Tensor], n_steps: int) -> None:
+        """The out-of-core numeric linears' epoch-delayed update: one streamed
+        X^T G pass a side, plain SGD at lr / n_steps on the summed table
+        gradient G (the JAX package's; the reference's dask variant never
+        trains them)."""
+        scale = self.config.lr / n_steps
+        for side, mm in self.ooc.items():
+            gw, gb = stream_project_grad(mm, acc[side])
+            getattr(self.model, f"{side}_numeric_w").sub_(scale * gw)
+            getattr(self.model, f"{side}_numeric_b").sub_(scale * gb)
 
     def sample_epoch(self):
         """The epoch's triplets, drawn on the device."""
@@ -167,14 +340,14 @@ class Trainer:
         """One epoch; returns its mean loss (the epoch's one host sync)."""
         bs = self.config.bpr_batch_size
         batches = self.sample_epoch()
-        losses = torch.empty(self.num_batches, device=self.device)
-        for b in range(self.num_batches):
-            losses[b] = self.train_step(batches.slice(b * bs, (b + 1) * bs))
+        losses = self.train_epoch([batches.slice(b * bs, (b + 1) * bs) for b in range(self.num_batches)])
         self.step += 1
         self.epoch_losses = losses
         return float(losses.mean())
 
     def test(self) -> Dict[str, float]:
+        if self.ooc:
+            self.model.refresh_ooc_proj()
         results, _ = self.evaluator(self.eval_data, with_topk=False)
         return results
 
@@ -211,13 +384,22 @@ class Trainer:
                     cprint(f"[best] recall@{k0}={self.max_recall:.5f} @ epoch {self.step}")
         return results
 
+    def _optimizers(self) -> Dict[str, torch.optim.Adam]:
+        """Checkpoint prefix -> optimizer."""
+        opts = {"adam": self.optimizer}
+        if self.opt_feat is not None:
+            opts["feat_adam"] = self.opt_feat
+        return opts
+
     def save(self, path=None) -> None:
-        """Write parameters, Adam's moments and step count, the sampler's
-        generator state, the epoch count and the best recall."""
-        count, mu, nu = adam_state_to_numpy(self.optimizer, self.model)
-        state = {"adam_count": np.int64(count)}
-        state.update({f"adam_mu/{k}": v for k, v in flatten_params(mu).items()})
-        state.update({f"adam_nu/{k}": v for k, v in flatten_params(nu).items()})
+        """Write parameters, each Adam's moments and step count, the
+        sampler's generator state, the epoch count and the best recall."""
+        state = {}
+        for prefix, opt in self._optimizers().items():
+            count, mu, nu = adam_state_to_numpy(opt, self.model)
+            state[f"{prefix}_count"] = np.int64(count)
+            state.update({f"{prefix}_mu/{k}": v for k, v in flatten_params(mu).items()})
+            state.update({f"{prefix}_nu/{k}": v for k, v in flatten_params(nu).items()})
         state["generator"] = self.generator.get_state()
         state["step"] = np.int64(self.step)
         state["max_recall"] = np.float64(self.max_recall)
@@ -230,17 +412,18 @@ class Trainer:
         ckpt = load_checkpoint(path or checkpoint_path(self.config))
         st = ckpt["state"]
         params_from_jax(ckpt["params"], self.model)
-        self.optimizer = self._new_optimizer()
-        count = int(st["adam_count"])
-        if count:
-            names = [n for n, _ in self.model.named_parameters()]
-            adam_state_from_jax(
-                count,
-                {n: st[f"adam_mu/{n}"] for n in names},
-                {n: st[f"adam_nu/{n}"] for n in names},
-                self.optimizer,
-                self.model,
-            )
+        self._new_optimizers()
+        names = [n for n, _ in self.model.named_parameters()]
+        for prefix, opt in self._optimizers().items():
+            count = int(st[f"{prefix}_count"])
+            if count:
+                adam_state_from_jax(
+                    count,
+                    {n: st[f"{prefix}_mu/{n}"] for n in names},
+                    {n: st[f"{prefix}_nu/{n}"] for n in names},
+                    opt,
+                    self.model,
+                )
         self.generator.set_state(torch.from_numpy(st["generator"]))
         self.step = int(st["step"])
         self.max_recall = float(st["max_recall"])

@@ -6,7 +6,12 @@
 - ``load_reference_features`` reads the same arrays from the same artifacts
   (``.npy`` files, pickled scipy CSR count matrices, a ``.pt`` tensor),
   written tiny to ``tmp_path``;
-- the padded text rows, and moving a store to a device.
+- the padded text rows, and moving a store to a device;
+- the structured generators (``synthetic_zipf_dataset``,
+  ``structured_latents``, ``synthetic_structured_dataset`` over several
+  Gumbel chunks) and ``informative_synthetic_features`` bit-equal;
+- the out-of-core loader's arguments (``skip_numeric``,
+  ``numeric_artifact_paths``) and the per-edge purchase times.
 """
 
 import dataclasses
@@ -135,3 +140,82 @@ def test_store_moves_and_counts_entities():
     np.testing.assert_array_equal(moved.edge_time.numpy(), fs.edge_time.numpy())
     with pytest.raises(ValueError, match="empty"):
         tfeat.SideFeatures().n_entities
+
+
+def _assert_datasets_equal(got, want):
+    assert (got.n_users, got.m_items) == (want.n_users, want.m_items)
+    for name in ("train_user", "train_item", "test_user", "test_item"):
+        a, b = getattr(got, name), np.asarray(getattr(want, name))
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.parametrize(
+    "gen,kw",
+    [
+        ("synthetic_zipf_dataset", dict(n_users=400, m_items=300, avg_degree=6, seed=4)),
+        ("synthetic_zipf_dataset", dict(n_users=50, m_items=20, avg_degree=12, seed=1, popularity_alpha=0.8)),
+        # 300 users in chunks of 64: five Gumbel chunks, the last one short
+        ("synthetic_structured_dataset", dict(n_users=300, m_items=150, avg_degree=8, seed=2, chunk=64)),
+        ("synthetic_structured_dataset", dict(n_users=120, m_items=90, avg_degree=5, seed=0, rank=8,
+                                              signal=2.0, popularity_alpha=1.1)),
+    ],
+)
+def test_generators_bit_equal(gen, kw):
+    _assert_datasets_equal(getattr(tds, gen)(**kw), getattr(jds, gen)(**kw))
+
+
+def test_structured_latents_bit_equal_and_first_in_the_dataset_stream():
+    for kw in (dict(seed=3), dict(seed=0, rank=4)):
+        for a, b in zip(tds.structured_latents(70, 40, **kw), jds.structured_latents(70, 40, **kw)):
+            assert a.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+    rng_t, rng_j = np.random.default_rng(9), np.random.default_rng(9)
+    for a, b in zip(tds.structured_latents(10, 12, rng=rng_t), jds.structured_latents(10, 12, rng=rng_j)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(rng_t.random(3), rng_j.random(3))  # the streams go on alike
+
+
+@pytest.mark.parametrize("item_feature,seed", [("nwt", 0), ("nctwsrb", 1)])
+def test_informative_synthetic_features_bit_equal(item_feature, seed):
+    kw = dict(user_feature="nctwb", item_feature=item_feature)
+    opts = dict(n_users=80, m_items=60, avg_degree=6, seed=5, rank=8)
+    jd, td = jds.synthetic_structured_dataset(**opts), tds.synthetic_structured_dataset(**opts)
+    want = jfeat.informative_synthetic_features(jd, JConfig(**kw), dataset_seed=5, rank=8, seed=seed)
+    got = tfeat.informative_synthetic_features(td, Config(**kw), dataset_seed=5, rank=8, seed=seed)
+    _assert_stores_equal(got, want)
+    assert got.item.text.shape[1] == (4 if "r" in item_feature else 3)
+
+
+@pytest.mark.parametrize("sfx,user_feature,item_feature", [("", "nwt", "nwt"), ("_v2", "wt", "nc")])
+def test_out_of_core_loader_arguments_match_jax(tmp_path, sfx, user_feature, item_feature):
+    _write_artifacts(tmp_path, sfx, n_users=20, m_items=25)
+    kw = dict(user_feature=user_feature, item_feature=item_feature, suffix=sfx, model="dask")
+    assert tfeat.numeric_artifact_paths(Config(**kw), str(tmp_path)) == jfeat.numeric_artifact_paths(
+        JConfig(**kw), str(tmp_path))
+    want = jfeat.load_reference_features(JConfig(**kw), str(tmp_path), skip_numeric=True)
+    got = tfeat.load_reference_features(Config(**kw), str(tmp_path), skip_numeric=True)
+    _assert_stores_equal(got, want)
+    assert got.user.numeric is None and got.item.numeric is None
+
+
+@pytest.mark.parametrize("layout", ["sparse", "flat"])
+def test_edge_times_aligned_as_jax(tmp_path, layout):
+    _write_artifacts(tmp_path, "", n_users=20, m_items=25)
+    jd = jds.synthetic_dataset(n_users=20, m_items=25, avg_degree=5, seed=2)
+    td = tds.synthetic_dataset(n_users=20, m_items=25, avg_degree=5, seed=2)
+    rng = np.random.default_rng(3)
+    if layout == "sparse":
+        ts = sp.csr_matrix((rng.random(td.train_size) + 1, (td.train_user, td.train_item)), shape=(20, 25))
+    else:
+        ts = rng.random(td.train_size)
+    (tmp_path / "cf").mkdir()
+    with open(tmp_path / "cf" / "buy_timestamp.pkl", "wb") as f:
+        pickle.dump(ts, f)
+    kw = dict(user_feature="w", item_feature="w", model="tgsrec")
+    want = jfeat.load_reference_features(JConfig(**kw), str(tmp_path), dataset=jd)
+    got = tfeat.load_reference_features(Config(**kw), str(tmp_path), dataset=td)
+    _assert_stores_equal(got, want)
+    assert got.edge_time.shape == (td.train_size,)
+    with pytest.raises(ValueError, match="dataset="):
+        tfeat.load_reference_features(Config(**kw), str(tmp_path))

@@ -225,13 +225,13 @@ def test_features_must_cover_the_dataset(data):
 
 def test_registry_and_parameter_tree_round_trip(data, no_text_hub):
     assert {"textsage", "textsage_id", "sage", "fsage", "fastsage", "lightsage", "pinsage", "mrec",
-            "nssage", "gnn"} <= set(available_models())
+            "nssage", "gnn", "dask"} <= set(available_models())
     _, td = data
     cfg = Config(latent_dim=DIM, conv="gat")
     fs = synthetic_features(td, cfg, seed=1)
     with pytest.raises(NotImplementedError):
         build_model("gnn", cfg, td.graph, features=fs)
-    for missing in ("tgrec", "rsage", "dask", "sasrec", "asage"):
+    for missing in ("tgrec", "rsage", "sasrec", "asage"):
         with pytest.raises(KeyError, match="available"):
             build_model(missing, cfg, td.graph, features=fs)
     for name in ("textsage", "lightsage", "pinsage", "mrec"):

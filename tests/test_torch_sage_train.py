@@ -177,18 +177,28 @@ def test_flagship_fit_learns_and_resumes_bit_equal(tmp_path):
 
 
 def test_trainer_raises_on_the_next_slice(tmp_path):
+    """Every cadence of the cached tables constructs (this slice ported them);
+    what the JAX trainer refuses raises ValueError as there; the attention
+    convs still belong to the next SAGE slice."""
     td = tds.synthetic_dataset(n_users=N_USERS, m_items=M_ITEMS, avg_degree=8, seed=7)
     base = Config(**_flagship())
     fs = synthetic_features(td, base, seed=1)
-    for cfg, name in ((base.replace(relin_every=2), "textsage"), (base.replace(relin_every=0), "textsage"),
-                      (base.replace(feature_update_every=4), "textsage")):
-        with pytest.raises(NotImplementedError, match="next SAGE slice"):
+    for cfg, name, cadence in ((base.replace(relin_every=2), "textsage", "relin"),
+                               (base.replace(relin_every=0), "textsage", "relin"),
+                               (base.replace(feature_update_every=4), "textsage", "super"),
+                               # relin_every is the cached-tables cadence: nssage and train_emb have none
+                               (base.replace(relin_every=2), "nssage", "fresh"),
+                               (base.replace(relin_every=2, train_emb=True), "textsage", "fresh")):
+        t = Trainer(cfg, td, build_model(name, cfg, td.graph, features=fs), device="cpu",
+                    logger=MetricLogger(quiet=True))
+        assert t.cadence == cadence, (cfg.relin_every, cfg.feature_update_every, name)
+    for cfg, name, match in ((base.replace(relin_every=-1), "textsage", "relin_every"),
+                             (base.replace(feature_update_every=4, train_emb=True), "textsage", "cached"),
+                             (base.replace(feature_update_every=4), "nssage", "cached")):
+        with pytest.raises(ValueError, match=match):
             Trainer(cfg, td, build_model(name, cfg, td.graph, features=fs), device="cpu")
-    # relin_every is the cached-tables cadence: nssage and train_emb have none
-    for cfg, name in ((base.replace(relin_every=2), "nssage"),
-                      (base.replace(relin_every=2, train_emb=True), "textsage")):
-        Trainer(cfg, td, build_model(name, cfg, td.graph, features=fs), device="cpu",
-                logger=MetricLogger(quiet=True))
+    with pytest.raises(NotImplementedError, match="next SAGE slice"):
+        build_model("gnn", base.replace(conv="gat"), td.graph, features=fs)
 
 
 def test_cli_trains_textsage_ddp_and_serves_its_checkpoint(tmp_path):

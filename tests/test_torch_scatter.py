@@ -140,6 +140,33 @@ def test_table_gather_value_and_grad_match_jax(shape):
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(want_g), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_table_gather_clamps_out_of_range_ids(dtype):
+    """Ids in [0, N) plus N and N + 7: the forward reads row N - 1 for both,
+    as JAX's clipping table[ids] does; the gradient equals JAX's on rows
+    [0, N - 1), and on row N - 1 it also holds the two clamped ids'
+    cotangents, which JAX's scatter drops (a Deviation)."""
+    n, d = 30, 6
+    rng = np.random.default_rng(8)
+    table = rng.standard_normal((n, d)).astype(np.float32)
+    ids = np.concatenate([rng.integers(0, n, 40), [n, n + 7]]).astype(dtype)
+    weight = rng.standard_normal((len(ids), d)).astype(np.float32)
+
+    def f(t):
+        return jnp.sum(jps.table_gather(t, jnp.asarray(ids)) * weight)
+
+    want_out = np.asarray(jps.table_gather(jnp.asarray(table), jnp.asarray(ids)))
+    want_g = np.asarray(jax.grad(f)(jnp.asarray(table)))
+    t = torch.from_numpy(table).requires_grad_(True)
+    out = ts.table_gather(t, torch.from_numpy(ids))
+    np.testing.assert_array_equal(out.detach().numpy(), want_out)
+    np.testing.assert_array_equal(out.detach().numpy()[-2:], table[[n - 1, n - 1]])
+    torch.sum(out * torch.from_numpy(weight)).backward()
+    got_g = t.grad.numpy()
+    np.testing.assert_allclose(got_g[: n - 1], want_g[: n - 1], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_g[n - 1], want_g[n - 1] + weight[-2] + weight[-1], rtol=1e-5, atol=1e-6)
+
+
 SMS = 132  # an H100's SMs
 CHIP_SHAPES = {  # (N, R, D) of the main paths -> (mode, T, blocks)
     (30_000, 285_000, 32): ("tile", 1088, 262),  # the TextSAGE item-side tree gather

@@ -272,7 +272,7 @@ def test_trainer_raises_on_what_is_not_ported(tmp_path):
     m = build_model("lgn", cfg, td.graph)
     with pytest.raises(NotImplementedError):
         Trainer(cfg.replace(mesh=dataclasses.replace(cfg.mesh, data=2)), td, m, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="SAGE-family"):  # as the JAX trainer
         Trainer(cfg.replace(feature_update_every=2), td, m, device="cpu")
     # the weighted recipes are ported: lgn takes them as the JAX trainer does
     t = Trainer(cfg, td, m, ddp_recipe=True, device="cpu")

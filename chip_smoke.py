@@ -13,8 +13,11 @@ Phases (any failure raises and exits non-zero):
                masked_topk (d=64, M=20000, B in {1, 8, 64, 512}, k in
                {10, 20, 128}; and the tiling's edges: (M, d) in {(127, 32),
                (20001, 100), (20000, 30)}, B in {1, 33, 65, 1000}, k in
-               {1, 20, 128}; each with and without mask and sigmoid, one
-               user twice in a tile):
+               {1, 20, 128}; k in {129, 200, 256} above one launch's 128, in
+               bounded rounds, at (M, d) in {(20000, 64), (10000, 32)} for B in
+               {1, 65, 512, 2048}, and k = M = 300 in three rounds; each with
+               and without mask and sigmoid, one user twice in a tile, one
+               launch counted a round):
                (a) exact inputs (multiples of 1/8, duplicated items, one row
                    masked so densely that -1024 entries rank): ids and values equal
                (b) Gaussian inputs: values within rtol 1e-5 / atol 1e-6; ids equal
@@ -130,6 +133,24 @@ Phases (any failure raises and exits non-zero):
                operations a step and the idle share for R = 1, R = 8, T = 8
                and dask at this shape, and train-textsage-100k at R = 8
                beside phase 10's R = 1 (a {"train_cadences": ...} line)
+ 13. attention-20k
+               the attention SAGE models on phase 12's graph and features:
+               serve-tgrec-20k (seeded xavier tgrec: the refresh held against a
+               CPU propagation under phase 9's rule; requests of 1 / 8 / 64 /
+               512 users at k = 20 and of 512 at k = 200, two more over HTTP,
+               one at k = 200, each under rule 3(b), one masked_topk launch a
+               round); train-tgrec-20k (Trainer(ddp_recipe=True), R = 1, 3
+               epochs between two evaluations: the last epoch's loss below the
+               first's, recall@10 above its start); one epoch and one
+               evaluation each of tgrec2, gnn --conv gat and gnn --conv
+               transformer (the loss falling from the epoch's first tenth to
+               its last); scatter_add_rows twice a step, masked_topk once a
+               round per request and per evaluation tile; every evaluation
+               held against the plain top-k (phase 7's rule); 4 tgrec steps on
+               the card and on the CPU (phase 10's rule); then the refresh's
+               times, masked_topk at B = 512, k = 200 beside the library call
+               and the bound, and each key's step numbers beside phase 12's
+               TextSAGE R = 1 (a {"train_attention": ...} line)
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
 30000, B in {1, 64, 512, 1024}, k in {10, 20}, and at phase 12's evaluation
@@ -167,6 +188,7 @@ from furusato_recommend_tpu_torch.data.ooc import MemmapNumeric, stream_project,
 from furusato_recommend_tpu_torch.eval.metrics import batch_metric_sums
 from furusato_recommend_tpu_torch.models import sage
 from furusato_recommend_tpu_torch.models.registry import build_model
+from furusato_recommend_tpu_torch.models.sage_convs import N_HEADS
 from furusato_recommend_tpu_torch.obs.log import MetricLogger
 from furusato_recommend_tpu_torch.ops import _cuda
 from furusato_recommend_tpu_torch.ops import scatter as sc
@@ -183,6 +205,10 @@ EVAL_TILE = 1024  # the evaluator's users per masked_topk call (eval_user_batch)
 # (M, d) of the top-k tiling's edges: M not a multiple of the item tile, d
 # resident and in chunks, d not a multiple of 4
 TOPK_EDGES = ((127, 32), (20001, 100), (20000, 30))
+# k above one launch's MAX_K = 128: (M, d), B and k of the bounded rounds
+TOPK_WIDE_SHAPES = ((20000, 64), (10000, 32))
+TOPK_WIDE_TILES = (1, 65, 512, 2048)
+TOPK_WIDE_KS = (129, 200, 256)
 # H100 SXM published peaks (dense, 700 W): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -211,6 +237,14 @@ A20_USERS, A20_ITEMS, A20_EDGES = 20_000, 10_000, 139_576
 A20_EPOCHS, A20_RECALL10_FLOOR, A20_RECORDS_EPOCH6 = 6, 0.10, (0.1533, 0.1624)
 A20_EVAL_TILE = 2048  # the anchor20k evaluation's users per masked_topk call
 OOC_CHUNK = 2048  # rows a streamed chunk takes in the dask check: ten chunks
+# phase 13: the attention SAGE models on the anchor20k graph ((registry key,
+# config fields); tgrec first, trained longest), a request above one
+# launch's 128 keys, tgrec's epochs and its steps against the CPU
+ATT_KEYS = (("tgrec", {}), ("tgrec2", {}), ("gnn", {"conv": "gat"}), ("gnn", {"conv": "transformer"}))
+ATT_K = 200
+ATT_EPOCHS = 3
+ATT_STEPS_VS_CPU = 4
+ATT_PROFILE_STEPS = 8
 CADENCE_BLOCK = 8  # R = 8 and T = 8
 # profiler ranges (ops/segment.py, ops/scatter.py, sampling/bpr.py,
 # sampling/neighbor.py, eval/evaluate.py, torch.optim's own) and the step part
@@ -281,6 +315,7 @@ def _topk_cases(dev, rng, n, m, d, tiles, ks, first_checked) -> tuple:
                 for masked in (False, True):
                     mask = (indptr, indices) if masked else (None, None)
                     for sig in (False, True):
+                        before = st.launches
                         if not first_checked:
                             torch.cuda.synchronize()
                             torch.cuda.set_sync_debug_mode("error")  # raises on a host sync
@@ -291,12 +326,14 @@ def _topk_cases(dev, rng, n, m, d, tiles, ks, first_checked) -> tuple:
                             first_checked = True
                         else:
                             kv, ki = st.masked_topk(U, I, users, k, *mask, sigmoid=sig)
+                        # one launch a round of at most MAX_K keys
+                        assert st.launches == before + -(-k // st.MAX_K), (k, st.launches - before)
                         rv, ri = st.masked_topk_reference(U, I, users, k, *mask, sigmoid=sig)
                         torch.cuda.synchronize()
                         err = compare(kv, ki, rv, ri, exact=kind == "exact")
                         max_err = max(max_err, err)
                         n_cases += 1
-                        if masked and not sig and k == 128:
+                        if masked and k > 50:
                             # row 0: 50 unmasked items, then sentinels by id
                             assert (kv[0, 50:] == st.MASK_SENTINEL).all()
     return n_cases, max_err
@@ -314,9 +351,18 @@ def kernel_cases(dev) -> float:
     # the anchor20k evaluation's tile (phase 12)
     c, e = _topk_cases(dev, rng, A20_USERS, A20_ITEMS, TS_D, (A20_EVAL_TILE,), (10, 20), True)
     n, max_err = n + c, max(max_err, e)
-    log(f"kernels: {n} cases equal to the plain version (max abs err {max_err:.3g}); "
+    # k > MAX_K: bounded rounds, the first call under the sync check again;
+    # and the whole catalog in three rounds
+    wide, wide_err = 0, 0.0
+    for i, (m, d) in enumerate(TOPK_WIDE_SHAPES):
+        c, e = _topk_cases(dev, rng, 2100, m, d, TOPK_WIDE_TILES, TOPK_WIDE_KS, i > 0)
+        wide, wide_err = wide + c, max(wide_err, e)
+    c, e = _topk_cases(dev, rng, 600, 300, TS_D, (1, 65, 512), (300,), True)
+    wide, wide_err = wide + c, max(wide_err, e)
+    log(f"kernels: {n + wide} cases equal to the plain version (max abs err {max(max_err, wide_err):.3g}), "
+        f"{wide} of them at k > {st.MAX_K} in bounded rounds (max abs err {wide_err:.3g}); "
         f"no host sync in the wrapper")
-    return max_err
+    return max(max_err, wide_err)
 
 
 def reference_propagate(graph, params, n_layers, cdt) -> np.ndarray:
@@ -1278,44 +1324,48 @@ def _block(trainer, gen, n):
     return batches, trees
 
 
+def card_vs_cpu_epoch(ds, fs, cfg, params, batches, trees, dev, label) -> dict:
+    """``Trainer.train_epoch`` over the same batches and trees on the card and
+    on the CPU from the same parameters, dropout 0, under phase 10's rule."""
+    got = {}
+    rate, sage.DROPOUT_RATE = sage.DROPOUT_RATE, 0.0
+    try:
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = build_model(cfg.model, cfg, ds.graph, features=fs)
+            params_from_jax(params, model)
+            tr = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=True, device=d)
+            losses = tr.train_epoch([b.to(d) for b in batches],
+                                    trees=[[[lvl.to(d) for lvl in t] for t in ts] for ts in trees])
+            got[name] = (flatten_params(params_to_numpy(tr.model)), losses.cpu().numpy())
+    finally:
+        sage.DROPOUT_RATE = rate
+    (pc, lc), (pp, lp) = got["card"], got["cpu"]
+    np.testing.assert_allclose(lc, lp, rtol=1e-4)
+    worst, off, total = 0.0, 0, 0
+    for k in pp:
+        diff = np.abs(pc[k] - pp[k])
+        assert (diff <= 2 * cfg.lr).all(), f"{label} {k}: {diff.max()}"
+        off += int((diff > 1e-6 + 1e-5 * np.abs(pp[k])).sum())
+        total += diff.size
+        worst = max(worst, float(diff.max()))
+    assert off <= 1e-3 * total, f"{label}: {off} of {total} parameters differ"
+    log(f"{label} ({len(batches)} steps): losses within rtol 1e-4 "
+        f"(max rel {float(np.max(np.abs(lc - lp) / np.abs(lp))):.3g}); parameters within 1e-6 + 1e-5 |p| "
+        f"but {off} of {total} (max abs diff {worst:.3g})")
+    return {"losses_card": lc.tolist(), "losses_cpu": lp.tolist(), "params_off": off,
+            "params_total": total, "max_abs_diff": worst}
+
+
 def card_vs_cpu_cadences(ds, fs, trainer8, dev) -> dict:
     """Phase 12's card-against-CPU check: one R = 8 block and one T = 8
     super-step, dropout 0, from the same parameters, batches and trees."""
     params = params_to_numpy(trainer8.model)
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     batches, trees = _block(trainer8, gen, CADENCE_BLOCK)
-    out = {}
-    rate, sage.DROPOUT_RATE = sage.DROPOUT_RATE, 0.0
-    try:
-        for cadence, over in (("R8", {"relin_every": CADENCE_BLOCK}), ("T8", {"feature_update_every": CADENCE_BLOCK})):
-            got = {}
-            for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
-                cfg = a20_config(**over)
-                model = build_model("textsage", cfg, ds.graph, features=fs)
-                params_from_jax(params, model)
-                tr = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=True, device=d)
-                losses = tr.train_epoch([b.to(d) for b in batches],
-                                        trees=[[[lvl.to(d) for lvl in t] for t in ts] for ts in trees])
-                got[name] = (flatten_params(params_to_numpy(tr.model)), losses.cpu().numpy())
-            (pc, lc), (pp, lp) = got["card"], got["cpu"]
-            np.testing.assert_allclose(lc, lp, rtol=1e-4)
-            lr = trainer8.config.lr
-            worst, off, total = 0.0, 0, 0
-            for k in pp:
-                diff = np.abs(pc[k] - pp[k])
-                assert (diff <= 2 * lr).all(), f"{cadence} {k}: {diff.max()}"
-                off += int((diff > 1e-6 + 1e-5 * np.abs(pp[k])).sum())
-                total += diff.size
-                worst = max(worst, float(diff.max()))
-            assert off <= 1e-3 * total, f"{cadence}: {off} of {total} parameters differ"
-            log(f"train-textsage-20k card vs CPU, {cadence} ({CADENCE_BLOCK} steps): losses within rtol 1e-4 "
-                f"(max rel {float(np.max(np.abs(lc - lp) / np.abs(lp))):.3g}); parameters within 1e-6 + 1e-5 |p| "
-                f"but {off} of {total} (max abs diff {worst:.3g})")
-            out[cadence] = {"losses_card": lc.tolist(), "losses_cpu": lp.tolist(), "params_off": off,
-                            "params_total": total, "max_abs_diff": worst}
-    finally:
-        sage.DROPOUT_RATE = rate
-    return out
+    return {cadence: card_vs_cpu_epoch(ds, fs, a20_config(**over), params, batches, trees, dev,
+                                       f"train-textsage-20k card vs CPU, {cadence}")
+            for cadence, over in (("R8", {"relin_every": CADENCE_BLOCK}),
+                                  ("T8", {"feature_update_every": CADENCE_BLOCK}))}
 
 
 def cadence_numbers(trainer, label, profile_steps=2 * CADENCE_BLOCK) -> dict:
@@ -1344,6 +1394,176 @@ def cadence_numbers(trainer, label, profile_steps=2 * CADENCE_BLOCK) -> dict:
             f"operations; idle {out['idle_share_unprofiled']:.3f}")
     return out
 
+
+
+def att_label(name, over) -> str:
+    return f"{name} --conv {over['conv']}" if over else name
+
+
+def attention_model(ds, fs, name, seed, **over):
+    cfg = a20_config(model=name, **over)
+    return cfg, build_model(name, cfg, ds.graph, features=fs, generator=torch.Generator().manual_seed(seed))
+
+
+def serve_attention_20k(ds, fs, dev) -> tuple:
+    """Phase 13, serve-tgrec-20k: the Recommender of a seeded tgrec on the
+    anchor20k graph; requests at k = 20 and at k = 200 (two rounds of the
+    kernel), two over HTTP; each answer against the plain version; the
+    refresh against a CPU propagation. Returns (facts, recommender)."""
+    cfg, model = attention_model(ds, fs, "tgrec", SEED)
+    params = params_to_numpy(model)
+    users = {b: np.random.default_rng(SEED + 30 + b).choice(ds.n_users, size=b, replace=False)
+             for b in TS_TILES}
+    t0 = time.perf_counter()
+    rec = Recommender(model, ds, cfg, None, device="cuda")
+    torch.cuda.synchronize()
+    first_refresh_s = time.perf_counter() - t0
+    # (users, k) of each direct request; the last two are the HTTP ones' users
+    http = ((np.array([17]), TS_K), (np.array([3, ds.n_users - 1]), ATT_K))
+    requests = [(users[b], TS_K) for b in TS_TILES] + [(users[512], ATT_K)] + list(http)
+    answers = []
+    for u, k in requests:
+        before = st.launches
+        answers.append(rec.recommend(u, k=k))
+        assert st.launches == before + -(-k // st.MAX_K), f"B={len(u)} k={k}: {st.launches - before} launches"
+    srv = make_server(rec, host="127.0.0.1", port=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        before = st.launches
+        one = json.load(urllib.request.urlopen(f"{base}/recommend?user=17&k={http[0][1]}", timeout=60))
+        req = urllib.request.Request(
+            f"{base}/recommend", data=json.dumps({"users": http[1][0].tolist(), "k": http[1][1]}).encode(),
+            method="POST",
+        )
+        batch = json.load(urllib.request.urlopen(req, timeout=60))
+        assert st.launches == before + 1 + 2, "the HTTP requests did not launch the kernel once a round"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    assert not th.is_alive()
+    n_requests = len(answers) + 2
+
+    U, I = rec._user_emb, rec._item_emb
+    mask = (rec._mask.indptr, rec._mask.indices)
+    pos = ds.all_pos()
+    max_err = 0.0
+    for (u, k), (ids, scores) in zip(requests, answers):
+        assert ids.shape == (len(u), k) and np.isfinite(scores).all()
+        rv, ri = st.masked_topk_reference(U, I, torch.from_numpy(u).to(dev), k, *mask)
+        max_err = max(max_err, compare(torch.from_numpy(scores), torch.from_numpy(ids), rv, ri, exact=False))
+        for uid, row in zip(u, ids):
+            assert not set(row.tolist()) & set(pos[uid].tolist()), "a train positive was served"
+    assert one["items"] == answers[-2][0][0].tolist()
+    assert [r["items"] for r in batch] == answers[-1][0].tolist()
+    # the refresh on the card against the CPU's propagation of the same
+    # parameters: phase 9's rule (both round the text-bag SpMM operands to
+    # bfloat16; the attention runs in float32 on both)
+    cpu_model = build_model("tgrec", cfg, ds.graph, features=fs)
+    params_from_jax(params, cpu_model)
+    with torch.no_grad():
+        cu, ci = cpu_model.propagate(ds.graph)
+    got = torch.cat([U, I]).cpu().numpy()
+    want = torch.cat([cu, ci]).numpy()
+    assert got.shape == (ds.n_users + ds.m_items, TS_D) and np.isfinite(got).all()
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-3 * scale)
+    prop_err = float(np.abs(got - want).max())
+    log(f"serve-tgrec-20k: {n_requests} requests (three at k = {ATT_K}: two launches each), answers equal to the "
+        f"plain version (max abs err {max_err:.3g}); refresh equal to the CPU's propagation within rtol 2e-2, "
+        f"atol 2e-3 x max |x| (max abs err {prop_err:.3g} of {scale:.3g}); first refresh {first_refresh_s:.2f} s")
+    return {"requests": n_requests, "max_abs_err": max_err, "propagate_vs_cpu_max_abs_err": prop_err,
+            "first_refresh_s": first_refresh_s, "users_512": users[512]}, rec
+
+
+def train_attention_20k(ds, fs, dev) -> dict:
+    """Phase 13, training: tgrec for ATT_EPOCHS epochs between two
+    evaluations, then one epoch and one evaluation each of tgrec2, gnn
+    --conv gat and gnn --conv transformer. Returns facts, the trainers
+    under "trainers"."""
+    steps, n_eval, facts, trainers = 0, 0, {}, {}
+    for name, over in ATT_KEYS:
+        label = att_label(name, over)
+        cfg, model = attention_model(ds, fs, name, SEED + 1, **over)
+        tr = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=True, device=dev)
+        tr.init_state()
+        n_tiles = int(tr.eval_data.users.shape[0])
+        epochs = ATT_EPOCHS if name == "tgrec" else 1
+        before = tr.test() if name == "tgrec" else None
+        runs = []
+        for _ in range(epochs):
+            runs.append(_timed_epoch(tr))
+            steps += tr.num_batches
+        after = tr.test()
+        n_eval += 1 + (before is not None)
+        assert all(np.isfinite(v) for v in after.values()), after
+        if before is None:  # one epoch: the loss falls from its first tenth to its last
+            first, last = _falls(runs[0][2])
+        else:  # the mean loss of the last epoch below the first's; recall above its start
+            first, last = runs[0][1], runs[-1][1]
+            assert after["recall@10"] > before["recall@10"], (before["recall@10"], after["recall@10"])
+        assert np.isfinite([r[1] for r in runs]).all() and last < first, f"{label}: loss {first} -> {last}"
+        facts[label] = {"epochs": epochs, "epoch_s": [r[0] for r in runs], "loss": [r[1] for r in runs],
+                        "loss_first_last": [first, last], "steps_per_epoch": tr.num_batches,
+                        "recall@10": ([before["recall@10"]] if before else []) + [after["recall@10"]],
+                        "recall@20": after["recall@20"]}
+        log(f"train-attention-20k {label}: {epochs} epoch(s) of {tr.num_batches} steps, loss {first:.4f} -> "
+            f"{last:.4f}"
+            f"{' (first and last tenth)' if before is None else ''}, recall@10 "
+            + (f"{before['recall@10']:.4f} -> " if before else "") + f"{after['recall@10']:.4f}")
+        trainers[label] = tr
+    facts.update(steps=steps, evaluations=n_eval, eval_tiles=n_tiles, trainers=trainers)
+    return facts
+
+
+def attention_20k(ds, fs, dev, textsage_r1) -> dict:
+    """Phase 13: the attention SAGE models on the anchor20k graph, served
+    and trained (the path, with the launch counts set to 0 before it and
+    read after), then their checks against the plain top-k and the CPU, and
+    their numbers."""
+    st.launches = sc.launches = 0
+    serve, rec = serve_attention_20k(ds, fs, dev)
+    serve_topk = st.launches
+    assert sc.launches == 0, "the serve path launched the scatter kernel"
+    train = train_attention_20k(ds, fs, dev)
+    launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
+    n_tiles = train["eval_tiles"]
+    assert launches["scatter_add_rows"] == 2 * train["steps"], f"scatter {launches} in {train['steps']} steps"
+    assert launches["masked_topk"] == serve_topk + train["evaluations"] * n_tiles, launches
+    log(f"attention-20k: scatter launches {launches['scatter_add_rows']} (2 per step over {train['steps']} "
+        f"steps), masked_topk launches {launches['masked_topk']} ({serve_topk} serving, {n_tiles} tiles per "
+        f"evaluation)")
+    trainers = train.pop("trainers")
+
+    # checks: every evaluation against the plain top-k, tgrec on the CPU
+    for label, tr in trainers.items():
+        train[label]["eval_vs_plain"] = eval_kernel_vs_plain(tr)
+    tg = trainers["tgrec"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    batches, trees = _block(tg, gen, ATT_STEPS_VS_CPU)
+    train["tgrec"]["card_vs_cpu"] = card_vs_cpu_epoch(
+        ds, fs, tg.config, params_to_numpy(tg.model), batches, trees, dev, "attention-20k tgrec card vs CPU")
+
+    # numbers: the refresh, masked_topk at B = 512 and k = 200, each key's step
+    serve["refresh_ms"] = host_ms(lambda: rec.refresh(None), reps=10)
+    serve["refresh_profile"] = device_profile(lambda: rec.refresh(None), n=5)
+    u512 = torch.from_numpy(serve.pop("users_512")).to(dev)
+    mask = (rec._mask.indptr, rec._mask.indices)
+    serve["topk"] = {f"k{k}": topk_numbers(rec._user_emb, rec._item_emb, u512, k, mask, CSR(*mask), dev,
+                                           request=lambda k=k: rec.recommend(u512.cpu().numpy(), k=k))
+                     for k in (TS_K, ATT_K)}
+    k200 = serve["topk"][f"k{ATT_K}"]
+    log(f"serve-tgrec-20k: refresh {serve['refresh_ms']:.3f} ms on the host, "
+        f"{(serve['refresh_profile'] or {}).get('device_ms')} ms on the device; masked_topk B=512 k={ATT_K}: "
+        f"call {k200['ms']:.4f} ms, device {(k200['kernel_profile'] or {}).get('device_ms')} ms, library "
+        f"{k200['library_ms']:.4f} ms, plain {k200['plain_ms']:.4f} ms, bound {k200['bound_ms']:.5f} ms")
+    numbers = {label: cadence_numbers(tr, f"attention-20k {label}", profile_steps=ATT_PROFILE_STEPS)
+               for label, tr in trainers.items()}
+    del trainers, tg
+    return {"serve": serve, "train": train, "numbers": numbers, "textsage_R1": textsage_r1,
+            "launches": launches}
 
 
 def main() -> int:
@@ -1557,6 +1777,11 @@ def main() -> int:
     }
     del tr100
 
+    # 13. attention-20k: tgrec, tgrec2, gnn --conv gat / transformer on the
+    # anchor20k graph, served and trained
+    att = attention_20k(a20_ds, a20_fs, dev, cadences_20k["R1"])
+    att_k200 = att["serve"]["topk"][f"k{ATT_K}"]
+
     ts_serve_launches = ts_serve["launches"]["masked_topk"]
     ts_train_launches = ts_train["launches"]
     kernels = [{
@@ -1565,11 +1790,17 @@ def main() -> int:
         "source": "furusato_recommend_tpu_torch/csrc/streaming_topk.cu",
         "replaces": "furusato_recommend_tpu/ops/pallas_topk.py:152",
         "launches": (serve_launches + train["launches"]["masked_topk"] + ts_serve_launches
-                     + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]),
+                     + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]
+                     + att["launches"]["masked_topk"]),
         "launches_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"],
                              "serve_textsage": ts_serve_launches,
                              "train_textsage": ts_train_launches["masked_topk"],
-                             "train_textsage_20k": a20["launches"]["masked_topk"]},
+                             "train_textsage_20k": a20["launches"]["masked_topk"],
+                             "attention_20k": att["launches"]["masked_topk"]},
+        "launches_per_call": f"ceil(k / {st.MAX_K}): one a round",
+        "k200": {"at": {"B": 512, "k": ATT_K, "M": a20_ds.m_items, "d": TS_D}, "launches_per_call": 2,
+                 **{key: att_k200[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                                   "kernel_profile", "request_ms")}},
         "textsage": {"at": {"B": 512, "k": TS_K, "M": ts_ds.m_items, "d": TS_D},
                      **{key: ts_head[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                       "bound_by")},
@@ -1591,11 +1822,12 @@ def main() -> int:
         "source": "furusato_recommend_tpu_torch/csrc/scatter_add_rows.cu",
         "replaces": "furusato_recommend_tpu/ops/pallas_scatter.py:97",
         "launches": (train["launches"]["scatter_add_rows"] + ts_train_launches["scatter_add_rows"]
-                     + a20["launches"]["scatter_add_rows"]),
+                     + a20["launches"]["scatter_add_rows"] + att["launches"]["scatter_add_rows"]),
         "launches_by_path": {"serve": 0, "train": train["launches"]["scatter_add_rows"],
                              "serve_textsage": ts_serve["launches"]["scatter_add_rows"],
                              "train_textsage": ts_train_launches["scatter_add_rows"],
-                             "train_textsage_20k": a20["launches"]["scatter_add_rows"]},
+                             "train_textsage_20k": a20["launches"]["scatter_add_rows"],
+                             "attention_20k": att["launches"]["scatter_add_rows"]},
         "launches_per_step": train["scatter_launches_per_step"],
         "launches_per_step_textsage": ts_train["scatter_launches_per_step"],
         "textsage_shapes": ts_sc_shapes,
@@ -1631,6 +1863,9 @@ def main() -> int:
                                "train_edges": A20_EDGES, "features": "informative", **a20,
                                "numbers": cadences_20k},
         "train_textsage_100k": cadences_100k}}))
+    log(json.dumps({"train_attention": {
+        "d": TS_D, "heads": N_HEADS, "users": A20_USERS, "items": A20_ITEMS, "train_edges": A20_EDGES,
+        "features": "informative", **att}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

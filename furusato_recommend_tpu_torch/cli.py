@@ -7,7 +7,8 @@ The flags are the JAX package's, with its defaults and choices, plus
 ``--device`` (default ``cuda``; raises without CUDA unless ``--device cpu``).
 The MF / LightGCN family trains, and so does the SAGE family's ported part
 (``textsage``, ``textsage_id``, ``sage``, ``fsage``, ``fastsage``,
-``lightsage``, ``pinsage``, ``mrec``, ``nssage``, ``gnn``, and ``dask``, whose
+``lightsage``, ``pinsage``, ``mrec``, ``nssage``, the attention models
+``tgrec`` and ``tgrec2``, ``gnn`` with any ``--conv``, and ``dask``, whose
 numeric matrices stay on disk), on the reference's feature artifacts under
 ``--data_path`` (``data/features.py::load_reference_features``), with
 ``--ddp_recipe``, ``--sample_pow``, ``--inference sample`` and

@@ -1,9 +1,11 @@
 """Model registry (port of ``models/registry.py``): name -> constructor, for
 the keys this port has. The SAGE-family keys need ``features=`` (a
 ``FeatureStore``); ``dask`` is ``textsage`` with out-of-core numeric features
-(``ooc_numeric={side: MemmapNumeric}``, ``data/ooc.py``). Not ported yet: the
-attention and edge-feature keys (``tgrec``, ``tgrec2``, ``tgsrec``,
-``sasgnn``, ``rsage``), ``sasrec`` and ``asage``."""
+(``ooc_numeric={side: MemmapNumeric}``, ``data/ooc.py``); ``tgrec`` and
+``tgrec2`` are the SAGE model with the ``transformer`` and
+``transformer_cat`` convs, ``gnn`` takes its conv from ``--conv``. Not ported
+yet: the edge-feature keys (``tgsrec``, ``sasgnn``, ``rsage``), ``sasrec`` and
+``asage``."""
 
 from __future__ import annotations
 
@@ -47,6 +49,8 @@ _REGISTRY: Dict[str, Callable[..., PairwiseModel]] = {
     "mrec": _sage("sage_cat", towers=True),
     "nssage": _sage("sage_cat", full_graph_train=True),
     "gnn": _sage(),
+    "tgrec": _sage("transformer"),
+    "tgrec2": _sage("transformer_cat"),
 }
 
 #: the keys whose models take features (build_model_inputs loads them)

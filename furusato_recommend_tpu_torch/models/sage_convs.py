@@ -12,10 +12,16 @@ mapping name -> tensor, the JAX package's names):
 
 Ported: ``sage_cat`` (TextSAGE's W[cat(self, aggr)]), ``sage_w2`` (separate
 self / neighbour weights), ``light`` (parameterless target + aggr),
-``pinsage`` (a source transform before the mean), ``gcn`` and ``ggnn``. The
-attention and edge-feature convs (``gat``, ``transformer``,
-``transformer_cat``, ``relational_*``, ``temporal``, ``recency``) belong to the
-next SAGE slice and raise ``NotImplementedError``.
+``pinsage`` (a source transform before the mean), ``gcn``, ``ggnn``, and the
+attention convs: ``gat`` (single-head additive attention), ``transformer``
+(TGRec's TransformerConv: ``N_HEADS`` heads of dot-product attention, a root
+weight) and ``transformer_cat`` (TGRec2's W[cat(attention, x)]). Their
+full-graph paths are segment softmaxes over the side's CSR
+(``ops/segment.py``); their sampled paths attend over all F slots of the
+(dropped-out) neighbour block, the clipped slot of a node without neighbours
+included, as the JAX package does. The edge-feature convs (``relational_*``,
+``temporal``, ``recency``) belong to the next SAGE slice and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,15 +31,15 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ..ops.segment import segment_mean
+from ..ops.csr_search import csr_row_ids
+from ..ops.segment import segment_mean, segment_mh_attention, segment_softmax_aggregate
 
-__all__ = ["Conv", "get_conv", "xavier"]
+__all__ = ["Conv", "N_HEADS", "get_conv", "xavier"]
 
-#: convs of the JAX package that the next SAGE slice ports
-NOT_PORTED = (
-    "gat", "transformer", "transformer_cat", "relational_add", "relational_sum",
-    "relational_prod", "temporal", "recency",
-)
+N_HEADS = 8  # TransformerConv heads (tgrec, tgrec2)
+
+#: the edge-feature convs of the JAX package, which the next SAGE slice ports
+NOT_PORTED = ("relational_add", "relational_sum", "relational_prod", "temporal", "recency")
 
 
 def xavier(generator: Optional[torch.Generator], shape, gain: float = 1.0) -> torch.Tensor:
@@ -114,10 +120,7 @@ def _pin_full(lp, x_self, aggr, other_x, side, ctx):
     graph = ctx["graph"]
     q_other = torch.relu(other_x @ lp["q_w"] + lp["q_b"])
     csr = graph.prop_user_pos if side == "user" else graph.prop_item_pos
-    rows = torch.repeat_interleave(
-        torch.arange(csr.num_rows, device=csr.indptr.device), csr.degrees().long()
-    )
-    aggr_q = segment_mean(q_other[csr.indices.long()], rows, csr.num_rows)
+    aggr_q = segment_mean(q_other[csr.indices.long()], csr_row_ids(csr), csr.num_rows)
     return torch.cat([x_self, aggr_q], dim=-1) @ lp["w"] + lp["b"]
 
 
@@ -133,6 +136,86 @@ def _gcn_sampled(lp, target, aggr, ctx):
 
 def _gcn_full(lp, x_self, aggr, other_x, side, ctx):
     return (0.5 * (aggr + x_self)) @ lp["w"] + lp["b"]
+
+
+# ---- gat: single-head additive attention over the neighbours ----
+def _gat_init(g, dim, gain):
+    return {
+        "w": xavier(g, (dim, dim), gain),
+        "a_src": xavier(g, (dim, 1), gain),
+        "a_dst": xavier(g, (dim, 1), gain),
+        "b": torch.zeros(dim),
+    }
+
+
+def _gat_sampled(lp, target, aggr, ctx):
+    nbrs = ctx["neighbors"] @ lp["w"]  # [..., F, d]
+    tgt = target @ lp["w"]  # [..., d]
+    e = torch.nn.functional.leaky_relu(
+        (nbrs @ lp["a_src"])[..., 0] + (tgt @ lp["a_dst"])[..., 0][..., None], 0.2
+    )  # [..., F]
+    alpha = torch.softmax(e, dim=-1)
+    return (alpha[..., None] * nbrs).sum(dim=-2) + tgt + lp["b"]
+
+
+def _gat_full(lp, x_self, aggr, other_x, side, ctx):
+    graph = ctx["graph"]
+    csr = graph.prop_user_pos if side == "user" else graph.prop_item_pos
+    nbr_proj = other_x @ lp["w"]
+    self_proj = x_self @ lp["w"]
+    out = segment_softmax_aggregate(
+        csr, (nbr_proj @ lp["a_src"])[..., 0], (self_proj @ lp["a_dst"])[..., 0], nbr_proj,
+        x_self.shape[0],
+    )
+    return out + self_proj + lp["b"]
+
+
+# ---- transformer (tgrec, tgrec2): multi-head dot-product attention ----
+def _mh_attention(lp, target, nbrs):
+    """Per head, a softmax over the F neighbours of <q, k> / sqrt(dh), then
+    the weighted sum of their values; heads concatenated. The two
+    contractions are broadcast products and sums. As einsums they become
+    batched matrix products of one row by dh columns, one per node and head:
+    on an NVIDIA H100 80GB HBM3 at 700 W, a tgrec training step at
+    ``chip_smoke.py`` phase 13's shape took 10.19 ms of device work that
+    way and 3.97 ms this way (``tools/attention_forms.py``)."""
+    d = target.shape[-1]
+    dh = d // N_HEADS
+    q = (target @ lp["wq"]).reshape(target.shape[:-1] + (N_HEADS, dh))
+    k = (nbrs @ lp["wk"]).reshape(nbrs.shape[:-1] + (N_HEADS, dh))
+    v = (nbrs @ lp["wv"]).reshape(nbrs.shape[:-1] + (N_HEADS, dh))
+    e = (q[..., None, :, :] * k).sum(dim=-1) / dh**0.5  # [..., F, H]
+    alpha = torch.softmax(e, dim=-2)
+    return (alpha[..., None] * v).sum(dim=-3).reshape(target.shape)
+
+
+def _tf_conv(cat_combine: bool) -> Conv:
+    """``transformer`` (tgrec: attention plus a root weight, x @ w_skip) or,
+    with ``cat_combine``, ``transformer_cat`` (tgrec2: W[cat(attention, x)])."""
+
+    def init(g, dim, gain):
+        p = {name: xavier(g, (dim, dim), gain) for name in ("wq", "wk", "wv")}
+        if cat_combine:
+            p["w_out"] = xavier(g, (2 * dim, dim), gain)
+            p["b_out"] = torch.zeros(dim)
+        else:
+            p["w_skip"] = xavier(g, (dim, dim), gain)
+        return p
+
+    def combine(lp, out, x):
+        if cat_combine:
+            return torch.cat([out, x], dim=-1) @ lp["w_out"] + lp["b_out"]
+        return out + x @ lp["w_skip"]
+
+    def sampled(lp, target, aggr, ctx):
+        return combine(lp, _mh_attention(lp, target, ctx["neighbors"]), target)
+
+    def full(lp, x_self, aggr, other_x, side, ctx):
+        graph = ctx["graph"]
+        csr = graph.prop_user_pos if side == "user" else graph.prop_item_pos
+        return combine(lp, segment_mh_attention(lp, x_self, other_x, csr, N_HEADS), x_self)
+
+    return Conv(init, sampled, full)
 
 
 # ---- ggnn: GRU-gated update ----
@@ -161,6 +244,9 @@ _CONVS: Dict[str, Conv] = {
     "light": Conv(_light_init, _light_sampled, _light_full),
     "pinsage": Conv(_pin_init, _pin_sampled, _pin_full),
     "gcn": Conv(_gcn_init, _gcn_sampled, _gcn_full),
+    "gat": Conv(_gat_init, _gat_sampled, _gat_full),
+    "transformer": _tf_conv(cat_combine=False),
+    "transformer_cat": _tf_conv(cat_combine=True),
     "ggnn": Conv(_ggnn_init, _ggnn_sampled, _ggnn_full),
 }
 
@@ -171,7 +257,8 @@ def get_conv(name: str) -> Conv:
     name = aliases.get(name, name)
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"conv {name!r} (attention or edge features) belongs to the next SAGE slice of the port"
+            f"conv {name!r} (edge features) belongs to the next SAGE slice of the port "
+            "(queue 1, step 3b of ROADMAP.md)"
         )
     if name not in _CONVS:
         raise KeyError(f"unknown conv {name!r}; available: {sorted(_CONVS)}")

@@ -13,7 +13,7 @@ import torch
 
 from ..data.graph import CSR
 
-__all__ = ["lower_bound", "csr_contains", "csr_gather_padded"]
+__all__ = ["lower_bound", "csr_contains", "csr_gather_padded", "csr_row_ids"]
 
 _SEARCH_ITERS = 32  # enough for nnz < 2^32
 
@@ -64,6 +64,13 @@ def csr_contains(
         return torch.zeros(shape, dtype=torch.bool, device=rows_b.device)
     found = csr.indices[pos.clamp(0, nnz - 1)] == vals_f
     return ((pos < hi) & found).reshape(shape)
+
+
+def csr_row_ids(csr: CSR) -> torch.Tensor:
+    """[nnz] int32 row of each CSR entry, ascending (sorted segment ids for
+    ``ops/segment.py``), by a search of ``indptr`` on the tensors' device."""
+    positions = torch.arange(csr.indices.shape[0], dtype=csr.indptr.dtype, device=csr.indptr.device)
+    return (torch.searchsorted(csr.indptr, positions, right=True) - 1).to(torch.int32)
 
 
 def csr_gather_padded(csr: CSR, rows: torch.Tensor, pad_to: int, fill: int = -1):

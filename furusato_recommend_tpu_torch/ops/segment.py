@@ -1,5 +1,8 @@
 """Sparse propagation y = A x and its gradient (port of ``ops/segment.py::spmm``
-and of the transpose VJP of ``ops/padded_adj.py``), and ``segment_mean``.
+and of the transpose VJP of ``ops/padded_adj.py``), and the segment ops
+(``segment_sum``, ``segment_mean``, ``segment_max``, ``gather_segment_mean``)
+with the full-graph attention aggregations built on them
+(``segment_softmax_aggregate``, ``segment_mh_attention``).
 
 The JAX package computes propagation outside any Pallas kernel: a gather plus a
 destination-sorted segment sum, or on its default path the degree-bucketed
@@ -36,7 +39,10 @@ import torch
 if TYPE_CHECKING:
     from ..data.graph import COOEdges
 
-__all__ = ["Adjacency", "SparsePair", "csr_layout", "segment_mean", "sorted_layout", "spmm"]
+__all__ = [
+    "Adjacency", "SparsePair", "csr_layout", "gather_segment_mean", "segment_max", "segment_mean",
+    "segment_mh_attention", "segment_softmax_aggregate", "segment_sum", "sorted_layout", "spmm",
+]
 
 
 @dataclass(frozen=True)
@@ -151,11 +157,79 @@ def spmm(
     return _SpMM.apply(x, adj, adj if adj_t is None else adj_t, compute_dtype)
 
 
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Sum of the rows of ``data`` [E, ...] per segment id; empty segments
+    give 0 (``jax.ops.segment_sum``)."""
+    out = torch.zeros((num_segments,) + data.shape[1:], dtype=data.dtype, device=data.device)
+    return out.index_add(0, segment_ids.long(), data)
+
+
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Mean of the rows of ``data`` [E, ...] per segment id; empty segments
     give 0 (``ops/segment.py::segment_mean``)."""
     ids = segment_ids.long()
-    s = torch.zeros((num_segments,) + data.shape[1:], dtype=data.dtype, device=data.device)
-    s = s.index_add(0, ids, data)
+    s = segment_sum(data, ids, num_segments)
     cnt = torch.bincount(ids, minlength=num_segments).to(data.dtype).clamp_min(1.0)
     return s / cnt.reshape((num_segments,) + (1,) * (data.dim() - 1))
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Largest row of ``data`` [E, ...] per segment id, elementwise; empty
+    segments give -inf (``jax.ops.segment_max`` on floats)."""
+    ids = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    out = torch.full((num_segments,) + data.shape[1:], float("-inf"), dtype=data.dtype, device=data.device)
+    return out.scatter_reduce(0, ids, data, reduce="amax", include_self=True)
+
+
+def gather_segment_mean(
+    x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """mean over the edges e with dst[e] = v of x[src[e]]: the SAGE mean
+    aggregator as a gather and a segment mean. No path calls it (nor the
+    JAX package's); it is kept beside the other segment ops and tested."""
+    return segment_mean(x[src.long()], dst, num_segments)
+
+
+def _segment_softmax(e: torch.Tensor, rows: torch.Tensor, num_dst: int) -> torch.Tensor:
+    """softmax of the edge scores e [E, ...] within each destination's edges,
+    as the JAX package takes it: the segment max (0 where it is not finite)
+    subtracted, the sum clamped to 1e-12. The max is detached: a shift does
+    not change a softmax, so neither does its gradient."""
+    e_max = segment_max(e.detach(), rows, num_dst)
+    e_max = torch.where(torch.isfinite(e_max), e_max, 0.0)
+    w = torch.exp(e - e_max[rows])
+    denom = segment_sum(w, rows, num_dst)
+    return w / denom[rows].clamp_min(1e-12)
+
+
+def segment_softmax_aggregate(
+    csr, scores_src: torch.Tensor, scores_dst: torch.Tensor, values: torch.Tensor, num_dst: int
+) -> torch.Tensor:
+    """Exact full-graph attention over a CSR's edges (destination rows,
+    source columns): out[v] = sum over u in N(v) of softmax_u(leaky_relu(
+    s_src[u] + s_dst[v], 0.2)) * values[u] (``--conv gat``)."""
+    from .csr_search import csr_row_ids
+
+    rows, cols = csr_row_ids(csr).long(), csr.indices.long()
+    e = torch.nn.functional.leaky_relu(scores_src[cols] + scores_dst[rows], 0.2)
+    alpha = _segment_softmax(e, rows, num_dst)
+    return segment_sum(values[cols] * alpha[:, None], rows, num_dst)
+
+
+def segment_mh_attention(lp, x_self: torch.Tensor, other_x: torch.Tensor, csr, n_heads: int) -> torch.Tensor:
+    """Exact full-graph multi-head dot-product attention (TransformerConv):
+    per head, a softmax over each destination's edges of <q, k> / sqrt(dh),
+    then the weighted sum of the sources' values; heads concatenated."""
+    from .csr_search import csr_row_ids
+
+    d = x_self.shape[-1]
+    dh = d // n_heads
+    num_dst = x_self.shape[0]
+    rows, cols = csr_row_ids(csr).long(), csr.indices.long()
+    q = (x_self @ lp["wq"]).reshape(num_dst, n_heads, dh)
+    k = (other_x @ lp["wk"]).reshape(other_x.shape[0], n_heads, dh)
+    v = (other_x @ lp["wv"]).reshape(other_x.shape[0], n_heads, dh)
+    e = (q[rows] * k[cols]).sum(dim=-1) / dh**0.5  # [E, H]
+    alpha = _segment_softmax(e, rows, num_dst)
+    out = segment_sum(v[cols] * alpha[..., None], rows, num_dst)  # [N, H, dh]
+    return out.reshape(num_dst, d)

@@ -15,9 +15,13 @@ Semantics, shared by both and by the JAX package:
 - every j in the user's sorted train row (mask CSR) gets exactly -1024.0;
   masked items are not removed and still rank when fewer than k items remain;
 - order: value descending, then item id ascending on ties (``lax.top_k``);
-- ``k > M`` raises, as ``lax.top_k`` does. The kernel takes 1 <= k <= 128 and
-  raises above that (a deviation: the plain version and the JAX package take
-  any k <= M);
+- any 1 <= k <= M; ``k > M`` raises, as ``lax.top_k`` does. One kernel
+  launch selects at most ``MAX_K`` = 128 (its selection lists live in
+  registers and shared memory), so a larger k runs ``ceil(k / 128)`` launches
+  on the device (``_topk_in_rounds``): each round takes the next at most 128
+  keys of each row, bounded by the previous round's last (value, id) key.
+  The order is total, so the rounds put together are the top k; the bound
+  is sliced on the device and nothing waits for the card between rounds;
 - user ids outside [0, N) are clamped into it: the score row and the mask
   row are both those of the clamped id. This is a deviation. The JAX
   ``Recommender._topk`` wraps an id in [-N, 0) once (-3 scores row N - 3)
@@ -46,13 +50,13 @@ from .csr_search import csr_gather_padded
 __all__ = ["masked_topk", "masked_topk_reference", "plan_tiles", "MASK_SENTINEL", "MAX_K"]
 
 MASK_SENTINEL = -(1 << 10)
-MAX_K = 128  # the kernel's shared-memory selection holds at most this many
+MAX_K = 128  # keys one launch selects: its lists in registers and shared memory
 MAX_DIM = 4096
 USER_TILE = 32  # users per block, csrc/streaming_topk.cu kBU
 ITEM_TILE = 128  # items per tile, kTI
 
-#: kernel launches since the count was last set to 0 (one per masked_topk call
-#: on CUDA tensors)
+#: kernel launches since the count was last set to 0 (one per round of a
+#: masked_topk call on CUDA tensors: ceil(k / MAX_K))
 launches = 0
 
 
@@ -83,11 +87,17 @@ def masked_topk_reference(
     mask_indptr: Optional[torch.Tensor] = None,
     mask_indices: Optional[torch.Tensor] = None,
     sigmoid: bool = False,
+    after: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``masked_topk``: ids clamped into [0, N), as
     the kernel clamps them (not as the JAX package treats negative ids; see
     the module docstring), the [B, M] score matrix, then a stable descending
-    sort. On CUDA the product runs in full float32 (TF32 off for the call)."""
+    sort. On CUDA the product runs in full float32 (TF32 off for the call).
+
+    ``after``: (values float32 [B], ids [B]), each row's bound key, as one
+    round of the kernel takes it: the k best keys that come strictly after
+    the bound in the order (value descending, id ascending). Raises when a
+    row has fewer than k such items."""
     _check(user_emb, item_emb, users, k, mask_indptr, mask_indices)
     users = users.long().clamp(0, user_emb.shape[0] - 1)
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -110,7 +120,34 @@ def masked_topk_reference(
     # columns are item ids in ascending order, so a stable sort breaks value
     # ties by ascending id
     vals, ids = torch.sort(s, dim=1, descending=True, stable=True)
-    return vals[:, :k].contiguous(), ids[:, :k].contiguous()
+    if after is None:
+        return vals[:, :k].contiguous(), ids[:, :k].contiguous()
+    # the keys at or before the bound are a prefix of each sorted row
+    av, ai = after[0].float()[:, None], after[1].long()[:, None]
+    start = ((vals > av) | ((vals == av) & (ids <= ai))).sum(dim=1)
+    if users.numel() and int(start.max()) + k > s.shape[1]:
+        raise ValueError(f"a row has fewer than k={k} items after its bound")
+    pos = start[:, None] + torch.arange(k, device=s.device)
+    return vals.gather(1, pos), ids.gather(1, pos)
+
+
+def _topk_in_rounds(round_fn, k: int, max_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top k of each row from ``ceil(k / max_k)`` calls of
+    ``round_fn(k_round, after) -> (values [B, k_round], ids [B, k_round])``:
+    round t takes ``min(max_k, k - max_k * t)`` keys after ``after``, the
+    last (value, id) of round t - 1 (None in the first round), sliced on the
+    device. Concatenated, the rounds are one top k, since the order of the
+    keys is total."""
+    vals, ids, after = [], [], None
+    for start in range(0, k, max_k):
+        v, i = round_fn(min(max_k, k - start), after)
+        vals.append(v)
+        ids.append(i)
+        if start + max_k < k:
+            after = (v[:, -1].contiguous(), i[:, -1].to(torch.int32).contiguous())
+    if len(vals) == 1:
+        return vals[0], ids[0]
+    return torch.cat(vals, dim=1), torch.cat(ids, dim=1)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -145,7 +182,7 @@ _ARGTYPES = (
     + [ctypes.c_int] * 6
     + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 3
-    + [ctypes.c_void_p] * 4
+    + [ctypes.c_void_p] * 6
 )
 _fn = None
 _sm_count = {}  # device index -> SMs
@@ -181,7 +218,9 @@ def _blocks_per_sm(idx: int, k: int, d: int) -> int:
     return got
 
 
-def _launch(user_emb, item_emb, users, k, mask_indptr, mask_indices, sigmoid):
+def _launch(user_emb, item_emb, users, k, mask_indptr, mask_indices, sigmoid, after=None):
+    """One launch of the kernel (k <= MAX_K), bounded by ``after`` (float32
+    and int32 [B] on the device) when given."""
     global launches
     dev = user_emb.device
     tensors = [user_emb, item_emb, users] + (
@@ -199,7 +238,11 @@ def _launch(user_emb, item_emb, users, k, mask_indptr, mask_indices, sigmoid):
     m = item_emb.shape[0]
     b = users.shape[0]
     if k > MAX_K:
-        raise ValueError(f"the CUDA kernel takes k <= {MAX_K}, got k={k}")
+        raise ValueError(f"one launch takes k <= {MAX_K}, got k={k}")
+    if after is not None:
+        for t, dtype in zip(after, (torch.float32, torch.int32)):
+            if t.dtype != dtype or t.device != dev or tuple(t.shape) != tuple(users.shape) or not t.is_contiguous():
+                raise ValueError(f"the bound must be contiguous {dtype} [B] on {dev}")
     if d > MAX_DIM:
         raise ValueError(f"the CUDA kernel takes d <= {MAX_DIM}, got d={d}")
     if m >= 2**31 - 1 or n >= 2**31:
@@ -226,6 +269,8 @@ def _launch(user_emb, item_emb, users, k, mask_indptr, mask_indices, sigmoid):
         None if mask_indptr is None else mask_indptr.data_ptr(),
         None if mask_indices is None else mask_indices.data_ptr(),
         int(bool(sigmoid)), n_seg, seg_len,
+        None if after is None else after[0].data_ptr(),
+        None if after is None else after[1].data_ptr(),
         cand.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
     )
     if err != 0:
@@ -248,11 +293,15 @@ def masked_topk(
 
     user_emb [N, d] and item_emb [M, d] float32; users [B] integer ids;
     mask_indptr [N + 1] / mask_indices int32: the train-positive CSR, rows
-    sorted. CUDA tensors launch the kernel; CPU tensors run the plain version.
+    sorted. CUDA tensors launch the kernel, ``ceil(k / MAX_K)`` times; CPU
+    tensors run the plain version.
     """
     _check(user_emb, item_emb, users, k, mask_indptr, mask_indices)
     if user_emb.is_cuda:
-        return _launch(user_emb, item_emb, users, k, mask_indptr, mask_indices, sigmoid)
+        return _topk_in_rounds(
+            lambda kk, after: _launch(user_emb, item_emb, users, kk, mask_indptr, mask_indices, sigmoid, after),
+            k, MAX_K,
+        )
     tensors = [item_emb, users] + ([mask_indptr, mask_indices] if mask_indptr is not None else [])
     if any(t.is_cuda for t in tensors):
         raise ValueError("mixed CPU and CUDA tensors")

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from furusato_recommend_tpu_torch.ops import scatter as sc
+from furusato_recommend_tpu_torch.ops import streaming_topk as st
 from furusato_recommend_tpu_torch.ops.streaming_topk import (
     ITEM_TILE,
     USER_TILE,
@@ -147,6 +148,43 @@ def test_cuda_kernel_odd_widths(m, d):
     """d not a multiple of 4 (4-byte copies), several chunks, the widest d."""
     _need_card()
     _check_topk(200, m, d, (1, 65), (1, 20, 128), torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(20000, 64), (10000, 32)])
+def test_cuda_kernel_above_128_in_rounds(m, d):
+    """k > 128 runs ceil(k / 128) bounded launches; held against one plain
+    top-k of size k."""
+    _need_card()
+    _check_topk(1100, m, d, (1, 65, 512, 2048), (129, 200, 256), torch.device("cuda"))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_whole_catalog_in_rounds():
+    """k = M = 300: three rounds, the densely masked row's -1024 entries
+    ranked by id at its end."""
+    _need_card()
+    _check_topk(200, 300, 32, (1, 65), (300,), torch.device("cuda"))
+
+
+@pytest.mark.cuda
+def test_cuda_rounds_launch_once_a_round_without_waiting():
+    _need_card()
+    dev = torch.device("cuda")
+    exact, _, indptr, indices = _cases(300, 2000, 64)
+    U, I = (torch.from_numpy(x).to(dev) for x in exact)
+    mk = (torch.from_numpy(indptr).to(dev), torch.from_numpy(indices).to(dev))
+    users = torch.arange(100, device=dev)
+    for k, rounds in ((128, 1), (129, 2), (200, 2), (385, 4)):
+        before = st.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # raises on a host sync
+        try:
+            kv, ki = masked_topk(U, I, users, k, *mk)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert st.launches == before + rounds
+        _compare(kv, ki, *masked_topk_reference(U, I, users, k, *mk), exact=True)
 
 
 @pytest.mark.cuda

@@ -136,7 +136,7 @@ def test_conv_matches_jax(data, conv):
 
 def test_conv_aliases_and_unported_convs():
     assert tconvs.get_conv("sage") is tconvs.get_conv("mean") is tconvs.get_conv("sage_cat")
-    for name in ("gat", "transformer", "transformer_cat", "relational_add", "temporal", "recency"):
+    for name in ("relational_add", "relational_sum", "relational_prod", "temporal", "recency"):
         with pytest.raises(NotImplementedError, match="next SAGE slice"):
             tconvs.get_conv(name)
     with pytest.raises(KeyError):
@@ -229,9 +229,10 @@ def test_registry_and_parameter_tree_round_trip(data, no_text_hub):
     _, td = data
     cfg = Config(latent_dim=DIM, conv="gat")
     fs = synthetic_features(td, cfg, seed=1)
+    assert build_model("gnn", cfg, td.graph, features=fs).conv_name == "gat"
     with pytest.raises(NotImplementedError):
-        build_model("gnn", cfg, td.graph, features=fs)
-    for missing in ("tgrec", "rsage", "sasrec", "asage"):
+        tsage.SAGE(cfg, td.graph, fs, conv="temporal")
+    for missing in ("tgsrec", "sasgnn", "rsage", "sasrec", "asage"):
         with pytest.raises(KeyError, match="available"):
             build_model(missing, cfg, td.graph, features=fs)
     for name in ("textsage", "lightsage", "pinsage", "mrec"):

@@ -178,8 +178,8 @@ def test_flagship_fit_learns_and_resumes_bit_equal(tmp_path):
 
 def test_trainer_raises_on_the_next_slice(tmp_path):
     """Every cadence of the cached tables constructs (this slice ported them);
-    what the JAX trainer refuses raises ValueError as there; the attention
-    convs still belong to the next SAGE slice."""
+    what the JAX trainer refuses raises ValueError as there; the
+    edge-feature convs still belong to the next SAGE slice."""
     td = tds.synthetic_dataset(n_users=N_USERS, m_items=M_ITEMS, avg_degree=8, seed=7)
     base = Config(**_flagship())
     fs = synthetic_features(td, base, seed=1)
@@ -198,7 +198,7 @@ def test_trainer_raises_on_the_next_slice(tmp_path):
         with pytest.raises(ValueError, match=match):
             Trainer(cfg, td, build_model(name, cfg, td.graph, features=fs), device="cpu")
     with pytest.raises(NotImplementedError, match="next SAGE slice"):
-        build_model("gnn", base.replace(conv="gat"), td.graph, features=fs)
+        tsage.SAGE(base, td.graph, fs, conv="recency")
 
 
 def test_cli_trains_textsage_ddp_and_serves_its_checkpoint(tmp_path):

@@ -194,3 +194,115 @@ def test_rejects_bad_arguments():
         )
     with pytest.raises(ValueError):
         masked_topk(_t(u), _t(i[:, :4]), users, 3)
+
+
+# ---- k > 128: rounds over a per-row bound (what masked_topk runs on a card) ----
+def _masked_tied(seed, n=12, m=300):
+    """Tied exact inputs and a train CSR in which row 0 leaves 20 items
+    unmasked (so -1024 entries rank inside a large k) and other rows are
+    short."""
+    u, i = _tied_inputs(seed, n=n, m=m)
+    rng = np.random.default_rng(seed)
+    rows = [np.sort(rng.choice(m, size=m - 20 if r == 0 else int(rng.integers(0, 30)), replace=False))
+            for r in range(n)]
+    indptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])]).astype(np.int32)
+    return u, i, _t(indptr), _t(np.concatenate(rows).astype(np.int32))
+
+
+@pytest.mark.parametrize("max_k", [128, 7])
+@pytest.mark.parametrize("k", [129, 200, 300])
+@pytest.mark.parametrize("masked,sig", [(False, False), (True, False), (True, True)])
+def test_rounds_equal_one_topk(k, max_k, masked, sig):
+    """``_topk_in_rounds`` driven by the plain version, bounded by each
+    round's last key, equals one plain top-k of size k, bit for bit: on exact
+    inputs full of ties, with a row so densely masked that -1024 entries
+    rank; max_k 7 puts many round edges inside runs of equal values."""
+    u, i, ip, ix = _masked_tied(k + max_k)
+    U, I = _t(u), _t(i)
+    users = torch.tensor([0, 3, 3, 11, 5])
+    mk = (ip, ix) if masked else (None, None)
+    calls = []
+
+    def round_fn(kk, after):
+        calls.append((kk, after is None))
+        return st.masked_topk_reference(U, I, users, kk, *mk, sigmoid=sig, after=after)
+
+    gv, gi = st._topk_in_rounds(round_fn, k, max_k)
+    wv, wi = st.masked_topk_reference(U, I, users, k, *mk, sigmoid=sig)
+    np.testing.assert_array_equal(gi.numpy(), wi.numpy())
+    np.testing.assert_array_equal(gv.numpy(), wv.numpy())
+    n_rounds = -(-k // max_k)
+    assert [kk for kk, _ in calls] == [max_k] * (n_rounds - 1) + [k - max_k * (n_rounds - 1)]
+    assert [first for _, first in calls] == [True] + [False] * (n_rounds - 1)
+    assert len(set(map(tuple, gi.numpy()))) == 4  # rows 1 and 2 are one user
+    assert all(len(set(row)) == k for row in gi.numpy().tolist())  # no id twice
+    if masked and not sig:
+        assert (gv[0, 20:] == MASK_SENTINEL).all() and (gv[0, :20] > MASK_SENTINEL).all()
+
+
+def test_reference_bound_excludes_keys_by_flag():
+    """The bound is a key, not a sentinel: items whose value equals the bound
+    value and whose id is larger come after it; values below -1024 (possible
+    without the sigmoid) are still selected."""
+    u = np.array([[1.0], [-2000.0]], np.float32)
+    i = np.array([[1.0], [1.0], [2.0], [1.0], [0.5]], np.float32)
+    after = (torch.tensor([1.0, -2000.0]), torch.tensor([1, 2], dtype=torch.int32))
+    v, ids = st.masked_topk_reference(_t(u), _t(i), torch.tensor([0, 1]), 2, after=after)
+    # row 0: the keys after (1.0, id 1); row 1: after (-2000.0, id 2), down to -4000
+    np.testing.assert_array_equal(ids.numpy(), [[3, 4], [3, 2]])
+    np.testing.assert_array_equal(v.numpy(), [[1.0, 0.5], [-2000.0, -4000.0]])
+    with pytest.raises(ValueError, match="fewer than k"):
+        st.masked_topk_reference(_t(u), _t(i), torch.tensor([0, 1]), 3, after=after)
+
+
+@pytest.fixture(scope="module")
+def wide_catalog():
+    """A JAX and a port Recommender of lgn and mf over 260 items, the JAX
+    graph without hub-dense blocks, float32, the same parameters."""
+    import dataclasses
+
+    from furusato_recommend_tpu.config import Config as JConfig
+    from furusato_recommend_tpu.data import synthetic_dataset
+    from furusato_recommend_tpu.data.graph import build_bipartite_graph as jbuild_graph
+    from furusato_recommend_tpu.models.registry import build_model
+    from furusato_recommend_tpu.serve import Recommender
+    from furusato_recommend_tpu_torch.config import Config
+    from furusato_recommend_tpu_torch.data import dataset as tds
+    from furusato_recommend_tpu_torch.models.registry import build_model as tbuild_model
+    from furusato_recommend_tpu_torch.serve import Recommender as TRecommender
+
+    jd = synthetic_dataset(n_users=40, m_items=260, avg_degree=8, seed=2)
+    jd = dataclasses.replace(jd, _graph=jbuild_graph(
+        jd.train_user, jd.train_item, jd.test_user, jd.test_item, jd.n_users, jd.m_items,
+        hub_count=0, dst_hub_count=0))
+    td = tds.synthetic_dataset(n_users=40, m_items=260, avg_degree=8, seed=2)
+    out = {}
+    for name in ("mf", "lgn"):
+        kw = dict(model=name, latent_dim=8, n_layers=1, compute_dtype="float32")
+        model = build_model(name, JConfig(**kw), jd.graph)
+        params = model.init(jax.random.PRNGKey(1))
+        jrec = Recommender(model, jd, JConfig(**kw), params, use_inference_edges=False)
+        trec = TRecommender(tbuild_model(name, Config(**kw), td.graph), td, Config(**kw),
+                            jax.tree_util.tree_map(np.asarray, params), use_inference_edges=False,
+                            device="cpu")
+        out[name] = (jrec, trec)
+    return out
+
+
+@pytest.mark.parametrize("name", ["mf", "lgn"])
+def test_recommender_k200_matches_jax(wide_catalog, name):
+    """k = 200 over 260 items (train positives rank last at -1024): the
+    port's CPU Recommender against the JAX one; ids equal wherever
+    neighbouring scores are apart, scores within rtol 1e-5."""
+    jrec, trec = wide_catalog[name]
+    users = np.array([0, 5, 5, 21, 39])
+    jid, jsc = (np.asarray(x) for x in jrec.recommend(users, k=200))
+    tid, tsc = trec.recommend(users, k=200)
+    assert tid.shape == (5, 200)
+    np.testing.assert_allclose(tsc, jsc, rtol=1e-5, atol=1e-6)
+    gap = np.abs(np.diff(jsc, axis=1)) > 1e-5 * np.abs(jsc[:, 1:])
+    sep = np.ones(jid.shape, dtype=bool)
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    np.testing.assert_array_equal(tid[sep], jid[sep])
+    assert sep.mean() > 0.9

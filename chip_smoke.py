@@ -151,13 +151,43 @@ Phases (any failure raises and exits non-zero):
                times, masked_topk at B = 512, k = 200 beside the library call
                and the bound, and each key's step numbers beside phase 12's
                TextSAGE R = 1 (a {"train_attention": ...} line)
+ 14. edge-20k  the edge-feature SAGE models on phase 12's graph and features:
+               seeded relation sets (favourites: 30% of the train pairs drawn
+               without replacement plus 10% of E uniform pairs; reviews: 10% of
+               the train pairs; 209,362 message edges) written as the
+               reference's two CSVs under a temporary directory and read
+               through load_relation_edges into build_relational_graph, and
+               uniform purchase times per train edge aligned to the user-CSR
+               order. serve-rsage-20k (seeded xavier rsage add: the refresh
+               held against a CPU propagation under phase 9's rule; requests
+               of 1 / 8 / 64 / 512 users at k = 20 and two over HTTP, each under
+               rule 3(b), one masked_topk launch a request); the refresh of
+               rsage sum and prod, tgsrec and sasgnn each held against the CPU
+               the same way; train-rsage-20k (Trainer(ddp_recipe=True), R = 1,
+               3 epochs between two evaluations: the last epoch's loss below
+               the first's, recall@10 above its start); one epoch and one
+               evaluation each of rsage sum, rsage prod, tgsrec and sasgnn (the
+               loss falling from the epoch's first tenth to its last);
+               scatter_add_rows 4 times an rsage step (the two tree gathers and
+               one relation-row gather a layer) and twice a tgsrec / sasgnn
+               step, masked_topk once a request and per evaluation tile; every
+               evaluation held against the plain top-k (phase 7's rule); 4
+               rsage steps on the card and on the CPU (phase 10's rule); the
+               recency conv's first-maximum slot on the card as on the CPU
+               over tied times; then the refresh times, each key's step
+               numbers beside phase 12's TextSAGE R = 1 and phase 13's tgrec,
+               and the relation-row scatter at (3, 450000, 32) and (3, 75000,
+               32) from a step's labels: kernel, row mode, index_add_ and plain
+               in ten alternating rounds (a {"train_edge": ...} line)
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
 30000, B in {1, 64, 512, 1024}, k in {10, 20}, and at phase 12's evaluation
 tile (M = 10000, B = 2048); scatter_add_rows at (N, R, D) = (100000, 180000,
 32), (30000, 285000, 32) (a step's tree gathers, Zipf(1.2) ids here, ids of
 sampled trees in phase 11), (40, 400000, 32), all in tile mode, and the same
-gathers on phase 12's graph, (20000, 180000, 32) and (10000, 285000, 32).
+gathers on phase 12's graph, (20000, 180000, 32) and (10000, 285000, 32); and
+rsage's relation-row gathers of phase 14, (3, 450000, 32) and (3, 75000, 32),
+labels drawn in the message graph's shares.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -181,14 +211,20 @@ import torch
 from furusato_recommend_tpu_torch.config import Config, ddp_flagship_config
 from furusato_recommend_tpu_torch.convert import flatten_params, params_from_jax, params_to_numpy
 from furusato_recommend_tpu_torch.data import synthetic_dataset
+from furusato_recommend_tpu_torch.data.artifacts import synthetic_edge_times, write_edge_artifacts
 from furusato_recommend_tpu_torch.data.dataset import synthetic_structured_dataset
-from furusato_recommend_tpu_torch.data.features import informative_synthetic_features, synthetic_features
-from furusato_recommend_tpu_torch.data.graph import CSR
+from furusato_recommend_tpu_torch.data.features import (
+    edge_time_in_csr_order,
+    informative_synthetic_features,
+    load_relation_edges,
+    synthetic_features,
+)
+from furusato_recommend_tpu_torch.data.graph import CSR, build_relational_graph
 from furusato_recommend_tpu_torch.data.ooc import MemmapNumeric, stream_project, stream_project_grad
 from furusato_recommend_tpu_torch.eval.metrics import batch_metric_sums
 from furusato_recommend_tpu_torch.models import sage
 from furusato_recommend_tpu_torch.models.registry import build_model
-from furusato_recommend_tpu_torch.models.sage_convs import N_HEADS
+from furusato_recommend_tpu_torch.models.sage_convs import N_HEADS, edge_feature, get_conv
 from furusato_recommend_tpu_torch.obs.log import MetricLogger
 from furusato_recommend_tpu_torch.ops import _cuda
 from furusato_recommend_tpu_torch.ops import scatter as sc
@@ -245,6 +281,17 @@ ATT_K = 200
 ATT_EPOCHS = 3
 ATT_STEPS_VS_CPU = 4
 ATT_PROFILE_STEPS = 8
+# phase 14: the edge-feature SAGE models on the anchor20k graph (rsage add
+# first, trained longest), rsage's steps against the CPU, and the relation
+# rows a layer of a step gathers from rsage's 3-row table: 3 x (B F + B F^2)
+# for layer 0 and 3 x B F for layer 1 (B = 5000, F = 5), the label shares of
+# the message graph (purchases, favourites, reviews: 1 : 0.4 : 0.1)
+EDGE_KEYS = (("rsage", {"multi_relational": "add"}), ("rsage", {"multi_relational": "sum"}),
+             ("rsage", {"multi_relational": "prod"}), ("tgsrec", {}), ("sasgnn", {}))
+EDGE_EPOCHS = 3
+EDGE_STEPS_VS_CPU = 4
+REL_ROWS = (450_000, 75_000)
+REL_SHARES = (1 / 1.5, 0.4 / 1.5, 0.1 / 1.5)
 CADENCE_BLOCK = 8  # R = 8 and T = 8
 # profiler ranges (ops/segment.py, ops/scatter.py, sampling/bpr.py,
 # sampling/neighbor.py, eval/evaluate.py, torch.optim's own) and the step part
@@ -504,6 +551,8 @@ def scatter_cases(dev) -> float:
         (A20_USERS, rng20.integers(0, A20_USERS, TS_SCATTER[0][1]), TS_D, None),
         (A20_ITEMS, np.minimum(rng20.zipf(1.2, TS_SCATTER[1][1]) - 1, A20_ITEMS - 1), TS_D, None),
     ]
+    # rsage's relation rows: a step's two layers' gathers from the 3-row table
+    cases += [(3, rng.choice(3, size=r, p=REL_SHARES), TS_D, None) for r in REL_ROWS]
     max_err, n_cases = 0.0, 0
     for n, ids, d, plan in cases:
         ids_t = torch.from_numpy(ids.astype(np.int32)).to(dev)
@@ -1396,21 +1445,44 @@ def cadence_numbers(trainer, label, profile_steps=2 * CADENCE_BLOCK) -> dict:
 
 
 
-def att_label(name, over) -> str:
-    return f"{name} --conv {over['conv']}" if over else name
+def key_label(name, over) -> str:
+    """A registry key and the config field that picks its conv."""
+    if "conv" in over:
+        return f"{name} --conv {over['conv']}"
+    if "multi_relational" in over:
+        return f"{name} {over['multi_relational']}"
+    return name
 
 
-def attention_model(ds, fs, name, seed, **over):
+def model_20k(ds, fs, name, seed, **over):
     cfg = a20_config(model=name, **over)
     return cfg, build_model(name, cfg, ds.graph, features=fs, generator=torch.Generator().manual_seed(seed))
 
 
-def serve_attention_20k(ds, fs, dev) -> tuple:
-    """Phase 13, serve-tgrec-20k: the Recommender of a seeded tgrec on the
-    anchor20k graph; requests at k = 20 and at k = 200 (two rounds of the
-    kernel), two over HTTP; each answer against the plain version; the
-    refresh against a CPU propagation. Returns (facts, recommender)."""
-    cfg, model = attention_model(ds, fs, "tgrec", SEED)
+def propagation_vs_cpu(got, cfg, ds, fs, params) -> tuple:
+    """The card's propagation (user and item rows stacked) against the CPU's
+    of the same parameters: phase 9's rule (both round the text-bag SpMM
+    operands to bfloat16; the convs run in float32 on both). Returns (max
+    abs err, largest magnitude)."""
+    cpu_model = build_model(cfg.model, cfg, ds.graph, features=fs)
+    params_from_jax(params, cpu_model)
+    with torch.no_grad():
+        cu, ci = cpu_model.propagate(ds.graph)
+    want = torch.cat([cu, ci]).numpy()
+    assert got.shape == (ds.n_users + ds.m_items, TS_D) and np.isfinite(got).all()
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-3 * scale)
+    return float(np.abs(got - want).max()), scale
+
+
+def serve_20k(ds, fs, dev, name, label, wide_k=None, **over) -> tuple:
+    """The Recommender of a seeded model on the anchor20k graph (ds.graph:
+    for rsage its relational graph); requests of 1 / 8 / 64 / 512 users at
+    k = 20 and, with ``wide_k``, of 512 at wide_k (ceil(k / 128) rounds of the
+    kernel); two more over HTTP, the second at wide_k when given; each answer
+    against the plain version; the refresh against a CPU propagation.
+    Returns (facts, recommender)."""
+    cfg, model = model_20k(ds, fs, name, SEED, **over)
     params = params_to_numpy(model)
     users = {b: np.random.default_rng(SEED + 30 + b).choice(ds.n_users, size=b, replace=False)
              for b in TS_TILES}
@@ -1419,8 +1491,8 @@ def serve_attention_20k(ds, fs, dev) -> tuple:
     torch.cuda.synchronize()
     first_refresh_s = time.perf_counter() - t0
     # (users, k) of each direct request; the last two are the HTTP ones' users
-    http = ((np.array([17]), TS_K), (np.array([3, ds.n_users - 1]), ATT_K))
-    requests = [(users[b], TS_K) for b in TS_TILES] + [(users[512], ATT_K)] + list(http)
+    http = ((np.array([17]), TS_K), (np.array([3, ds.n_users - 1]), wide_k or TS_K))
+    requests = [(users[b], TS_K) for b in TS_TILES] + ([(users[512], wide_k)] if wide_k else []) + list(http)
     answers = []
     for u, k in requests:
         before = st.launches
@@ -1438,7 +1510,8 @@ def serve_attention_20k(ds, fs, dev) -> tuple:
             method="POST",
         )
         batch = json.load(urllib.request.urlopen(req, timeout=60))
-        assert st.launches == before + 1 + 2, "the HTTP requests did not launch the kernel once a round"
+        rounds = sum(-(-k // st.MAX_K) for _, k in http)
+        assert st.launches == before + rounds, "the HTTP requests did not launch the kernel once a round"
     finally:
         srv.shutdown()
         srv.server_close()
@@ -1458,44 +1531,41 @@ def serve_attention_20k(ds, fs, dev) -> tuple:
             assert not set(row.tolist()) & set(pos[uid].tolist()), "a train positive was served"
     assert one["items"] == answers[-2][0][0].tolist()
     assert [r["items"] for r in batch] == answers[-1][0].tolist()
-    # the refresh on the card against the CPU's propagation of the same
-    # parameters: phase 9's rule (both round the text-bag SpMM operands to
-    # bfloat16; the attention runs in float32 on both)
-    cpu_model = build_model("tgrec", cfg, ds.graph, features=fs)
-    params_from_jax(params, cpu_model)
-    with torch.no_grad():
-        cu, ci = cpu_model.propagate(ds.graph)
-    got = torch.cat([U, I]).cpu().numpy()
-    want = torch.cat([cu, ci]).numpy()
-    assert got.shape == (ds.n_users + ds.m_items, TS_D) and np.isfinite(got).all()
-    scale = float(np.abs(want).max())
-    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-3 * scale)
-    prop_err = float(np.abs(got - want).max())
-    log(f"serve-tgrec-20k: {n_requests} requests (three at k = {ATT_K}: two launches each), answers equal to the "
-        f"plain version (max abs err {max_err:.3g}); refresh equal to the CPU's propagation within rtol 2e-2, "
-        f"atol 2e-3 x max |x| (max abs err {prop_err:.3g} of {scale:.3g}); first refresh {first_refresh_s:.2f} s")
+    prop_err, scale = propagation_vs_cpu(torch.cat([U, I]).cpu().numpy(), cfg, ds, fs, params)
+    wide = ""
+    if wide_k:
+        n_wide = sum(k == wide_k for _, k in requests + [http[1]])  # the POST's too
+        wide = f" ({n_wide} at k = {wide_k}: {-(-wide_k // st.MAX_K)} launches each)"
+    log(f"{label}: {n_requests} requests{wide}, answers equal to the plain version (max abs err {max_err:.3g}); "
+        f"refresh equal to the CPU's propagation within rtol 2e-2, atol 2e-3 x max |x| (max abs err "
+        f"{prop_err:.3g} of {scale:.3g}); first refresh {first_refresh_s:.2f} s")
     return {"requests": n_requests, "max_abs_err": max_err, "propagate_vs_cpu_max_abs_err": prop_err,
             "first_refresh_s": first_refresh_s, "users_512": users[512]}, rec
 
 
-def train_attention_20k(ds, fs, dev) -> dict:
-    """Phase 13, training: tgrec for ATT_EPOCHS epochs between two
-    evaluations, then one epoch and one evaluation each of tgrec2, gnn
-    --conv gat and gnn --conv transformer. Returns facts, the trainers
-    under "trainers"."""
-    steps, n_eval, facts, trainers = 0, 0, {}, {}
-    for name, over in ATT_KEYS:
-        label = att_label(name, over)
-        cfg, model = attention_model(ds, fs, name, SEED + 1, **over)
+def train_keys_20k(keys, inputs, dev, phase, first_epochs) -> dict:
+    """The first key for ``first_epochs`` epochs between two evaluations
+    (the last epoch's loss below the first's, recall@10 above its start),
+    then one epoch and one evaluation of each other key (the loss falling
+    from the epoch's first tenth to its last). ``inputs(name)``: the (dataset,
+    features) of a key. Returns facts, the trainers under "trainers" and the
+    scatter launches the steps must make under "scatter_expected" (two a
+    step, one a table; rsage two more, one a layer's relation rows)."""
+    steps, n_eval, expected, facts, trainers = 0, 0, 0, {}, {}
+    for i, (name, over) in enumerate(keys):
+        label = key_label(name, over)
+        ds, fs = inputs(name)
+        cfg, model = model_20k(ds, fs, name, SEED + 1, **over)
         tr = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=True, device=dev)
         tr.init_state()
         n_tiles = int(tr.eval_data.users.shape[0])
-        epochs = ATT_EPOCHS if name == "tgrec" else 1
-        before = tr.test() if name == "tgrec" else None
+        epochs = first_epochs if i == 0 else 1
+        before = tr.test() if i == 0 else None
         runs = []
         for _ in range(epochs):
             runs.append(_timed_epoch(tr))
             steps += tr.num_batches
+            expected += (2 + (cfg.n_layers if name == "rsage" else 0)) * tr.num_batches
         after = tr.test()
         n_eval += 1 + (before is not None)
         assert all(np.isfinite(v) for v in after.values()), after
@@ -1509,12 +1579,13 @@ def train_attention_20k(ds, fs, dev) -> dict:
                         "loss_first_last": [first, last], "steps_per_epoch": tr.num_batches,
                         "recall@10": ([before["recall@10"]] if before else []) + [after["recall@10"]],
                         "recall@20": after["recall@20"]}
-        log(f"train-attention-20k {label}: {epochs} epoch(s) of {tr.num_batches} steps, loss {first:.4f} -> "
+        log(f"{phase} {label}: {epochs} epoch(s) of {tr.num_batches} steps, loss {first:.4f} -> "
             f"{last:.4f}"
             f"{' (first and last tenth)' if before is None else ''}, recall@10 "
             + (f"{before['recall@10']:.4f} -> " if before else "") + f"{after['recall@10']:.4f}")
         trainers[label] = tr
-    facts.update(steps=steps, evaluations=n_eval, eval_tiles=n_tiles, trainers=trainers)
+    facts.update(steps=steps, evaluations=n_eval, eval_tiles=n_tiles, trainers=trainers,
+                 scatter_expected=expected)
     return facts
 
 
@@ -1524,10 +1595,11 @@ def attention_20k(ds, fs, dev, textsage_r1) -> dict:
     read after), then their checks against the plain top-k and the CPU, and
     their numbers."""
     st.launches = sc.launches = 0
-    serve, rec = serve_attention_20k(ds, fs, dev)
+    serve, rec = serve_20k(ds, fs, dev, "tgrec", "serve-tgrec-20k", wide_k=ATT_K)
     serve_topk = st.launches
     assert sc.launches == 0, "the serve path launched the scatter kernel"
-    train = train_attention_20k(ds, fs, dev)
+    train = train_keys_20k(ATT_KEYS, lambda name: (ds, fs), dev, "train-attention-20k", ATT_EPOCHS)
+    train.pop("scatter_expected")
     launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
     n_tiles = train["eval_tiles"]
     assert launches["scatter_add_rows"] == 2 * train["steps"], f"scatter {launches} in {train['steps']} steps"
@@ -1564,6 +1636,151 @@ def attention_20k(ds, fs, dev, textsage_r1) -> dict:
     del trainers, tg
     return {"serve": serve, "train": train, "numbers": numbers, "textsage_R1": textsage_r1,
             "launches": launches}
+
+
+def edge_20k_data(ds, fs, tmp) -> tuple:
+    """Phase 14's inputs on phase 12's graph and features: the seeded
+    relation sets written as the reference's two CSVs under ``tmp``
+    (``write_edge_artifacts``) and read through load_relation_edges into the
+    relational graph and its labels (rsage), and the seeded purchase times
+    aligned to the user-CSR edge order (tgsrec, sasgnn). Returns ((dataset,
+    features) of rsage, of the time keys, facts)."""
+    t0 = time.perf_counter()
+    write_edge_artifacts(ds, tmp, seed=SEED)
+    rel = load_relation_edges(Config(), tmp)
+    graph, labels = build_relational_graph(ds, rel)
+    rel_ds = dataclasses.replace(ds, _graph=graph, _inference_graph=None)
+    rel_fs = dataclasses.replace(fs, edge_label=labels, n_relations=len(rel) + 1)
+    time_fs = dataclasses.replace(fs, edge_time=edge_time_in_csr_order(ds, synthetic_edge_times(ds, seed=SEED)))
+    host_s = time.perf_counter() - t0
+    counts = np.bincount(labels.numpy()).tolist()
+    assert counts[0] == ds.train_size and graph.prop_user_pos.nnz == sum(counts)
+    log(f"edge-20k data: {graph.prop_user_pos.nnz} message edges (purchases, favourites, reviews: {counts}) "
+        f"through the CSVs into the relational graph, purchase times per train edge ({host_s:.1f} s)")
+    return (rel_ds, rel_fs), (ds, time_fs), {"data_s": host_s, "message_edges": graph.prop_user_pos.nnz,
+                                             "label_counts": counts}
+
+
+def refresh_vs_cpu(ds, fs, dev, name, **over) -> dict:
+    """A seeded model's full-graph propagation on the card against the CPU's
+    (phase 9's rule), and its host and device times."""
+    cfg, model = model_20k(ds, fs, name, SEED + 2, **over)
+    params = params_to_numpy(model)
+    model.to(dev)
+    graph = ds.graph.to(dev)
+
+    def refresh():
+        with torch.no_grad():
+            return model.propagate(graph)
+
+    u, i = refresh()
+    err, scale = propagation_vs_cpu(torch.cat([u, i]).cpu().numpy(), cfg, ds, fs, params)
+    out = {"max_abs_err": err, "scale": scale, "refresh_ms": host_ms(refresh, reps=10),
+           "refresh_profile": device_profile(refresh, n=5)}
+    log(f"refresh {key_label(name, over)}: equal to the CPU's propagation within rtol 2e-2, atol 2e-3 x max |x| "
+        f"(max abs err {err:.3g} of {scale:.3g}); {out['refresh_ms']:.3f} ms on the host, "
+        f"{(out['refresh_profile'] or {}).get('device_ms')} ms on the device")
+    return out
+
+
+def recency_first_max_on_card(ds, fs, dev) -> dict:
+    """sasgnn's sampled conv on the card and on the CPU over a user level of
+    B = 5000 with F = 5 slots whose times tie (slot 3 repeats slot 0's edge,
+    rows different as dropout leaves them, and times are tenths): the slot
+    picked is the first of the latest time on the card as on the CPU."""
+    rng = np.random.default_rng(SEED + 15)
+    b, f = 5000, 5
+    graph = ds.graph
+    pos = rng.integers(0, graph.prop_user_pos.nnz, (b, f)).astype(np.int32)
+    pos[:, 3] = pos[:, 0]
+    t = (np.round(rng.random(graph.prop_user_pos.nnz) * 10) / 10).astype(np.float32)
+    x = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+         for k, shape in (("target", (b, TS_D)), ("nbrs", (b, f, TS_D)))}
+    lp = {k: torch.from_numpy(v) for k, v in
+          (("w", 0.2 * rng.standard_normal((2 * TS_D, TS_D)).astype(np.float32)), ("b", np.zeros(TS_D, np.float32)))}
+    conv = get_conv("recency")
+    out = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        ctx = {"neighbors": x["nbrs"].to(d), "side": "user", "graph": graph.to(d), "edge_pos": torch.from_numpy(pos).to(d),
+               "edge_time": torch.from_numpy(t).to(d)}
+        slots = edge_feature(ctx, ctx["edge_time"])
+        out[name] = (torch.argmax(slots, dim=-1).cpu().numpy(),
+                     conv.sampled({k: v.to(d) for k, v in lp.items()}, x["target"].to(d),
+                                  ctx["neighbors"].mean(dim=-2), ctx).cpu().numpy())
+    first = np.argmax(t[pos], axis=-1)  # numpy's argmax: the first maximum
+    ties = int(((t[pos] == t[pos].max(-1, keepdims=True)).sum(-1) > 1).sum())
+    np.testing.assert_array_equal(out["card"][0], first)
+    np.testing.assert_array_equal(out["cpu"][0], first)
+    np.testing.assert_allclose(out["card"][1], out["cpu"][1], rtol=1e-5, atol=1e-5)
+    log(f"recency on the card: the first slot of the latest time in each of {b} rows ({ties} tied at the "
+        f"latest), as on the CPU; the conv's output equal to the CPU's")
+    return {"rows": b, "rows_tied_at_latest": ties}
+
+
+def relation_gather_ids(model, graph, batch, trees) -> list:
+    """The label ids each layer's relation-row gather takes in one rsage
+    step, in the model's order (``SAGE._gather_relations``)."""
+    labels = [[edge_feature({"edge_pos": lvl.edge_pos, "side": side, "graph": graph}, model.features.edge_label)
+               for side, lvl in zip(model._sides(seed_side), tree)]
+              for seed_side, tree in zip(("user", "item", "item"), trees)]
+    return [torch.cat([lab.reshape(-1) for t in labels for lab in t[: model.n_layers - i]])
+            for i in range(model.n_layers)]
+
+
+def edge_20k(ds, fs, dev, textsage_r1, tgrec) -> dict:
+    """Phase 14: the edge-feature SAGE models on the anchor20k graph, served
+    and trained (the path, with the launch counts set to 0 before it and read
+    after), then their checks against the plain top-k and the CPU, and their
+    numbers beside phase 12's TextSAGE R = 1 and phase 13's tgrec."""
+    with tempfile.TemporaryDirectory() as tmp:
+        (rel_ds, rel_fs), (time_ds, time_fs), data = edge_20k_data(ds, fs, tmp)
+
+    def inputs(name):
+        return (rel_ds, rel_fs) if name == "rsage" else (time_ds, time_fs)
+
+    st.launches = sc.launches = 0
+    serve, rec = serve_20k(rel_ds, rel_fs, dev, "rsage", "serve-rsage-20k", multi_relational="add")
+    serve_topk = st.launches
+    assert sc.launches == 0, "the serve path launched the scatter kernel"
+    train = train_keys_20k(EDGE_KEYS, inputs, dev, "train-edge-20k", EDGE_EPOCHS)
+    launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
+    n_tiles = train["eval_tiles"]
+    expected = train.pop("scatter_expected")
+    assert launches["scatter_add_rows"] == expected, f"scatter {launches}, expected {expected}"
+    assert launches["masked_topk"] == serve_topk + train["evaluations"] * n_tiles, launches
+    log(f"edge-20k: scatter launches {launches['scatter_add_rows']} (4 per rsage step, 2 per tgsrec / sasgnn "
+        f"step over {train['steps']} steps), masked_topk launches {launches['masked_topk']} ({serve_topk} "
+        f"serving, {n_tiles} tiles per evaluation)")
+    trainers = train.pop("trainers")
+
+    # checks: every evaluation against the plain top-k, the other convs'
+    # refresh and rsage's steps against the CPU, recency's first maximum
+    for label, tr in trainers.items():
+        train[label]["eval_vs_plain"] = eval_kernel_vs_plain(tr)
+    refresh = {key_label(name, over): refresh_vs_cpu(*inputs(name), dev, name, **over)
+               for name, over in EDGE_KEYS[1:]}
+    rs = trainers["rsage add"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    batches, trees = _block(rs, gen, EDGE_STEPS_VS_CPU)
+    train["rsage add"]["card_vs_cpu"] = card_vs_cpu_epoch(
+        rel_ds, rel_fs, rs.config, params_to_numpy(rs.model), batches, trees, dev, "edge-20k rsage card vs CPU")
+    train["recency_first_max"] = recency_first_max_on_card(time_ds, time_fs, dev)
+
+    # numbers: the refresh, each key's step, the relation-row scatter
+    serve.pop("users_512")
+    serve["refresh_ms"] = host_ms(lambda: rec.refresh(None), reps=10)
+    serve["refresh_profile"] = device_profile(lambda: rec.refresh(None), n=5)
+    log(f"serve-rsage-20k: refresh {serve['refresh_ms']:.3f} ms on the host, "
+        f"{(serve['refresh_profile'] or {}).get('device_ms')} ms on the device")
+    numbers = {label: cadence_numbers(tr, f"edge-20k {label}", profile_steps=ATT_PROFILE_STEPS)
+               for label, tr in trainers.items()}
+    rel_ids = relation_gather_ids(rs.model, rs.graph, batches[0], trees[0])
+    assert tuple(ids.numel() for ids in rel_ids) == REL_ROWS, [ids.numel() for ids in rel_ids]
+    rel_scatter = scatter_numbers_at([(rel_fs.n_relations, ids) for ids in rel_ids], dev, TS_D,
+                                     rows_seed=SEED + 17)
+    del trainers, rs, rec
+    return {"data": data, "serve": serve, "refresh": refresh, "train": train, "numbers": numbers,
+            "relation_scatter": rel_scatter, "textsage_R1": textsage_r1, "tgrec": tgrec, "launches": launches}
 
 
 def main() -> int:
@@ -1782,6 +1999,10 @@ def main() -> int:
     att = attention_20k(a20_ds, a20_fs, dev, cadences_20k["R1"])
     att_k200 = att["serve"]["topk"][f"k{ATT_K}"]
 
+    # 14. edge-20k: rsage (add, sum, prod), tgsrec and sasgnn on the anchor20k
+    # graph (rsage over its relational message graph), served and trained
+    edge = edge_20k(a20_ds, a20_fs, dev, cadences_20k["R1"], att["numbers"]["tgrec"])
+
     ts_serve_launches = ts_serve["launches"]["masked_topk"]
     ts_train_launches = ts_train["launches"]
     kernels = [{
@@ -1791,12 +2012,13 @@ def main() -> int:
         "replaces": "furusato_recommend_tpu/ops/pallas_topk.py:152",
         "launches": (serve_launches + train["launches"]["masked_topk"] + ts_serve_launches
                      + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]
-                     + att["launches"]["masked_topk"]),
+                     + att["launches"]["masked_topk"] + edge["launches"]["masked_topk"]),
         "launches_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"],
                              "serve_textsage": ts_serve_launches,
                              "train_textsage": ts_train_launches["masked_topk"],
                              "train_textsage_20k": a20["launches"]["masked_topk"],
-                             "attention_20k": att["launches"]["masked_topk"]},
+                             "attention_20k": att["launches"]["masked_topk"],
+                             "edge_20k": edge["launches"]["masked_topk"]},
         "launches_per_call": f"ceil(k / {st.MAX_K}): one a round",
         "k200": {"at": {"B": 512, "k": ATT_K, "M": a20_ds.m_items, "d": TS_D}, "launches_per_call": 2,
                  **{key: att_k200[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -1822,15 +2044,21 @@ def main() -> int:
         "source": "furusato_recommend_tpu_torch/csrc/scatter_add_rows.cu",
         "replaces": "furusato_recommend_tpu/ops/pallas_scatter.py:97",
         "launches": (train["launches"]["scatter_add_rows"] + ts_train_launches["scatter_add_rows"]
-                     + a20["launches"]["scatter_add_rows"] + att["launches"]["scatter_add_rows"]),
+                     + a20["launches"]["scatter_add_rows"] + att["launches"]["scatter_add_rows"]
+                     + edge["launches"]["scatter_add_rows"]),
         "launches_by_path": {"serve": 0, "train": train["launches"]["scatter_add_rows"],
                              "serve_textsage": ts_serve["launches"]["scatter_add_rows"],
                              "train_textsage": ts_train_launches["scatter_add_rows"],
                              "train_textsage_20k": a20["launches"]["scatter_add_rows"],
-                             "attention_20k": att["launches"]["scatter_add_rows"]},
+                             "attention_20k": att["launches"]["scatter_add_rows"],
+                             "edge_20k": edge["launches"]["scatter_add_rows"]},
         "launches_per_step": train["scatter_launches_per_step"],
         "launches_per_step_textsage": ts_train["scatter_launches_per_step"],
         "textsage_shapes": ts_sc_shapes,
+        "relation_shapes": [{key: t[key] for key in ("N", "R", "D", "plan", "ms", "row_mode_ms", "plain_ms",
+                                                     "library_ms", "device_ms", "row_mode_device_ms",
+                                                     "library_device_ms", "bound_ms", "bound_by")}
+                            for t in edge["relation_scatter"]],
         "max_abs_err": sc_max_err,
         "ms": sc_head["ms"],
         "row_mode_ms": sc_head["row_mode_ms"],
@@ -1866,6 +2094,9 @@ def main() -> int:
     log(json.dumps({"train_attention": {
         "d": TS_D, "heads": N_HEADS, "users": A20_USERS, "items": A20_ITEMS, "train_edges": A20_EDGES,
         "features": "informative", **att}}))
+    log(json.dumps({"train_edge": {
+        "d": TS_D, "users": A20_USERS, "items": A20_ITEMS, "train_edges": A20_EDGES, "features": "informative",
+        **edge}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,8 +8,10 @@ The flags are the JAX package's, with its defaults and choices, plus
 The MF / LightGCN family trains, and so does the SAGE family's ported part
 (``textsage``, ``textsage_id``, ``sage``, ``fsage``, ``fastsage``,
 ``lightsage``, ``pinsage``, ``mrec``, ``nssage``, the attention models
-``tgrec`` and ``tgrec2``, ``gnn`` with any ``--conv``, and ``dask``, whose
-numeric matrices stay on disk), on the reference's feature artifacts under
+``tgrec`` and ``tgrec2``, ``gnn`` with any ``--conv``, the edge-feature models
+``tgsrec``, ``sasgnn`` (``cf/buy_timestamp``) and ``rsage`` (the favourite
+and review edge sets, ``--multi_relational``), and ``dask``, whose numeric
+matrices stay on disk), on the reference's feature artifacts under
 ``--data_path`` (``data/features.py::load_reference_features``), with
 ``--ddp_recipe``, ``--sample_pow``, ``--inference sample`` and
 ``--feature_update_every``. ``--a_fold``, ``--compile_cache`` and
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import dataclasses
 
 from .config import Config, MeshConfig
 
@@ -132,12 +135,15 @@ def build_model_inputs(config: Config, dataset):
     """(graph, model keyword arguments) for ``build_model``: the SAGE-family
     keys get ``features=``, the reference's artifacts under config.data_path;
     ``dask`` leaves the numeric matrices on disk and gets them as
-    ``ooc_numeric={side: MemmapNumeric}``."""
+    ``ooc_numeric={side: MemmapNumeric}``. For ``rsage``, when the relation
+    edge sets are there, the dataset's graph becomes the relational graph
+    (so that the trainer, the evaluator and the server propagate over it)
+    and the features get its edge labels."""
     from .models.registry import SAGE_KEYS
 
     model_kw = {}
     if config.model in SAGE_KEYS:
-        from .data.features import load_reference_features, numeric_artifact_paths
+        from .data.features import load_reference_features, load_relation_edges, numeric_artifact_paths
 
         ooc = config.model == "dask"
         model_kw["features"] = load_reference_features(
@@ -149,6 +155,15 @@ def build_model_inputs(config: Config, dataset):
             paths = numeric_artifact_paths(config, config.data_path)
             if paths:
                 model_kw["ooc_numeric"] = {side: MemmapNumeric(p) for side, p in paths.items()}
+        if config.model == "rsage":
+            from .data.graph import build_relational_graph
+
+            rel = load_relation_edges(config, config.data_path)
+            if rel:
+                dataset._graph, labels = build_relational_graph(dataset, rel)
+                model_kw["features"] = dataclasses.replace(
+                    model_kw["features"], edge_label=labels, n_relations=len(rel) + 1
+                )
     return dataset.graph, model_kw
 
 

@@ -8,8 +8,12 @@ The dataset is ``{data_path}/cf/train{suffix}.txt`` + ``test{suffix}.txt``;
 the features are ``synthetic_features`` with every flag (numeric,
 categorical, word2vec, sentence, bert and the four text fields), written as
 ``cb/*.npy``, ``text/*.npy``, ``text/*_deberta_feature*.pt`` and pickled
-scipy CSR count matrices ``text/*_count*.pkl`` / ``text/product_review*.pkl``.
-Writing the count matrices needs scipy, the reference's format.
+scipy CSR count matrices ``text/*_count*.pkl`` / ``text/product_review*.pkl``;
+and for the edge-feature models the seeded relation edge sets
+``favorite_train*.csv`` / ``review_train*.csv`` (``synthetic_relation_edges``)
+and the purchase times ``cf/buy_timestamp*.pkl``, a float32 array in the
+train edges' order (``synthetic_edge_times``). Writing the count matrices
+needs scipy, the reference's format.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from ..config import Config
 from .dataset import load_text_dataset
 from .features import TEXT_FIELDS, FeatureStore, synthetic_features
 
-__all__ = ["write_reference_features"]
+__all__ = [
+    "synthetic_edge_times", "synthetic_relation_edges", "write_edge_artifacts", "write_reference_features",
+]
 
 _FIELD_NAMES = ("name", "main_comment", "main_list_comment")
 
@@ -67,6 +73,42 @@ def write_reference_features(store: FeatureStore, base_path, suffix: str = "") -
                 pickle.dump(_counts(review, store.text_vocab), out)
 
 
+def synthetic_relation_edges(dataset, seed: int = 0):
+    """rsage's two extra relation edge sets, [(users, items), ...] as int64
+    arrays, from ``default_rng(seed)``: favourites, 30% of the train pairs
+    drawn without replacement (duplicates of purchases) plus 10% of E
+    uniform pairs; reviews, 10% of the train pairs."""
+    rng = np.random.default_rng(seed)
+    e = dataset.train_size
+    tu, ti = np.asarray(dataset.train_user, np.int64), np.asarray(dataset.train_item, np.int64)
+    fav = rng.choice(e, size=int(0.3 * e), replace=False)
+    n_rand = int(0.1 * e)
+    fav_u = np.concatenate([tu[fav], rng.integers(0, dataset.n_users, n_rand)])
+    fav_i = np.concatenate([ti[fav], rng.integers(0, dataset.m_items, n_rand)])
+    rev = rng.choice(e, size=int(0.1 * e), replace=False)
+    return [(fav_u, fav_i), (tu[rev], ti[rev])]
+
+
+def synthetic_edge_times(dataset, seed: int = 0) -> np.ndarray:
+    """A purchase time per train edge, uniform in [0, 1), float32, in the
+    dataset's raw edge order, from ``default_rng(seed)``."""
+    return np.random.default_rng(seed).random(dataset.train_size).astype(np.float32)
+
+
+def write_edge_artifacts(dataset, base_path, suffix: str = "", seed: int = 0) -> None:
+    """The relation edge sets as ``{favorite,review}_train{suffix}.csv``
+    (columns ``cf_customer``, ``cf_product``) and the purchase times as
+    ``cf/buy_timestamp{suffix}.pkl``."""
+    base = Path(base_path)
+    for name, (u, i) in zip(("favorite_train", "review_train"), synthetic_relation_edges(dataset, seed)):
+        with open(base / f"{name}{suffix}.csv", "w") as out:
+            out.write("cf_customer,cf_product\n")
+            out.writelines(f"{a},{b}\n" for a, b in zip(u.tolist(), i.tolist()))
+    (base / "cf").mkdir(parents=True, exist_ok=True)
+    with open(base / "cf" / f"buy_timestamp{suffix}.pkl", "wb") as out:
+        pickle.dump(synthetic_edge_times(dataset, seed), out)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="furusato_recommend_tpu_torch.data.artifacts")
     ap.add_argument("--data_path", default="./data")
@@ -77,7 +119,9 @@ def main(argv=None) -> None:
                     item_feature="ncwtsrb")
     dataset = load_text_dataset(config)
     write_reference_features(synthetic_features(dataset, config, seed=args.seed), args.data_path, args.suffix)
-    print(f"wrote features of {dataset.n_users} users and {dataset.m_items} items under {args.data_path}")
+    write_edge_artifacts(dataset, args.data_path, args.suffix, seed=args.seed)
+    print(f"wrote features of {dataset.n_users} users and {dataset.m_items} items, relation edges and "
+          f"purchase times under {args.data_path}")
 
 
 if __name__ == "__main__":

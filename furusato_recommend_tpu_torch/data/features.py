@@ -16,11 +16,13 @@ package's, so one seed gives bit-equal arrays in both.
 ``load_reference_features`` reads the reference's artifacts for the flags ``n
 c w t s r b``, and the per-edge purchase times (``buy_timestamp``) for tgsrec /
 sasgnn; ``numeric_artifact_paths`` names the numeric matrices that the
-out-of-core ``dask`` variant reads from disk instead (``data/ooc.py``).
+out-of-core ``dask`` variant reads from disk instead (``data/ooc.py``);
+``load_relation_edges`` reads rsage's favourite and review edge sets.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import pickle
 from dataclasses import dataclass
@@ -42,6 +44,8 @@ __all__ = [
     "pad_text_rows",
     "text_from_scipy_csr",
     "load_reference_features",
+    "load_relation_edges",
+    "edge_time_in_csr_order",
     "WORD2VEC_DIM",
     "SENTENCE_DIM",
     "BERT_DIM",
@@ -89,8 +93,8 @@ class FeatureStore:
     item_cat_vocab: int = 0
     text_vocab: int = 0
     n_relations: int = 0
-    #: per-edge arrays in the user_pos CSR edge order (the edge-feature convs,
-    #: not ported yet, read them)
+    #: per-edge arrays in the prop_user_pos (message) CSR edge order, which
+    #: the edge-feature convs read
     edge_time: Optional[torch.Tensor] = None  # [E] float32
     edge_label: Optional[torch.Tensor] = None  # [E] int32
 
@@ -369,14 +373,11 @@ def load_reference_features(
         if dataset is None:
             raise ValueError(f"{config.model} needs dataset= to align {ts_path} to the edge order")
         ts = pkl_load(ts_path)
-        tu, ti = dataset.train_user, dataset.train_item
         if hasattr(ts, "tocsr"):  # scipy sparse, indexed [user, item]
-            raw = np.asarray(ts.tocsr()[tu, ti]).reshape(-1).astype(np.float32)
+            raw = np.asarray(ts.tocsr()[dataset.train_user, dataset.train_item]).reshape(-1)
         else:
-            raw = np.asarray(ts, dtype=np.float32).reshape(-1)
-            if raw.shape[0] != len(tu):
-                raise ValueError(f"buy_timestamp length {raw.shape[0]} != train edges {len(tu)}")
-        edge_time = torch.from_numpy(raw[np.lexsort((ti, tu))])  # user-CSR edge order
+            raw = np.asarray(ts).reshape(-1)
+        edge_time = edge_time_in_csr_order(dataset, raw)
     return FeatureStore(
         user=user,
         item=item,
@@ -385,3 +386,33 @@ def load_reference_features(
         text_vocab=vocab,
         edge_time=edge_time,
     )
+
+
+def edge_time_in_csr_order(dataset: Dataset, raw) -> torch.Tensor:
+    """Per-train-edge times in the dataset's raw edge order -> float32 in the
+    user-CSR edge order (``FeatureStore.edge_time``)."""
+    tu, ti = dataset.train_user, dataset.train_item
+    raw = np.asarray(raw, dtype=np.float32).reshape(-1)
+    if raw.shape[0] != len(tu):
+        raise ValueError(f"buy_timestamp length {raw.shape[0]} != train edges {len(tu)}")
+    return torch.from_numpy(raw[np.lexsort((ti, tu))])
+
+
+def load_relation_edges(config: Config, base_path) -> Optional[list]:
+    """rsage's extra relation edge sets, ``favorite_train{sfx}.csv`` and
+    ``review_train{sfx}.csv`` (columns ``cf_customer``, ``cf_product``) under
+    ``base_path``: [(users, items), ...] as int64 arrays in label order
+    (favourite 1, review 2), or None when either file is absent."""
+    out = []
+    for name in ("favorite_train", "review_train"):
+        path = Path(base_path) / f"{name}{config.suffix}.csv"
+        if not path.exists():
+            return None
+        with open(path, newline="") as f:
+            rows = csv.reader(f)
+            header = next(rows)
+            cu, ci = header.index("cf_customer"), header.index("cf_product")
+            pairs = [(r[cu], r[ci]) for r in rows if r]
+        arr = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+        out.append((arr[:, 0].copy(), arr[:, 1].copy()))
+    return out

@@ -11,13 +11,21 @@ Host construction is numpy, in exactly the JAX package's order
 reference's. ``pos_hash`` is the cuckoo membership set over the train pairs
 (``ops/cuckoo.py``), the sampler's negative-rejection test.
 
+The message graph: ``build_bipartite_graph(extra_edges=)`` (and
+``build_relational_graph``, which also labels each message edge with its
+relation) adds CSRs over the train edges plus extra relation edge sets
+(``msg_user_pos``, ``msg_item_pos``, ``msg_item_edge_perm``). Propagation,
+fanout trees and the edge features read the ``prop_*`` accessors: the
+message CSRs when present, else the train CSRs. The BPR sampler
+(``pos_hash``, ``user_pos_row``) and the evaluation's mask stay on the train
+edges.
+
 The SAGE family's mean aggregation (the JAX ``user_agg`` / ``item_agg``) is
 ``mean_aggregation(side)``: one CSR matrix per direction with weights
 1 / deg over the message edges, and its transpose for the backward, both
-read straight from ``user_pos`` / ``item_pos`` and made once per graph. The
-degree-bucketed, hub-dense padded layouts of the JAX package are not carried
-over. The relational message graphs (``msg_*``) are not ported: the
-``prop_*`` accessors are the train CSRs.
+read straight from ``prop_user_pos`` / ``prop_item_pos`` and made once per
+graph. The degree-bucketed, hub-dense padded layouts of the JAX package are
+not carried over.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import torch
 from ..ops.cuckoo import CuckooSet, build_cuckoo_set
 from ..ops.segment import SparsePair, sorted_layout
 
-__all__ = ["CSR", "COOEdges", "BipartiteGraph", "build_bipartite_graph"]
+__all__ = ["CSR", "COOEdges", "BipartiteGraph", "build_bipartite_graph", "build_relational_graph"]
 
 
 @dataclass(frozen=True)
@@ -92,6 +100,11 @@ class BipartiteGraph:
     user_pos_row: Optional[torch.Tensor] = None
     #: cuckoo membership set over the train (user, item) pairs
     pos_hash: Optional[CuckooSet] = None
+    #: the message graph when it differs from the train edges (rsage: purchase
+    #: + favourite + review edges); None: propagation uses user_pos / item_pos
+    msg_user_pos: Optional[CSR] = None
+    msg_item_pos: Optional[CSR] = None
+    msg_item_edge_perm: Optional[torch.Tensor] = None
     max_user_degree: int = 0
     max_test_degree: int = 0
 
@@ -100,33 +113,35 @@ class BipartiteGraph:
         # dataclasses.replace or .to, starts without them)
         object.__setattr__(self, "_agg", {})
 
-    # -- propagation accessors (the JAX package's message CSRs when present;
-    # the port has none, so the train CSRs) --
+    # -- propagation accessors: the message CSRs when present, else the train CSRs --
     @property
     def prop_user_pos(self) -> CSR:
-        return self.user_pos
+        return self.user_pos if self.msg_user_pos is None else self.msg_user_pos
 
     @property
     def prop_item_pos(self) -> CSR:
-        return self.item_pos
+        return self.item_pos if self.msg_item_pos is None else self.msg_item_pos
 
     @property
     def prop_item_edge_perm(self) -> Optional[torch.Tensor]:
-        return self.item_edge_perm
+        return self.item_edge_perm if self.msg_item_edge_perm is None else self.msg_item_edge_perm
 
     def mean_aggregation(self, side: str) -> SparsePair:
         """The mean over each ``side`` node's neighbours as a sparse operator:
         A [n_side, n_other] with weight 1 / deg(row) on each message edge (0
         rows for nodes without one), and A^T, both CSR matrices read from
-        ``user_pos`` / ``item_pos`` without sorting (``item_edge_perm`` maps
-        the item CSR's entries to the edges). Made once per graph."""
+        ``prop_user_pos`` / ``prop_item_pos`` without sorting
+        (``prop_item_edge_perm`` maps the item CSR's entries to the edges).
+        Made once per graph."""
         if side not in self._agg:
+            from ..ops.csr_search import csr_row_ids
+
             up, ip = self.prop_user_pos, self.prop_item_pos
             e = up.nnz
             user_order = torch.arange(e, device=up.indptr.device)
             item_order = self.prop_item_edge_perm.long()
             if side == "user":
-                deg, row_of_edge = up.degrees(), self.user_pos_row.long()
+                deg, row_of_edge = up.degrees(), csr_row_ids(up).long()
             elif side == "item":
                 deg, row_of_edge = ip.degrees(), up.indices.long()
             else:
@@ -166,6 +181,9 @@ class BipartiteGraph:
             item_edge_perm=move(self.item_edge_perm),
             user_pos_row=move(self.user_pos_row),
             pos_hash=move(self.pos_hash),
+            msg_user_pos=move(self.msg_user_pos),
+            msg_item_pos=move(self.msg_item_pos),
+            msg_item_edge_perm=move(self.msg_item_edge_perm),
         )
 
 
@@ -180,6 +198,14 @@ def _csr_from_coo(rows: np.ndarray, cols: np.ndarray, num_rows: int) -> tuple[np
     return indptr, cols_s
 
 
+def _message_edges(train_user, train_item, extra_edges) -> tuple[np.ndarray, np.ndarray]:
+    """(users, items) of the message edges: the train edges, then each extra
+    set, in that order."""
+    users = np.concatenate([np.asarray(train_user, np.int64)] + [np.asarray(u, np.int64) for u, _ in extra_edges])
+    items = np.concatenate([np.asarray(train_item, np.int64)] + [np.asarray(i, np.int64) for _, i in extra_edges])
+    return users, items
+
+
 def build_bipartite_graph(
     train_user: np.ndarray,
     train_item: np.ndarray,
@@ -187,12 +213,16 @@ def build_bipartite_graph(
     test_item: np.ndarray,
     n_users: int,
     m_items: int,
+    extra_edges=None,
 ) -> BipartiteGraph:
     """The graph of a dataset's COO interaction arrays, as CPU tensors.
 
     The joint-space weights are the symmetric normalisation
     ``1 / sqrt(deg(src) * deg(dst))`` computed in float64 and stored float32,
     destination-sorted with a stable sort, as in the JAX package.
+    ``extra_edges``: [(users, items), ...], extra relation edge sets; the
+    message CSRs are then built over the train edges followed by each set,
+    in that order.
     """
     train_user = np.asarray(train_user, dtype=np.int64)
     train_item = np.asarray(train_item, dtype=np.int64)
@@ -220,6 +250,20 @@ def build_bipartite_graph(
     src, dst, weight = src[order], dst[order], weight[order]
 
     t = torch.from_numpy
+    msg = {}
+    if extra_edges:
+        msg_user, msg_item = _message_edges(train_user, train_item, extra_edges)
+        mu_indptr, mu_indices = _csr_from_coo(msg_user, msg_item, n_users)
+        mi_indptr, mi_indices = _csr_from_coo(msg_item, msg_user, m_items)
+        m_order_u = np.lexsort((msg_item, msg_user))
+        m_order_i = np.lexsort((msg_user, msg_item))
+        m_inv_u = np.empty(len(m_order_u), np.int64)
+        m_inv_u[m_order_u] = np.arange(len(m_order_u))
+        msg = dict(
+            msg_user_pos=CSR(t(mu_indptr), t(mu_indices)),
+            msg_item_pos=CSR(t(mi_indptr), t(mi_indices)),
+            msg_item_edge_perm=t(m_inv_u[m_order_i].astype(np.int32)),
+        )
     return BipartiteGraph(
         n_users=int(n_users),
         m_items=int(m_items),
@@ -236,4 +280,24 @@ def build_bipartite_graph(
         ),
         max_user_degree=int((up_indptr[1:] - up_indptr[:-1]).max(initial=0)),
         max_test_degree=int((tp_indptr[1:] - tp_indptr[:-1]).max(initial=0)),
+        **msg,
     )
+
+
+def build_relational_graph(dataset, relation_edges):
+    """(graph, edge_label) of the multi-relational models: the message CSRs
+    over the purchases plus each relation edge set of ``relation_edges``
+    ([(users, items), ...]), and each message edge's label (0 a purchase, k
+    the k-th extra set) as int32 in the message user-CSR edge order, which
+    ``FeatureStore.edge_label`` holds."""
+    graph = build_bipartite_graph(
+        dataset.train_user, dataset.train_item, dataset.test_user, dataset.test_item,
+        dataset.n_users, dataset.m_items, extra_edges=relation_edges,
+    )
+    msg_user, msg_item = _message_edges(dataset.train_user, dataset.train_item, relation_edges)
+    labels = np.concatenate(
+        [np.zeros(len(dataset.train_user), np.int32)]
+        + [np.full(len(u), k + 1, np.int32) for k, (u, _) in enumerate(relation_edges)]
+    )
+    order = np.lexsort((msg_item, msg_user))  # the message user CSR's sort
+    return graph, torch.from_numpy(labels[order])

@@ -3,9 +3,10 @@ the keys this port has. The SAGE-family keys need ``features=`` (a
 ``FeatureStore``); ``dask`` is ``textsage`` with out-of-core numeric features
 (``ooc_numeric={side: MemmapNumeric}``, ``data/ooc.py``); ``tgrec`` and
 ``tgrec2`` are the SAGE model with the ``transformer`` and
-``transformer_cat`` convs, ``gnn`` takes its conv from ``--conv``. Not ported
-yet: the edge-feature keys (``tgsrec``, ``sasgnn``, ``rsage``), ``sasrec`` and
-``asage``."""
+``transformer_cat`` convs, ``gnn`` takes its conv from ``--conv``. The
+edge-feature keys: ``tgsrec`` (``temporal``) and ``sasgnn`` (``recency``)
+read ``features.edge_time``, ``rsage`` (``relational_{--multi_relational}``)
+needs ``features.edge_label``. Not ported yet: ``sasrec`` and ``asage``."""
 
 from __future__ import annotations
 
@@ -32,6 +33,21 @@ def _sage(conv=None, **fixed):
     return make
 
 
+def _rsage(c, g, features=None, **kw):
+    """Multi-relational SAGE: the relation combine from --multi_relational;
+    needs the message graph's labels in ``features.edge_label``."""
+    from .sage import SAGE
+
+    if features is None:
+        raise ValueError("rsage requires features=FeatureStore(...)")
+    if features.edge_label is None:
+        raise ValueError(
+            "rsage needs features.edge_label (favorite_train / review_train csvs through "
+            "data.graph.build_relational_graph, or synthetic labels)"
+        )
+    return SAGE(c, g, features, conv=f"relational_{c.multi_relational}", **kw)
+
+
 _REGISTRY: Dict[str, Callable[..., PairwiseModel]] = {
     "mf": lambda c, g, **kw: MF(c, g, **kw),
     "lgn": lambda c, g, **kw: LightGCN(c, g, norm="sym", **kw),
@@ -51,6 +67,9 @@ _REGISTRY: Dict[str, Callable[..., PairwiseModel]] = {
     "gnn": _sage(),
     "tgrec": _sage("transformer"),
     "tgrec2": _sage("transformer_cat"),
+    "tgsrec": _sage("temporal"),
+    "sasgnn": _sage("recency"),
+    "rsage": _rsage,
 }
 
 #: the keys whose models take features (build_model_inputs loads them)

@@ -26,7 +26,17 @@ Deviation (routing): every row a tree level takes from the all-entity
 initial tables goes through ``ops/scatter.py::table_gather``, one call per
 side for all the levels of a step's three trees, so the tables' gradient is
 one ``scatter_add_rows`` kernel launch per side; so do the categorical
-embedding gathers. The JAX package takes plain XLA gathers there.
+embedding gathers, and rsage's relation rows: one call per layer for every
+neighbour slot of the step's trees that the layer consumes, so each
+layer's relation table (3 rows) takes its gradient in one kernel launch
+that sums repeated ids in shared memory. The JAX package takes plain XLA
+gathers there.
+
+The edge-feature convs (``relational_*``, ``temporal``, ``recency``) read the
+features' per-edge arrays at each tree level's ``edge_pos``; rsage's
+relation table ``rel_emb`` [max(n_relations, 1), node_dim] is chained
+through each layer's ``rel_w`` / ``rel_b`` (layer i reads rel_i, rel_{i+1}
+= rel_i @ rel_w + rel_b).
 
 The parameters carry the JAX package's names; layer i's are
 ``layers.{i}.{name}``. ``loss`` computes the initial tables inside the
@@ -56,7 +66,7 @@ from ..ops.scatter import table_gather
 from ..ops.segment import SparsePair, spmm
 from ..sampling.neighbor import SampledNeighbors, sample_neighbors
 from .base import PairwiseModel, gather_batch_rows, l2_params
-from .sage_convs import get_conv, xavier
+from .sage_convs import edge_feature, get_conv, xavier
 
 __all__ = ["SAGE", "COLD_START_UID", "DROPOUT_RATE", "dropout"]
 
@@ -210,6 +220,8 @@ class SAGE(PairwiseModel):
                 for name in ("tower1", "tower2"):
                     p[f"{side}_{name}_w"] = xavier(g, (nd, nd))
                     p[f"{side}_{name}_b"] = torch.zeros(nd)
+        if self.conv_name.startswith("relational"):
+            p["rel_emb"] = xavier(g, (max(f.n_relations, 1), nd))
         return p
 
     def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -403,6 +415,16 @@ class SAGE(PairwiseModel):
             x = h @ getattr(self, f"{side}_tower2_w") + getattr(self, f"{side}_tower2_b")
         return x
 
+    def _rel_chain(self) -> Optional[List[torch.Tensor]]:
+        """rsage's relation table of each layer: rel_0 = rel_emb, rel_{i+1} =
+        rel_i @ rel_w + rel_b of layer i; None for the other convs."""
+        if not self.conv_name.startswith("relational"):
+            return None
+        chain = [self.rel_emb]
+        for lp in list(self.layers)[:-1]:
+            chain.append(chain[-1] @ lp["rel_w"] + lp["rel_b"])
+        return chain
+
     @staticmethod
     def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
         return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-8)
@@ -413,11 +435,13 @@ class SAGE(PairwiseModel):
         user_x, item_x = self.initial_tables()
         ua, ua_t = graph.mean_aggregation("user").matrices(cdt)
         ia, ia_t = graph.mean_aggregation("item").matrices(cdt)
-        ctx = {"graph": graph}
+        rel_chain = self._rel_chain()
         user_layers, item_layers = [user_x], [item_x]
         for i, lp in enumerate(self.layers):
             user_aggr = spmm(ua, item_x, cdt, ua_t)
             item_aggr = spmm(ia, user_x, cdt, ia_t)
+            ctx = {"graph": graph, "edge_time": self.features.edge_time, "edge_label": self.features.edge_label,
+                   "rel_emb": None if rel_chain is None else rel_chain[i]}
             new_user = self.conv.full_graph(lp, user_x, user_aggr, item_x, "user", ctx)
             new_item = self.conv.full_graph(lp, item_x, item_aggr, user_x, "item", ctx)
             if i != self.n_layers - 1:
@@ -476,8 +500,33 @@ class SAGE(PairwiseModel):
             out.append(xs)
         return out
 
-    def _combine(self, graph, xs, has_nbr, sides, generator, train: bool) -> torch.Tensor:
-        """Bottom-up SAGE combine of one tree's level rows ``xs``."""
+    def _gather_relations(self, graph, trees) -> list:
+        """rsage's relation rows of every neighbour slot, [tree][layer][level]
+        -> [..., F, node_dim], for ``trees``: a list of (sides, edge_pos per
+        level). Layer i reads the slots of levels 1 .. L - i; one
+        ``table_gather`` of its table covers them in every tree, so its
+        backward is one scatter-add kernel launch. A None per tree for the
+        other convs."""
+        chain = self._rel_chain()
+        if chain is None:
+            return [None] * len(trees)
+        labels = [
+            [edge_feature({"edge_pos": pos, "side": side, "graph": graph}, self.features.edge_label)
+             for side, pos in zip(sides, edge_pos[1:])]
+            for sides, edge_pos in trees
+        ]
+        out: List[List[List[torch.Tensor]]] = [[] for _ in trees]
+        for i, rel in enumerate(chain):
+            parts = [lab for tree_labels in labels for lab in tree_labels[: self.n_layers - i]]
+            flat = table_gather(rel, torch.cat([lab.reshape(-1) for lab in parts]))
+            rows = iter(torch.split(flat, [lab.numel() for lab in parts]))
+            for t, tree_labels in enumerate(labels):
+                out[t].append([next(rows).reshape(lab.shape + (-1,)) for lab in tree_labels[: self.n_layers - i]])
+        return out
+
+    def _combine(self, graph, xs, has_nbr, edge_pos, sides, rel, generator, train: bool) -> torch.Tensor:
+        """Bottom-up SAGE combine of one tree's level rows ``xs``; ``rel``:
+        the tree's relation rows (``_gather_relations``), or None."""
         big_l = self.n_layers
         layer_outputs = [xs[0]]
         for i, lp in enumerate(self.layers):
@@ -487,7 +536,10 @@ class SAGE(PairwiseModel):
                 if train:
                     nbrs = dropout(nbrs, generator)
                 aggr = torch.where(has_nbr[lvl + 1][..., None], nbrs.mean(dim=-2), 0.0)
-                ctx = {"neighbors": nbrs, "side": sides[lvl], "graph": graph}
+                ctx = {"neighbors": nbrs, "side": sides[lvl], "graph": graph, "edge_pos": edge_pos[lvl + 1],
+                       "edge_time": self.features.edge_time}
+                if rel is not None:
+                    ctx["rel"] = rel[i][lvl]
                 h = self.conv.sampled(lp, target, aggr, ctx)
                 if i != big_l - 1:
                     h = torch.relu(h)
@@ -523,7 +575,9 @@ class SAGE(PairwiseModel):
         sides = self._sides(seed_side)
         (xs,) = self._gather_levels(tables, [(sides, [seeds] + [s.ids for s in tree])])
         has_nbr = [None] + [s.has_neighbors for s in tree]
-        return self._combine(graph, xs, has_nbr, sides, generator, train)
+        edge_pos = [None] + [s.edge_pos for s in tree]
+        (rel,) = self._gather_relations(graph, [(sides, edge_pos)])
+        return self._combine(graph, xs, has_nbr, edge_pos, sides, rel, generator, train)
 
     @torch.no_grad()
     def propagate_sampled(self, graph: BipartiteGraph, generator: torch.Generator):
@@ -569,15 +623,17 @@ class SAGE(PairwiseModel):
             if trees is None:
                 trees = [self.sample_seed_tree(graph, s, side, generator) for s, side in seeds]
             specs = [
-                (self._sides(side), [s] + [lvl.ids for lvl in tree], [None] + [lvl.has_neighbors for lvl in tree])
+                (self._sides(side), [s] + [lvl.ids for lvl in tree], [None] + [lvl.has_neighbors for lvl in tree],
+                 [None] + [lvl.edge_pos for lvl in tree])
                 for (s, side), tree in zip(seeds, trees)
             ]
             if tables is None:
                 tables = self.initial_tables()
-            xs_all = self._gather_levels(tables, [(sides, lv) for sides, lv, _ in specs])
+            xs_all = self._gather_levels(tables, [(sides, lv) for sides, lv, _, _ in specs])
+            rel_all = self._gather_relations(graph, [(sides, pos) for sides, _, _, pos in specs])
             u, p, n = (
-                self._combine(graph, xs, has_nbr, sides, generator, train=True)
-                for xs, (sides, _, has_nbr) in zip(xs_all, specs)
+                self._combine(graph, xs, has_nbr, pos, sides, rel, generator, train=True)
+                for xs, rel, (sides, _, has_nbr, pos) in zip(xs_all, rel_all, specs)
             )
         bpr = self.main_loss(u, p, n, batch.valid)
         reg = l2_params(self.parameters()) / batch.valid.sum().clamp_min(1)

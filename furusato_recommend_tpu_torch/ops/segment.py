@@ -2,7 +2,7 @@
 and of the transpose VJP of ``ops/padded_adj.py``), and the segment ops
 (``segment_sum``, ``segment_mean``, ``segment_max``, ``gather_segment_mean``)
 with the full-graph attention aggregations built on them
-(``segment_softmax_aggregate``, ``segment_mh_attention``).
+(``segment_softmax``, ``segment_softmax_aggregate``, ``segment_mh_attention``).
 
 The JAX package computes propagation outside any Pallas kernel: a gather plus a
 destination-sorted segment sum, or on its default path the degree-bucketed
@@ -41,7 +41,8 @@ if TYPE_CHECKING:
 
 __all__ = [
     "Adjacency", "SparsePair", "csr_layout", "gather_segment_mean", "segment_max", "segment_mean",
-    "segment_mh_attention", "segment_softmax_aggregate", "segment_sum", "sorted_layout", "spmm",
+    "segment_mh_attention", "segment_softmax", "segment_softmax_aggregate", "segment_sum", "sorted_layout",
+    "spmm",
 ]
 
 
@@ -190,7 +191,7 @@ def gather_segment_mean(
     return segment_mean(x[src.long()], dst, num_segments)
 
 
-def _segment_softmax(e: torch.Tensor, rows: torch.Tensor, num_dst: int) -> torch.Tensor:
+def segment_softmax(e: torch.Tensor, rows: torch.Tensor, num_dst: int) -> torch.Tensor:
     """softmax of the edge scores e [E, ...] within each destination's edges,
     as the JAX package takes it: the segment max (0 where it is not finite)
     subtracted, the sum clamped to 1e-12. The max is detached: a shift does
@@ -212,7 +213,7 @@ def segment_softmax_aggregate(
 
     rows, cols = csr_row_ids(csr).long(), csr.indices.long()
     e = torch.nn.functional.leaky_relu(scores_src[cols] + scores_dst[rows], 0.2)
-    alpha = _segment_softmax(e, rows, num_dst)
+    alpha = segment_softmax(e, rows, num_dst)
     return segment_sum(values[cols] * alpha[:, None], rows, num_dst)
 
 
@@ -230,6 +231,6 @@ def segment_mh_attention(lp, x_self: torch.Tensor, other_x: torch.Tensor, csr, n
     k = (other_x @ lp["wk"]).reshape(other_x.shape[0], n_heads, dh)
     v = (other_x @ lp["wv"]).reshape(other_x.shape[0], n_heads, dh)
     e = (q[rows] * k[cols]).sum(dim=-1) / dh**0.5  # [E, H]
-    alpha = _segment_softmax(e, rows, num_dst)
+    alpha = segment_softmax(e, rows, num_dst)
     out = segment_sum(v[cols] * alpha[..., None], rows, num_dst)  # [N, H, dh]
     return out.reshape(num_dst, d)

@@ -278,14 +278,6 @@ def test_conv_full_graph_matches_jax(data, conv, side):
     _check_grads(jax.jit(jax_fn), torch_fn, inputs, seed=7)
 
 
-def test_edge_feature_convs_still_raise():
-    for name in tconvs.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="step 3b"):
-            tconvs.get_conv(name)
-    assert set(tconvs.NOT_PORTED) == {"relational_add", "relational_sum", "relational_prod", "temporal", "recency"}
-    assert tconvs.N_HEADS == jconvs.N_HEADS == 8
-
-
 # ---- the SAGE models ----
 @pytest.mark.parametrize("name,cfg", MODELS)
 def test_propagate_matches_jax(data, no_text_hub, name, cfg):

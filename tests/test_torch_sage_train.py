@@ -197,8 +197,6 @@ def test_trainer_raises_on_the_next_slice(tmp_path):
                              (base.replace(feature_update_every=4), "nssage", "cached")):
         with pytest.raises(ValueError, match=match):
             Trainer(cfg, td, build_model(name, cfg, td.graph, features=fs), device="cpu")
-    with pytest.raises(NotImplementedError, match="next SAGE slice"):
-        tsage.SAGE(base, td.graph, fs, conv="recency")
 
 
 def test_cli_trains_textsage_ddp_and_serves_its_checkpoint(tmp_path):

@@ -11,6 +11,8 @@ Shapes (N, R, D), ids drawn on the host from seed 0:
   categorical      (40, 400000, 32)     uniform ids
   lgn_user         (50000, 8192, 64)    uniform ids
   lgn_item         (20000, 16384, 64)   half Zipf(1.2), half uniform ids
+  relation_rows    (3, 450000, 32)      rsage's layer-0 relation rows: labels 0 / 1 / 2
+                                        in the message graph's shares 1 : 0.4 : 0.1
 Modes: the plan's own (``plan_scatter``), and row and tile forced through the
 wrapper's private launch; tile_scalar is the tile plan with 4-byte loads and
 adds where D % 4 == 0 would take 16 bytes.
@@ -53,6 +55,7 @@ def _shapes(rng):
         ("lgn_user", 50000, rng.integers(0, 50000, 8192), 64),
         ("lgn_item", 20000, np.concatenate([np.minimum(rng.zipf(1.2, half) - 1, 19999),
                                             rng.integers(0, 20000, half)]), 64),
+        ("relation_rows", 3, rng.choice(3, size=450000, p=(1 / 1.5, 0.4 / 1.5, 0.1 / 1.5)), 32),
     ]
 
 

@@ -128,8 +128,11 @@ Phases (any failure raises and exits non-zero):
                evaluation of the R = 8 trainer through the kernel against the
                plain version (phase 7's rule); one R = 8 block and
                one T = 8 super-step on the card and on the CPU from the same
-               parameters, batches and trees, dropout 0, under phase 10's
-               rule; then samples/s, host and device ms a step, device
+               parameters, batches and trees, dropout 0, each optimizer step
+               under phase 10's rule from the CPU's state (the card takes the
+               CPU's parameters and Adam moments after each step; held only
+               at the end, a near-zero gradient's +-lr step grows over the
+               steps after it: tools/card_vs_cpu_spread.py); then samples/s, host and device ms a step, device
                operations a step and the idle share for R = 1, R = 8, T = 8
                and dask at this shape, and train-textsage-100k at R = 8
                beside phase 10's R = 1 (a {"train_cadences": ...} line)
@@ -147,7 +150,7 @@ Phases (any failure raises and exits non-zero):
                its last); scatter_add_rows twice a step, masked_topk once a
                round per request and per evaluation tile; every evaluation
                held against the plain top-k (phase 7's rule); 4 tgrec steps on
-               the card and on the CPU (phase 10's rule); then the refresh's
+               the card and on the CPU (phase 12's step-by-step rule); then the refresh's
                times, masked_topk at B = 512, k = 200 beside the library call
                and the bound, and each key's step numbers beside phase 12's
                TextSAGE R = 1 (a {"train_attention": ...} line)
@@ -172,13 +175,48 @@ Phases (any failure raises and exits non-zero):
                one relation-row gather a layer) and twice a tgsrec / sasgnn
                step, masked_topk once a request and per evaluation tile; every
                evaluation held against the plain top-k (phase 7's rule); 4
-               rsage steps on the card and on the CPU (phase 10's rule); the
+               rsage steps on the card and on the CPU (phase 12's
+               step-by-step rule); the
                recency conv's first-maximum slot on the card as on the CPU
                over tied times; then the refresh times, each key's step
                numbers beside phase 12's TextSAGE R = 1 and phase 13's tgrec,
                and the relation-row scatter at (3, 450000, 32) and (3, 75000,
                32) from a step's labels: kernel, row mode, index_add_ and plain
                in ten alternating rounds (a {"train_edge": ...} line)
+ 15. sequence-attr-20k
+               the sequence and attribute models on phase 12's graph and
+               features: sasrec's item sequences (the train items in order,
+               the last 50) and asage's attribute graphs (the categorical
+               columns: 4 user and 5 item fields over 32 clusters).
+               serve-sasrec-20k (seeded xavier sasrec at the anchor recipe of
+               the JAX package's TPU record: d 64, L 2, features n / w / t)
+               and serve-asage-20k (the flagship recipe): the refresh held
+               against a CPU propagation, sasrec's at rtol 1e-4, atol 1e-5 x
+               the largest magnitude (its items assembled per id, float32
+               throughout), asage's under phase 9's rule; requests of 1 /
+               8 / 64 / 512 users at k = 20 and two over HTTP, each under rule
+               3(b), one masked_topk launch a request; train-sasrec-20k (B
+               2048, lr 1e-3, decay 1e-6, the uniform sampler, 69 steps an
+               epoch) and train-asage-20k (Trainer(ddp_recipe=True), R = 1),
+               3 epochs each between two evaluations: the last epoch's loss
+               below the first's, recall@10 above its start, sasrec's at
+               least 0.013 (half the record's 0.0263 at epoch 3);
+               scatter_add_rows twice a sasrec step (the item rows and the
+               items' text-bag word rows) and 6 times an asage step (two tree
+               gathers, two attribute-row gathers, the word rows of each
+               side's entity levels), masked_topk once a request and per
+               evaluation tile;
+               every evaluation held against the plain top-k (phase 7's
+               rule); 4 steps of each key on the card and on the CPU (phase
+               12's step-by-step rule); then the refresh times, each key's step numbers
+               beside phase 12's TextSAGE R = 1, and the new scatter shapes
+               at the ids that one step's table gathers record (sasrec's
+               item rows (10000, 106496, 64), their pad id included, and
+               word rows (500, 360000, 32);
+               asage's attribute rows (32, 25000, 32) and (32, 50000, 32) and
+               word rows (500, 4680000, 16) and (500, 9360000, 16)): plan,
+               kernel, row mode, index_add_ and plain in ten alternating
+               rounds (a {"train_sequence": ...} line)
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
 30000, B in {1, 64, 512, 1024}, k in {10, 20}, and at phase 12's evaluation
@@ -187,14 +225,19 @@ tile (M = 10000, B = 2048); scatter_add_rows at (N, R, D) = (100000, 180000,
 sampled trees in phase 11), (40, 400000, 32), all in tile mode, and the same
 gathers on phase 12's graph, (20000, 180000, 32) and (10000, 285000, 32); and
 rsage's relation-row gathers of phase 14, (3, 450000, 32) and (3, 75000, 32),
-labels drawn in the message graph's shares.
+labels drawn in the message graph's shares; and phase 15's: sasrec's item rows
+(10000, 106496, 64), 0.86 of them the pad id 0, asage's attribute rows
+(32, 25000, 32) and (32, 50000, 32), and the text bags' word rows (500,
+360000, 32) and (500, 4680000, 16), half of them pads on word 0.
 
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -222,7 +265,8 @@ from furusato_recommend_tpu_torch.data.features import (
 from furusato_recommend_tpu_torch.data.graph import CSR, build_relational_graph
 from furusato_recommend_tpu_torch.data.ooc import MemmapNumeric, stream_project, stream_project_grad
 from furusato_recommend_tpu_torch.eval.metrics import batch_metric_sums
-from furusato_recommend_tpu_torch.models import sage
+from furusato_recommend_tpu_torch.data.sequence import build_sequences
+from furusato_recommend_tpu_torch.models import asage, sage, sasrec
 from furusato_recommend_tpu_torch.models.registry import build_model
 from furusato_recommend_tpu_torch.models.sage_convs import N_HEADS, edge_feature, get_conv
 from furusato_recommend_tpu_torch.obs.log import MetricLogger
@@ -292,6 +336,31 @@ EDGE_EPOCHS = 3
 EDGE_STEPS_VS_CPU = 4
 REL_ROWS = (450_000, 75_000)
 REL_SHARES = (1 / 1.5, 0.4 / 1.5, 0.1 / 1.5)
+# phase 15: the sequence and attribute models on the anchor20k graph. sasrec
+# at the anchor recipe of the JAX package's TPU record (benchmarks/anchor20k.py
+# sasrec: d 64, L 2, B 2048, lr 1e-3, decay 1e-6, features n / w / t, the
+# uniform sampler; benchmarks/results/anchor20k_sasrec_tpu_s0.jsonl reads
+# recall@10 0.0263 at epoch 3), asage at the flagship recipe; a sasrec step
+# gathers B x 50 sequence rows and B positives and B negatives from the item
+# table, an asage step B F user and 2 B F item attribute rows (B = 5000, F =
+# 5); both assemble entities per id, whose text bags gather word rows (3
+# fields of 12 slots an entity, pads read word 0) from the 500-word table:
+# sasrec every item's (d / 2 = 32 wide), asage the attribute trees' entity
+# levels' (B + B F^2 users, 2 (B + B F^2) items; 16 wide)
+SEQ_KEYS = (("sasrec", {}), ("asage", {}))
+SEQ_EPOCHS = 3
+SEQ_RECALL10_FLOOR, SEQ_RECORD_EPOCH3 = 0.013, 0.0263
+SEQ_STEPS_VS_CPU = 4
+SEQ_B, SEQ_D = 2048, 64
+SEQ_ROWS = SEQ_B * 52
+ATTR_ROWS = (25_000, 50_000)
+WORD_ROWS = (360_000, 4_680_000, 9_360_000)
+# the scatter launches a step of each key makes with the features n / w / t:
+# one a table gather (rsage: two tree gathers and a relation-row gather a
+# layer; sasrec: the item rows and the items' word rows; asage: two tree
+# gathers, two attribute-row gathers and the word rows of each side's entity
+# levels)
+SCATTER_PER_STEP = {"rsage": 4, "sasrec": 2, "asage": 6}
 CADENCE_BLOCK = 8  # R = 8 and T = 8
 # profiler ranges (ops/segment.py, ops/scatter.py, sampling/bpr.py,
 # sampling/neighbor.py, eval/evaluate.py, torch.optim's own) and the step part
@@ -553,6 +622,14 @@ def scatter_cases(dev) -> float:
     ]
     # rsage's relation rows: a step's two layers' gathers from the 3-row table
     cases += [(3, rng.choice(3, size=r, p=REL_SHARES), TS_D, None) for r in REL_ROWS]
+    # sasrec's item rows (0.86 of them the pad id 0, as at the anchor20k
+    # shape) and asage's attribute rows (32 attributes a side)
+    seq_ids = np.where(rng.random(SEQ_ROWS) < 0.86, 0, rng.integers(0, A20_ITEMS, SEQ_ROWS))
+    cases += [(A20_ITEMS, seq_ids, SEQ_D, None)]
+    cases += [(32, rng.integers(0, 32, r), TS_D, None) for r in ATTR_ROWS]
+    # and the word rows of their per-id text bags (half of them pads on word 0)
+    cases += [(500, np.where(rng.random(r) < 0.5, 0, rng.integers(0, 500, r)), d, None)
+              for r, d in zip(WORD_ROWS[:2], (SEQ_D // 2, TS_D // 2))]
     max_err, n_cases = 0.0, 0
     for n, ids, d, plan in cases:
         ids_t = torch.from_numpy(ids.astype(np.int32)).to(dev)
@@ -1360,49 +1437,168 @@ def train_textsage_20k(ds, fs, dev, tmp) -> dict:
     return facts
 
 
+def _draws(model, graph, batch, gen) -> dict:
+    """A step's presampled draws for ``Trainer.train_epoch(draws=)``, as the
+    loss's keyword arguments: the (user, pos, neg) fanout trees, and asage's
+    attribute trees beside them; none for a loss that samples no trees
+    (sasrec)."""
+    params = inspect.signature(model.loss).parameters
+    seeds = ((batch.user, "user"), (batch.pos, "item"), (batch.neg, "item"))
+    out = {}
+    if "trees" in params:
+        out["trees"] = [model.sample_seed_tree(graph, s, side, gen) for s, side in seeds]
+    if "attr_trees" in params:
+        out["attr_trees"] = [model.sample_attr_tree(s, side, gen) for s, side in seeds]
+    return out
+
+
+def _draws_to(draws: dict, dev) -> dict:
+    """``_draws``' output on ``dev``."""
+    return {k: [[lvl.to(dev) for lvl in tree] for tree in trees] for k, trees in draws.items()}
+
+
 def _block(trainer, gen, n):
-    """n batches (and their trees) drawn on the card with the trainer's
+    """n batches (and their draws) drawn on the card with the trainer's
     alias tables."""
     cfg = trainer.config
     bs = cfg.bpr_batch_size
     allb = sample_bpr(gen, trainer.graph, n * bs, cfg.neg_candidates,
                       edge_alias=trainer.edge_alias, neg_alias=trainer.neg_alias)
     batches = [allb.slice(i * bs, (i + 1) * bs) for i in range(n)]
-    trees = [[trainer.model.sample_seed_tree(trainer.graph, s, side, gen)
-              for s, side in ((b.user, "user"), (b.pos, "item"), (b.neg, "item"))] for b in batches]
-    return batches, trees
+    return batches, [_draws(trainer.model, trainer.graph, b, gen) for b in batches]
 
 
-def card_vs_cpu_epoch(ds, fs, cfg, params, batches, trees, dev, label) -> dict:
-    """``Trainer.train_epoch`` over the same batches and trees on the card and
-    on the CPU from the same parameters, dropout 0, under phase 10's rule."""
-    got = {}
-    rate, sage.DROPOUT_RATE = sage.DROPOUT_RATE, 0.0
+def _optimizers(trainer) -> list:
+    """The trainer's Adams: the one over every step's parameters, and under
+    T > 1 the feature parameters' own."""
+    return [o for o in (trainer.optimizer, trainer.opt_feat) if o is not None]
+
+
+_RELU = torch.relu
+GATE_TOL = 1e-5  # a ReLU gate may differ where |x| <= this x its tensor's largest magnitude
+
+
+class _ReluGates:
+    """``torch.relu`` recorded on one run and replayed on another. The CPU's
+    run keeps each call's gate (x > 0) in order; the card's run then takes,
+    call by call, the CPU's gate (``torch.where(gate, x, 0)``, whose gradient
+    is that gate) and counts where its own differs: there x must lie within
+    ``GATE_TOL`` of its tensor's largest magnitude from 0, where float32
+    rounding puts it on either side of the kink."""
+
+    def __init__(self):
+        self.gates, self.next, self.flips, self.worst = [], 0, 0, 0.0
+
+    def record(self, x):
+        self.gates.append((x > 0).cpu())
+        return _RELU(x)
+
+    def replay(self, x):
+        gate, self.gates[self.next] = self.gates[self.next].to(x.device), None
+        self.next += 1
+        if x.numel() == 0:
+            return _RELU(x)
+        mag = x.detach().abs()
+        flip = (x > 0) != gate
+        self.flips = self.flips + flip.sum()
+        self.worst = torch.maximum(torch.as_tensor(self.worst, device=x.device),
+                                   (mag * flip).max() / mag.max().clamp_min(1e-30))
+        return torch.where(gate, x, 0.0)
+
+
+def held_steps(ds, fs, cfg, params, batches, draws, dev, align_gates=True) -> tuple:
+    """``Trainer.train_epoch`` over the same batches and draws on the CPU and
+    on the card from the same parameters, dropout 0, each optimizer step of
+    the card's run begun from the CPU's state: the CPU's run records its
+    parameters and Adam moments after every step, and after each step of the
+    card's, once the two are compared, the card takes the CPU's. With
+    ``align_gates`` the card's ReLUs take the CPU's gates (``_ReluGates``).
+    Returns the card's and the CPU's losses, for each optimizer step {name:
+    |card - CPU|} of every parameter and the CPU's parameters, and the gates
+    (flips, and the largest |x| / max |x| at a flip) or None."""
+    got, per_step = {}, []
+    gates = _ReluGates() if align_gates else None
+    rates = (sage.DROPOUT_RATE, asage.DROPOUT_RATE, sasrec.DROPOUT)
+    sage.DROPOUT_RATE = asage.DROPOUT_RATE = sasrec.DROPOUT = 0.0
     try:
-        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
-            model = build_model(cfg.model, cfg, ds.graph, features=fs)
+        for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            model = build_model(cfg.model, cfg, ds.graph, features=fs, **model_inputs_20k(cfg.model, ds))
             params_from_jax(params, model)
-            tr = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=True, device=d)
-            losses = tr.train_epoch([b.to(d) for b in batches],
-                                    trees=[[[lvl.to(d) for lvl in t] for t in ts] for ts in trees])
-            got[name] = (flatten_params(params_to_numpy(tr.model)), losses.cpu().numpy())
+            tr = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=cfg.model != "sasrec",
+                         device=d)
+            named, opts = dict(tr.model.named_parameters()), _optimizers(tr)
+
+            def record(*_):
+                got.setdefault("states", []).append(
+                    ({k: p.detach().clone() for k, p in named.items()},
+                     [copy.deepcopy(o.state_dict()) for o in opts]))
+
+            def force(*_):
+                ref, moments = got["states"][len(per_step)]
+                per_step.append({k: (p.detach().cpu() - ref[k]).abs().numpy() for k, p in named.items()})
+                with torch.no_grad():
+                    for k, p in named.items():
+                        p.copy_(ref[k])
+                for o, m in zip(opts, moments):
+                    o.load_state_dict(m)
+
+            hooks = [o.register_step_post_hook(record if name == "cpu" else force) for o in opts]
+            if gates is not None:
+                torch.relu = gates.record if name == "cpu" else gates.replay
+            try:
+                losses = tr.train_epoch([b.to(d) for b in batches], draws=[_draws_to(t, d) for t in draws])
+            finally:
+                torch.relu = _RELU
+            for h in hooks:
+                h.remove()
+            got[name] = losses.cpu().numpy()
     finally:
-        sage.DROPOUT_RATE = rate
-    (pc, lc), (pp, lp) = got["card"], got["cpu"]
+        sage.DROPOUT_RATE, asage.DROPOUT_RATE, sasrec.DROPOUT = rates
+    assert len(per_step) == len(got["states"]) > 0, (len(per_step), len(got["states"]))
+    if gates is not None:
+        assert gates.next == len(gates.gates), (gates.next, len(gates.gates))
+        gates = (int(gates.flips), float(gates.worst))
+    return got["card"], got["cpu"], per_step, [ref for ref, _ in got["states"]], gates
+
+
+def params_off(diff: dict, ref: dict) -> dict:
+    """{name: the elements outside 1e-6 + 1e-5 |p|} of one optimizer step,
+    the names with none left out."""
+    off = {k: int((d > 1e-6 + 1e-5 * np.abs(ref[k].numpy())).sum()) for k, d in diff.items()}
+    return {k: n for k, n in off.items() if n}
+
+
+def card_vs_cpu_epoch(ds, fs, cfg, params, batches, draws, dev, label) -> dict:
+    """``held_steps`` under phase 10's rule at every optimizer step: every
+    parameter within 2 x lr, all but 1e-3 of them within 1e-6 + 1e-5 |p|;
+    the losses within rtol 1e-4; the card's ReLU gates equal to the CPU's
+    but where |x| <= ``GATE_TOL`` x max |x|. Both alignments are needed
+    (``tools/card_vs_cpu_spread.py``): held only at the end of the run,
+    Adam's +-lr step on a gradient within rounding of 0 gives the next steps
+    different inputs, and their steps part over thousands of parameters in
+    some 1 run of 10; held step by step, a gate at a rounding-level x of an
+    entity that many rows share (a popular item) moves that side's feature
+    gradients by about 1e-3 and thousands of parameters past the rule in
+    some 1 step of 60."""
+    lc, lp, per_step, refs, (flips, worst_gate) = held_steps(ds, fs, cfg, params, batches, draws, dev)
     np.testing.assert_allclose(lc, lp, rtol=1e-4)
-    worst, off, total = 0.0, 0, 0
-    for k in pp:
-        diff = np.abs(pc[k] - pp[k])
-        assert (diff <= 2 * cfg.lr).all(), f"{label} {k}: {diff.max()}"
-        off += int((diff > 1e-6 + 1e-5 * np.abs(pp[k])).sum())
-        total += diff.size
-        worst = max(worst, float(diff.max()))
-    assert off <= 1e-3 * total, f"{label}: {off} of {total} parameters differ"
-    log(f"{label} ({len(batches)} steps): losses within rtol 1e-4 "
-        f"(max rel {float(np.max(np.abs(lc - lp) / np.abs(lp))):.3g}); parameters within 1e-6 + 1e-5 |p| "
+    assert worst_gate <= GATE_TOL, f"{label}: a ReLU gate differs at |x| = {worst_gate:.3g} x max |x|"
+    total = sum(d.size for d in per_step[0].values())
+    off, worst = [], 0.0
+    for i, (diff, ref) in enumerate(zip(per_step, refs)):
+        for k, d in diff.items():
+            assert (d <= 2 * cfg.lr).all(), f"{label} step {i + 1} {k}: {d.max()}"
+            worst = max(worst, float(d.max()))
+        by_name = params_off(diff, ref)
+        off.append(sum(by_name.values()))
+        assert off[-1] <= 1e-3 * total, f"{label} step {i + 1}: {off[-1]} of {total} parameters differ: {by_name}"
+    log(f"{label} ({len(batches)} steps, {len(per_step)} optimizer steps each held from the CPU's state; "
+        f"{flips} ReLU gates taken from the CPU's, at |x| <= {worst_gate:.3g} x max |x|): losses within rtol "
+        f"1e-4 (max rel {float(np.max(np.abs(lc - lp) / np.abs(lp))):.3g}); parameters within 1e-6 + 1e-5 |p| "
         f"but {off} of {total} (max abs diff {worst:.3g})")
     return {"losses_card": lc.tolist(), "losses_cpu": lp.tolist(), "params_off": off,
-            "params_total": total, "max_abs_diff": worst}
+            "params_total": total, "max_abs_diff": worst, "relu_gates_taken": flips,
+            "relu_gate_max_rel_x": worst_gate}
 
 
 def card_vs_cpu_cadences(ds, fs, trainer8, dev) -> dict:
@@ -1410,8 +1606,8 @@ def card_vs_cpu_cadences(ds, fs, trainer8, dev) -> dict:
     super-step, dropout 0, from the same parameters, batches and trees."""
     params = params_to_numpy(trainer8.model)
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
-    batches, trees = _block(trainer8, gen, CADENCE_BLOCK)
-    return {cadence: card_vs_cpu_epoch(ds, fs, a20_config(**over), params, batches, trees, dev,
+    batches, draws = _block(trainer8, gen, CADENCE_BLOCK)
+    return {cadence: card_vs_cpu_epoch(ds, fs, a20_config(**over), params, batches, draws, dev,
                                        f"train-textsage-20k card vs CPU, {cadence}")
             for cadence, over in (("R8", {"relin_every": CADENCE_BLOCK}),
                                   ("T8", {"feature_update_every": CADENCE_BLOCK}))}
@@ -1454,25 +1650,41 @@ def key_label(name, over) -> str:
     return name
 
 
+def sasrec_config(**over) -> Config:
+    """The anchor recipe of the JAX package's sasrec record."""
+    return Config(latent_dim=SEQ_D, bpr_batch_size=SEQ_B, lr=1e-3, decay=1e-6, user_feature="nwt",
+                  item_feature="nwt", eval_user_batch=A20_EVAL_TILE, topks=(10, 20), seed=SEED, **over)
+
+
+def model_inputs_20k(name, ds) -> dict:
+    """A key's inputs beside features=: sasrec's item sequences."""
+    return {"sequences": build_sequences(ds)} if name == "sasrec" else {}
+
+
 def model_20k(ds, fs, name, seed, **over):
-    cfg = a20_config(model=name, **over)
-    return cfg, build_model(name, cfg, ds.graph, features=fs, generator=torch.Generator().manual_seed(seed))
+    cfg = (sasrec_config if name == "sasrec" else a20_config)(model=name, **over)
+    return cfg, build_model(name, cfg, ds.graph, features=fs, generator=torch.Generator().manual_seed(seed),
+                            **model_inputs_20k(name, ds))
 
 
 def propagation_vs_cpu(got, cfg, ds, fs, params) -> tuple:
     """The card's propagation (user and item rows stacked) against the CPU's
-    of the same parameters: phase 9's rule (both round the text-bag SpMM
-    operands to bfloat16; the convs run in float32 on both). Returns (max
-    abs err, largest magnitude)."""
-    cpu_model = build_model(cfg.model, cfg, ds.graph, features=fs)
+    of the same parameters. The SAGE family under phase 9's rule: both round
+    the text-bag SpMM operands of the all-entity tables to bfloat16, the
+    convs run in float32. sasrec assembles its items per id and runs in
+    float32 throughout on both, so it is held at rtol 1e-4, atol 1e-5 of the
+    largest magnitude (a TF32 or bfloat16 product would break that). Returns
+    (max abs err, largest magnitude, the rule)."""
+    cpu_model = build_model(cfg.model, cfg, ds.graph, features=fs, **model_inputs_20k(cfg.model, ds))
     params_from_jax(params, cpu_model)
     with torch.no_grad():
         cu, ci = cpu_model.propagate(ds.graph)
     want = torch.cat([cu, ci]).numpy()
-    assert got.shape == (ds.n_users + ds.m_items, TS_D) and np.isfinite(got).all()
+    assert got.shape == (ds.n_users + ds.m_items, cfg.latent_dim) and np.isfinite(got).all()
     scale = float(np.abs(want).max())
-    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-3 * scale)
-    return float(np.abs(got - want).max()), scale
+    rtol, atol = (1e-4, 1e-5) if cfg.model == "sasrec" else (2e-2, 2e-3)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol * scale)
+    return float(np.abs(got - want).max()), scale, f"rtol {rtol:g}, atol {atol:g} x max |x|"
 
 
 def serve_20k(ds, fs, dev, name, label, wide_k=None, **over) -> tuple:
@@ -1531,14 +1743,14 @@ def serve_20k(ds, fs, dev, name, label, wide_k=None, **over) -> tuple:
             assert not set(row.tolist()) & set(pos[uid].tolist()), "a train positive was served"
     assert one["items"] == answers[-2][0][0].tolist()
     assert [r["items"] for r in batch] == answers[-1][0].tolist()
-    prop_err, scale = propagation_vs_cpu(torch.cat([U, I]).cpu().numpy(), cfg, ds, fs, params)
+    prop_err, scale, rule = propagation_vs_cpu(torch.cat([U, I]).cpu().numpy(), cfg, ds, fs, params)
     wide = ""
     if wide_k:
         n_wide = sum(k == wide_k for _, k in requests + [http[1]])  # the POST's too
         wide = f" ({n_wide} at k = {wide_k}: {-(-wide_k // st.MAX_K)} launches each)"
     log(f"{label}: {n_requests} requests{wide}, answers equal to the plain version (max abs err {max_err:.3g}); "
-        f"refresh equal to the CPU's propagation within rtol 2e-2, atol 2e-3 x max |x| (max abs err "
-        f"{prop_err:.3g} of {scale:.3g}); first refresh {first_refresh_s:.2f} s")
+        f"refresh equal to the CPU's propagation within {rule} (max abs err {prop_err:.3g} of {scale:.3g}); "
+        f"first refresh {first_refresh_s:.2f} s")
     return {"requests": n_requests, "max_abs_err": max_err, "propagate_vs_cpu_max_abs_err": prop_err,
             "first_refresh_s": first_refresh_s, "users_512": users[512]}, rec
 
@@ -1550,13 +1762,14 @@ def train_keys_20k(keys, inputs, dev, phase, first_epochs) -> dict:
     from the epoch's first tenth to its last). ``inputs(name)``: the (dataset,
     features) of a key. Returns facts, the trainers under "trainers" and the
     scatter launches the steps must make under "scatter_expected" (two a
-    step, one a table; rsage two more, one a layer's relation rows)."""
+    step, or ``SCATTER_PER_STEP``). sasrec trains with the uniform sampler,
+    the others with the ddp recipe."""
     steps, n_eval, expected, facts, trainers = 0, 0, 0, {}, {}
     for i, (name, over) in enumerate(keys):
         label = key_label(name, over)
         ds, fs = inputs(name)
         cfg, model = model_20k(ds, fs, name, SEED + 1, **over)
-        tr = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=True, device=dev)
+        tr = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=name != "sasrec", device=dev)
         tr.init_state()
         n_tiles = int(tr.eval_data.users.shape[0])
         epochs = first_epochs if i == 0 else 1
@@ -1565,7 +1778,7 @@ def train_keys_20k(keys, inputs, dev, phase, first_epochs) -> dict:
         for _ in range(epochs):
             runs.append(_timed_epoch(tr))
             steps += tr.num_batches
-            expected += (2 + (cfg.n_layers if name == "rsage" else 0)) * tr.num_batches
+            expected += SCATTER_PER_STEP.get(name, 2) * tr.num_batches
         after = tr.test()
         n_eval += 1 + (before is not None)
         assert all(np.isfinite(v) for v in after.values()), after
@@ -1614,9 +1827,9 @@ def attention_20k(ds, fs, dev, textsage_r1) -> dict:
         train[label]["eval_vs_plain"] = eval_kernel_vs_plain(tr)
     tg = trainers["tgrec"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
-    batches, trees = _block(tg, gen, ATT_STEPS_VS_CPU)
+    batches, draws = _block(tg, gen, ATT_STEPS_VS_CPU)
     train["tgrec"]["card_vs_cpu"] = card_vs_cpu_epoch(
-        ds, fs, tg.config, params_to_numpy(tg.model), batches, trees, dev, "attention-20k tgrec card vs CPU")
+        ds, fs, tg.config, params_to_numpy(tg.model), batches, draws, dev, "attention-20k tgrec card vs CPU")
 
     # numbers: the refresh, masked_topk at B = 512 and k = 200, each key's step
     serve["refresh_ms"] = host_ms(lambda: rec.refresh(None), reps=10)
@@ -1674,10 +1887,10 @@ def refresh_vs_cpu(ds, fs, dev, name, **over) -> dict:
             return model.propagate(graph)
 
     u, i = refresh()
-    err, scale = propagation_vs_cpu(torch.cat([u, i]).cpu().numpy(), cfg, ds, fs, params)
+    err, scale, rule = propagation_vs_cpu(torch.cat([u, i]).cpu().numpy(), cfg, ds, fs, params)
     out = {"max_abs_err": err, "scale": scale, "refresh_ms": host_ms(refresh, reps=10),
            "refresh_profile": device_profile(refresh, n=5)}
-    log(f"refresh {key_label(name, over)}: equal to the CPU's propagation within rtol 2e-2, atol 2e-3 x max |x| "
+    log(f"refresh {key_label(name, over)}: equal to the CPU's propagation within {rule} "
         f"(max abs err {err:.3g} of {scale:.3g}); {out['refresh_ms']:.3f} ms on the host, "
         f"{(out['refresh_profile'] or {}).get('device_ms')} ms on the device")
     return out
@@ -1717,14 +1930,23 @@ def recency_first_max_on_card(ds, fs, dev) -> dict:
     return {"rows": b, "rows_tied_at_latest": ties}
 
 
-def relation_gather_ids(model, graph, batch, trees) -> list:
-    """The label ids each layer's relation-row gather takes in one rsage
-    step, in the model's order (``SAGE._gather_relations``)."""
-    labels = [[edge_feature({"edge_pos": lvl.edge_pos, "side": side, "graph": graph}, model.features.edge_label)
-               for side, lvl in zip(model._sides(seed_side), tree)]
-              for seed_side, tree in zip(("user", "item", "item"), trees)]
-    return [torch.cat([lab.reshape(-1) for t in labels for lab in t[: model.n_layers - i]])
-            for i in range(model.n_layers)]
+def step_gathers(trainer, batch, draws) -> list:
+    """(N, D, ids) of every ``table_gather`` that one training step of
+    ``trainer`` on ``batch`` makes, in the forward's order: the tables'
+    shapes and the clamped ids that the step's scatter launches receive. The
+    step is taken."""
+    seen, forward = [], sc._TableGather.forward
+
+    def recording(ctx, table, ids):
+        seen.append((table.shape[0], table.shape[1], ids.reshape(-1).clamp(0, table.shape[0] - 1)))
+        return forward(ctx, table, ids)
+
+    sc._TableGather.forward = staticmethod(recording)
+    try:
+        trainer.train_epoch([batch], draws=[draws])
+    finally:
+        sc._TableGather.forward = staticmethod(forward)
+    return seen
 
 
 def edge_20k(ds, fs, dev, textsage_r1, tgrec) -> dict:
@@ -1761,9 +1983,9 @@ def edge_20k(ds, fs, dev, textsage_r1, tgrec) -> dict:
                for name, over in EDGE_KEYS[1:]}
     rs = trainers["rsage add"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
-    batches, trees = _block(rs, gen, EDGE_STEPS_VS_CPU)
+    batches, draws = _block(rs, gen, EDGE_STEPS_VS_CPU)
     train["rsage add"]["card_vs_cpu"] = card_vs_cpu_epoch(
-        rel_ds, rel_fs, rs.config, params_to_numpy(rs.model), batches, trees, dev, "edge-20k rsage card vs CPU")
+        rel_ds, rel_fs, rs.config, params_to_numpy(rs.model), batches, draws, dev, "edge-20k rsage card vs CPU")
     train["recency_first_max"] = recency_first_max_on_card(time_ds, time_fs, dev)
 
     # numbers: the refresh, each key's step, the relation-row scatter
@@ -1774,7 +1996,7 @@ def edge_20k(ds, fs, dev, textsage_r1, tgrec) -> dict:
         f"{(serve['refresh_profile'] or {}).get('device_ms')} ms on the device")
     numbers = {label: cadence_numbers(tr, f"edge-20k {label}", profile_steps=ATT_PROFILE_STEPS)
                for label, tr in trainers.items()}
-    rel_ids = relation_gather_ids(rs.model, rs.graph, batches[0], trees[0])
+    rel_ids = [ids for n, _, ids in step_gathers(rs, batches[0], draws[0]) if n == rel_fs.n_relations]
     assert tuple(ids.numel() for ids in rel_ids) == REL_ROWS, [ids.numel() for ids in rel_ids]
     rel_scatter = scatter_numbers_at([(rel_fs.n_relations, ids) for ids in rel_ids], dev, TS_D,
                                      rows_seed=SEED + 17)
@@ -1783,7 +2005,99 @@ def edge_20k(ds, fs, dev, textsage_r1, tgrec) -> dict:
             "relation_scatter": rel_scatter, "textsage_R1": textsage_r1, "tgrec": tgrec, "launches": launches}
 
 
+def sequence_attr_20k_data(ds, fs) -> dict:
+    """Phase 15's inputs on phase 12's graph and features: sasrec's item
+    sequences (the train items in order, the last 50) and asage's attribute
+    graphs (the informative features' categorical columns: 4 user and 5
+    item fields over 32 clusters)."""
+    t0 = time.perf_counter()
+    seqs = model_inputs_20k("sasrec", ds)["sequences"]
+    attrs = asage.attributes_from_categorical(fs)
+    host_s = time.perf_counter() - t0
+    lengths = seqs.lengths.numpy()
+    facts = {"data_s": host_s, "mean_length": float(lengths.mean()), "pad_share": float(1 - lengths.mean() / 50),
+             "user_attr_pairs": len(attrs["user"][0]), "item_attr_pairs": len(attrs["item"][0]),
+             "attrs": [attrs["user"][3], attrs["item"][3]]}
+    assert (facts["user_attr_pairs"], facts["item_attr_pairs"]) == (4 * ds.n_users, 5 * ds.m_items)
+    log(f"sequence-attr-20k data: sequences of {ds.n_users} users (mean length {facts['mean_length']:.2f} of 50 "
+        f"slots, pads {facts['pad_share']:.3f}); attribute graphs of {facts['user_attr_pairs']} user and "
+        f"{facts['item_attr_pairs']} item pairs over {facts['attrs']} attributes ({host_s:.1f} s)")
+    return facts
+
+
+def sequence_attr_20k(ds, fs, dev, textsage_r1) -> dict:
+    """Phase 15: sasrec (the anchor recipe) and asage (the flagship recipe)
+    on the anchor20k graph, served and trained (the path, with the launch
+    counts set to 0 before it and read after), then their checks against the
+    plain top-k and the CPU, and their numbers beside phase 12's TextSAGE
+    R = 1."""
+    t0 = time.perf_counter()
+    data = sequence_attr_20k_data(ds, fs)
+
+    st.launches = sc.launches = 0
+    serve, recs = {}, {}
+    for name, _ in SEQ_KEYS:
+        serve[name], recs[name] = serve_20k(ds, fs, dev, name, f"serve-{name}-20k")
+    serve_topk = st.launches
+    assert sc.launches == 0, "the serve path launched the scatter kernel"
+    train, trainers = {"steps": 0, "evaluations": 0, "scatter_expected": 0}, {}
+    for key in SEQ_KEYS:
+        facts = train_keys_20k((key,), lambda name: (ds, fs), dev, "train-sequence-attr-20k", SEQ_EPOCHS)
+        trainers.update(facts.pop("trainers"))
+        for k in ("steps", "evaluations", "scatter_expected"):
+            train[k] += facts.pop(k)
+        train.update(facts)
+    launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
+    n_tiles = train["eval_tiles"]
+    expected = train.pop("scatter_expected")
+    steps = {label: tr.num_batches * SEQ_EPOCHS for label, tr in trainers.items()}
+    assert launches["scatter_add_rows"] == expected == 2 * steps["sasrec"] + 6 * steps["asage"], (launches, expected)
+    assert launches["masked_topk"] == serve_topk + train["evaluations"] * n_tiles, launches
+    recall = train["sasrec"]["recall@10"][-1]
+    assert recall >= SEQ_RECALL10_FLOOR, f"sasrec recall@10 {recall} after {SEQ_EPOCHS} epochs"
+    log(f"sequence-attr-20k: scatter launches {launches['scatter_add_rows']} (2 per sasrec step over "
+        f"{steps['sasrec']} steps, 6 per asage step over {steps['asage']}), masked_topk launches "
+        f"{launches['masked_topk']} ({serve_topk} serving, {n_tiles} tiles per evaluation); sasrec recall@10 "
+        f"{recall:.4f} at epoch {SEQ_EPOCHS} (TPU record {SEQ_RECORD_EPOCH3}; floor {SEQ_RECALL10_FLOOR})")
+
+    # checks: every evaluation against the plain top-k, 4 steps of each key
+    # against the CPU
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    blocks = {}
+    for label, tr in trainers.items():
+        train[label]["eval_vs_plain"] = eval_kernel_vs_plain(tr)
+        blocks[label] = _block(tr, gen, SEQ_STEPS_VS_CPU)
+        train[label]["card_vs_cpu"] = card_vs_cpu_epoch(
+            ds, fs, tr.config, params_to_numpy(tr.model), *blocks[label], dev,
+            f"sequence-attr-20k {label} card vs CPU")
+
+    # numbers: the refresh, each key's step, the new scatter shapes
+    for name, rec in recs.items():
+        serve[name].pop("users_512")
+        serve[name]["refresh_ms"] = host_ms(lambda: rec.refresh(None), reps=10)
+        serve[name]["refresh_profile"] = device_profile(lambda: rec.refresh(None), n=5)
+        log(f"serve-{name}-20k: refresh {serve[name]['refresh_ms']:.3f} ms on the host, "
+            f"{(serve[name]['refresh_profile'] or {}).get('device_ms')} ms on the device")
+    numbers = {label: cadence_numbers(tr, f"sequence-attr-20k {label}", profile_steps=ATT_PROFILE_STEPS)
+               for label, tr in trainers.items()}
+    # the ids of one real step's gathers: sasrec's all, asage's but its tree
+    # gathers (phase 12's shapes)
+    gathers = {label: step_gathers(tr, blocks[label][0][0], blocks[label][1][0]) for label, tr in trainers.items()}
+    gathers["asage"] = [g for g in gathers["asage"] if g[0] not in (ds.n_users, ds.m_items)]
+    rows = {label: tuple(ids.numel() for _, _, ids in g) for label, g in gathers.items()}
+    assert rows == {"sasrec": (WORD_ROWS[0], SEQ_ROWS), "asage": WORD_ROWS[1:] + ATTR_ROWS}, rows
+    shapes = [shape for i, (n, d, ids) in enumerate(gathers["sasrec"] + gathers["asage"])
+              for shape in scatter_numbers_at([(n, ids)], dev, d, rows_seed=SEED + 19 + i)]
+    assert all(t["plan"]["mode"] == "tile" for t in shapes), [t["plan"] for t in shapes]
+    del trainers, recs
+    data["phase_s"] = time.perf_counter() - t0
+    log(f"sequence-attr-20k: {data['phase_s']:.0f} s")
+    return {"data": data, "serve": serve, "train": train, "numbers": numbers, "scatter_shapes": shapes,
+            "textsage_R1": textsage_r1, "launches": launches}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -2003,6 +2317,10 @@ def main() -> int:
     # graph (rsage over its relational message graph), served and trained
     edge = edge_20k(a20_ds, a20_fs, dev, cadences_20k["R1"], att["numbers"]["tgrec"])
 
+    # 15. sequence-attr-20k: sasrec and asage on the anchor20k graph, served
+    # and trained
+    seq = sequence_attr_20k(a20_ds, a20_fs, dev, cadences_20k["R1"])
+
     ts_serve_launches = ts_serve["launches"]["masked_topk"]
     ts_train_launches = ts_train["launches"]
     kernels = [{
@@ -2012,13 +2330,15 @@ def main() -> int:
         "replaces": "furusato_recommend_tpu/ops/pallas_topk.py:152",
         "launches": (serve_launches + train["launches"]["masked_topk"] + ts_serve_launches
                      + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]
-                     + att["launches"]["masked_topk"] + edge["launches"]["masked_topk"]),
+                     + att["launches"]["masked_topk"] + edge["launches"]["masked_topk"]
+                     + seq["launches"]["masked_topk"]),
         "launches_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"],
                              "serve_textsage": ts_serve_launches,
                              "train_textsage": ts_train_launches["masked_topk"],
                              "train_textsage_20k": a20["launches"]["masked_topk"],
                              "attention_20k": att["launches"]["masked_topk"],
-                             "edge_20k": edge["launches"]["masked_topk"]},
+                             "edge_20k": edge["launches"]["masked_topk"],
+                             "sequence_attr_20k": seq["launches"]["masked_topk"]},
         "launches_per_call": f"ceil(k / {st.MAX_K}): one a round",
         "k200": {"at": {"B": 512, "k": ATT_K, "M": a20_ds.m_items, "d": TS_D}, "launches_per_call": 2,
                  **{key: att_k200[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -2045,13 +2365,14 @@ def main() -> int:
         "replaces": "furusato_recommend_tpu/ops/pallas_scatter.py:97",
         "launches": (train["launches"]["scatter_add_rows"] + ts_train_launches["scatter_add_rows"]
                      + a20["launches"]["scatter_add_rows"] + att["launches"]["scatter_add_rows"]
-                     + edge["launches"]["scatter_add_rows"]),
+                     + edge["launches"]["scatter_add_rows"] + seq["launches"]["scatter_add_rows"]),
         "launches_by_path": {"serve": 0, "train": train["launches"]["scatter_add_rows"],
                              "serve_textsage": ts_serve["launches"]["scatter_add_rows"],
                              "train_textsage": ts_train_launches["scatter_add_rows"],
                              "train_textsage_20k": a20["launches"]["scatter_add_rows"],
                              "attention_20k": att["launches"]["scatter_add_rows"],
-                             "edge_20k": edge["launches"]["scatter_add_rows"]},
+                             "edge_20k": edge["launches"]["scatter_add_rows"],
+                             "sequence_attr_20k": seq["launches"]["scatter_add_rows"]},
         "launches_per_step": train["scatter_launches_per_step"],
         "launches_per_step_textsage": ts_train["scatter_launches_per_step"],
         "textsage_shapes": ts_sc_shapes,
@@ -2059,6 +2380,11 @@ def main() -> int:
                                                      "library_ms", "device_ms", "row_mode_device_ms",
                                                      "library_device_ms", "bound_ms", "bound_by")}
                             for t in edge["relation_scatter"]],
+        "sequence_attr_shapes": [{key: t[key] for key in ("N", "R", "D", "plan", "ms", "row_mode_ms", "plain_ms",
+                                                          "library_ms", "device_ms", "row_mode_device_ms",
+                                                          "library_device_ms", "bound_ms", "bound_by",
+                                                          "global_adds", "largest_id_share")}
+                                 for t in seq["scatter_shapes"]],
         "max_abs_err": sc_max_err,
         "ms": sc_head["ms"],
         "row_mode_ms": sc_head["row_mode_ms"],
@@ -2069,6 +2395,7 @@ def main() -> int:
         "at": {"N": sc_head["N"], "R": sc_head["R"], "D": D},
         "shapes": sc_shapes,
     }]
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.0f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
@@ -2097,6 +2424,9 @@ def main() -> int:
     log(json.dumps({"train_edge": {
         "d": TS_D, "users": A20_USERS, "items": A20_ITEMS, "train_edges": A20_EDGES, "features": "informative",
         **edge}}))
+    log(json.dumps({"train_sequence": {
+        "d": {"sasrec": SEQ_D, "asage": TS_D}, "users": A20_USERS, "items": A20_ITEMS, "train_edges": A20_EDGES,
+        "features": "informative", **seq}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

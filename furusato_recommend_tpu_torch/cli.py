@@ -5,19 +5,22 @@
 
 The flags are the JAX package's, with its defaults and choices, plus
 ``--device`` (default ``cuda``; raises without CUDA unless ``--device cpu``).
-The MF / LightGCN family trains, and so does the SAGE family's ported part
-(``textsage``, ``textsage_id``, ``sage``, ``fsage``, ``fastsage``,
-``lightsage``, ``pinsage``, ``mrec``, ``nssage``, the attention models
-``tgrec`` and ``tgrec2``, ``gnn`` with any ``--conv``, the edge-feature models
-``tgsrec``, ``sasgnn`` (``cf/buy_timestamp``) and ``rsage`` (the favourite
-and review edge sets, ``--multi_relational``), and ``dask``, whose numeric
-matrices stay on disk), on the reference's feature artifacts under
+Every key of the JAX package's registry trains: the MF / LightGCN family and
+the SAGE family (``textsage``, ``textsage_id``, ``sage``, ``fsage``,
+``fastsage``, ``lightsage``, ``pinsage``, ``mrec``, ``nssage``, the attention
+models ``tgrec`` and ``tgrec2``, ``gnn`` with any ``--conv``, the
+edge-feature models ``tgsrec``, ``sasgnn`` (``cf/buy_timestamp``) and
+``rsage`` (the favourite and review edge sets, ``--multi_relational``), the
+sequence model ``sasrec`` (``train_items_sequence``, or the train items in
+order), the attribute model ``asage`` (``attribute/*_attribute``, or the
+categorical columns), and ``dask``, whose numeric matrices stay on disk), on
+the reference's feature artifacts under
 ``--data_path`` (``data/features.py::load_reference_features``), with
 ``--ddp_recipe``, ``--sample_pow``, ``--inference sample`` and
 ``--feature_update_every``. ``--a_fold``, ``--compile_cache`` and
 ``--pipeline_dispatch`` concern the TPU layout and XLA: each prints a notice
-and is ignored. ``--ckpt_backend orbax``, other models, a mesh and the wandb /
-tensorboard sinks raise.
+and is ignored. ``--ckpt_backend orbax``, a mesh and the wandb / tensorboard
+sinks raise.
 """
 
 from __future__ import annotations
@@ -138,12 +141,21 @@ def build_model_inputs(config: Config, dataset):
     ``ooc_numeric={side: MemmapNumeric}``. For ``rsage``, when the relation
     edge sets are there, the dataset's graph becomes the relational graph
     (so that the trainer, the evaluator and the server propagate over it)
-    and the features get its edge labels."""
+    and the features get its edge labels. ``sasrec`` gets ``sequences=``:
+    the reference's ``train_items_sequence{sfx}.pkl`` (and its lengths) when
+    it exists, else the train items in the data's order; ``asage`` gets its
+    attribute graphs from ``attribute/*_attribute{sfx}.pt`` when they exist,
+    else derives them from the categorical features (flag ``c``)."""
     from .models.registry import SAGE_KEYS
 
     model_kw = {}
     if config.model in SAGE_KEYS:
-        from .data.features import load_reference_features, load_relation_edges, numeric_artifact_paths
+        from .data.features import (
+            load_attribute_coos,
+            load_reference_features,
+            load_relation_edges,
+            numeric_artifact_paths,
+        )
 
         ooc = config.model == "dask"
         model_kw["features"] = load_reference_features(
@@ -164,6 +176,19 @@ def build_model_inputs(config: Config, dataset):
                 model_kw["features"] = dataclasses.replace(
                     model_kw["features"], edge_label=labels, n_relations=len(rel) + 1
                 )
+        if config.model == "sasrec":
+            from pathlib import Path
+
+            from .data.sequence import build_sequences, load_sequence_artifacts
+
+            if (Path(config.data_path) / f"train_items_sequence{config.suffix}.pkl").exists():
+                model_kw["sequences"] = load_sequence_artifacts(
+                    config.data_path, config.suffix, n_users=dataset.n_users
+                )
+            else:
+                model_kw["sequences"] = build_sequences(dataset)
+        if config.model == "asage":
+            model_kw.update(load_attribute_coos(config, config.data_path) or {})
     return dataset.graph, model_kw
 
 

@@ -3,8 +3,9 @@
 The JAX package keeps a model's parameters as a dict of arrays (for the MF /
 LightGCN family ``{"user_emb": [N, d], "item_emb": [M, d]}``); the SAGE family
 nests its conv layers' dicts in a list, ``{"layers": [{"w": ...}, ...],
-...}``. The port keeps them as ``nn.Parameter``s of the same names on the
-module, a layer's as ``layers.{i}.{name}`` (``flatten_params`` maps the
+...}``, and SASRec two more lists of dicts, ``blocks`` and ``item_tower``.
+The port keeps them as ``nn.Parameter``s of the same names on the module, an
+entry of such a list as ``{list}.{i}.{name}`` (``flatten_params`` maps the
 nested tree to those names, ``nest_params`` back).
 
 Adam's state: ``optax.adam`` keeps ``ScaleByAdamState(count, mu, nu)`` with
@@ -20,7 +21,7 @@ group; the port keeps one ``torch.optim.Adam`` a group, and
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,37 +33,47 @@ __all__ = [
 ]
 
 
+def _is_dict_list(v) -> bool:
+    return isinstance(v, (list, tuple)) and all(isinstance(e, Mapping) for e in v)
+
+
 def flatten_params(tree: Mapping[str, Any]) -> Dict[str, Any]:
-    """The JAX parameter tree with its ``layers`` list spelled out as
-    ``layers.{i}.{name}``; a flat dict comes back as it is."""
-    flat = {k: v for k, v in tree.items() if k != "layers"}
-    for i, layer in enumerate(tree.get("layers", ())):
-        flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    """The JAX parameter tree with each top-level list of dicts spelled out
+    as ``{list}.{i}.{name}``; a flat dict comes back as it is."""
+    flat: Dict[str, Any] = {}
+    for key, v in tree.items():
+        if _is_dict_list(v):
+            for i, entry in enumerate(v):
+                flat.update({f"{key}.{i}.{k}": x for k, x in entry.items()})
+        else:
+            flat[key] = v
     return flat
 
 
-def nest_params(flat: Mapping[str, Any], n_layers: int = 0) -> Dict[str, Any]:
-    """Inverse of ``flatten_params``: ``layers.{i}.{name}`` back into the
-    ``layers`` list of dicts, which has at least ``n_layers`` entries (a
-    conv without parameters has empty ones) and is present when any name
-    has that form or ``n_layers`` > 0."""
+def nest_params(flat: Mapping[str, Any], lengths: Optional[Mapping[str, int]] = None) -> Dict[str, Any]:
+    """Inverse of ``flatten_params``: ``{list}.{i}.{name}`` back into the
+    lists of dicts. ``lengths``: list name -> its least number of entries (an
+    entry without parameters is an empty dict; a list of length 0 is kept
+    empty); a list is present when any name has its form or it is in
+    ``lengths``."""
     tree: Dict[str, Any] = {}
-    layers: Dict[int, Dict[str, Any]] = {}
+    lists: Dict[str, Dict[int, Dict[str, Any]]] = {k: {} for k in (lengths or {})}
     for name, v in flat.items():
-        if name.startswith("layers."):
-            _, i, key = name.split(".", 2)
-            layers.setdefault(int(i), {})[key] = v
+        parts = name.split(".", 2)
+        if len(parts) == 3 and parts[1].isdigit():
+            lists.setdefault(parts[0], {}).setdefault(int(parts[1]), {})[parts[2]] = v
         else:
             tree[name] = v
-    n = max([n_layers] + [i + 1 for i in layers])
-    if n:
-        tree["layers"] = [layers.get(i, {}) for i in range(n)]
+    for key, entries in lists.items():
+        n = max([(lengths or {}).get(key, 0)] + [i + 1 for i in entries])
+        tree[key] = [entries.get(i, {}) for i in range(n)]
     return tree
 
 
-def _n_layers(model: nn.Module) -> int:
-    layers = getattr(model, "layers", None)
-    return len(layers) if isinstance(layers, nn.ModuleList) else 0
+def _list_lengths(model: nn.Module) -> Dict[str, int]:
+    """The model's lists of parameter dicts (``nn.ModuleList`` children) and
+    their lengths."""
+    return {name: len(m) for name, m in model.named_children() if isinstance(m, nn.ModuleList)}
 
 
 def params_from_jax(np_params: Mapping[str, Any], model: nn.Module) -> nn.Module:
@@ -86,10 +97,10 @@ def params_from_jax(np_params: Mapping[str, Any], model: nn.Module) -> nn.Module
 
 
 def params_to_numpy(model: nn.Module) -> Dict[str, Any]:
-    """The model's parameters as numpy arrays in the JAX layout (a conv
-    layer's inside the ``layers`` list)."""
+    """The model's parameters as numpy arrays in the JAX layout (a list
+    entry's inside its list)."""
     return nest_params(
-        {name: p.detach().cpu().numpy() for name, p in model.named_parameters()}, _n_layers(model)
+        {name: p.detach().cpu().numpy() for name, p in model.named_parameters()}, _list_lengths(model)
     )
 
 
@@ -143,4 +154,4 @@ def adam_state_to_numpy(
         else:
             mu[name] = np.zeros(tuple(p.shape), np.float32)
             nu[name] = np.zeros(tuple(p.shape), np.float32)
-    return count, nest_params(mu, _n_layers(model)), nest_params(nu, _n_layers(model))
+    return count, nest_params(mu, _list_lengths(model)), nest_params(nu, _list_lengths(model))

@@ -12,8 +12,12 @@ scipy CSR count matrices ``text/*_count*.pkl`` / ``text/product_review*.pkl``;
 and for the edge-feature models the seeded relation edge sets
 ``favorite_train*.csv`` / ``review_train*.csv`` (``synthetic_relation_edges``)
 and the purchase times ``cf/buy_timestamp*.pkl``, a float32 array in the
-train edges' order (``synthetic_edge_times``). Writing the count matrices
-needs scipy, the reference's format.
+train edges' order (``synthetic_edge_times``); for sasrec the item sequences
+``train_items_sequence*.pkl`` (a list indexed by user) and their lengths
+``train_sequence_length*.pt`` (``synthetic_sequences``); for asage the
+attribute graphs ``attribute/{user,product}_attribute*.pt``, [2, nnz]
+(entity, attribute) pairs (``synthetic_attributes``). Writing the count
+matrices needs scipy, the reference's format.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from .dataset import load_text_dataset
 from .features import TEXT_FIELDS, FeatureStore, synthetic_features
 
 __all__ = [
-    "synthetic_edge_times", "synthetic_relation_edges", "write_edge_artifacts", "write_reference_features",
+    "synthetic_attributes", "synthetic_edge_times", "synthetic_relation_edges", "synthetic_sequences",
+    "write_attribute_artifacts", "write_edge_artifacts", "write_reference_features", "write_sequence_artifacts",
 ]
 
 _FIELD_NAMES = ("name", "main_comment", "main_list_comment")
@@ -109,6 +114,48 @@ def write_edge_artifacts(dataset, base_path, suffix: str = "", seed: int = 0) ->
         pickle.dump(synthetic_edge_times(dataset, seed), out)
 
 
+def synthetic_sequences(dataset, seed: int = 0) -> list:
+    """Each user's train items (a list a user) in the order of a uniform time
+    per train edge from ``default_rng(seed)``, as the reference orders them
+    by purchase time."""
+    t = np.random.default_rng(seed).random(dataset.train_size)
+    u, i = np.asarray(dataset.train_user), np.asarray(dataset.train_item)
+    order = np.lexsort((t, u))
+    u_s, i_s = u[order], i[order]
+    bounds = np.searchsorted(u_s, np.arange(dataset.n_users + 1))
+    return [i_s[bounds[k] : bounds[k + 1]].tolist() for k in range(dataset.n_users)]
+
+
+def synthetic_attributes(n: int, n_attrs: int, seed: int = 0) -> np.ndarray:
+    """[2, nnz] int64 (entity, attribute) pairs: each of ``n`` entities gets
+    1 to 3 distinct attributes of ``n_attrs``, from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 4, n)
+    cols = np.concatenate([rng.choice(n_attrs, size=c, replace=False) for c in counts])
+    return np.stack([np.repeat(np.arange(n), counts), cols]).astype(np.int64)
+
+
+def write_sequence_artifacts(dataset, base_path, suffix: str = "", seed: int = 0) -> None:
+    """``train_items_sequence{suffix}.pkl`` and ``train_sequence_length{suffix}.pt``
+    of ``synthetic_sequences``."""
+    seqs = synthetic_sequences(dataset, seed)
+    base = Path(base_path)
+    with open(base / f"train_items_sequence{suffix}.pkl", "wb") as out:
+        pickle.dump(seqs, out)
+    torch.save(torch.tensor([len(q) for q in seqs], dtype=torch.int64), base / f"train_sequence_length{suffix}.pt")
+
+
+def write_attribute_artifacts(dataset, base_path, suffix: str = "", seed: int = 0) -> None:
+    """``attribute/user_attribute{suffix}.pt`` and ``attribute/product_attribute{suffix}.pt``
+    of ``synthetic_attributes`` over 16 user and 24 item attributes (users
+    from ``seed``, items from ``seed + 1``)."""
+    at = Path(base_path) / "attribute"
+    at.mkdir(parents=True, exist_ok=True)
+    sides = (("user", dataset.n_users, 16), ("product", dataset.m_items, 24))
+    for j, (name, n, k) in enumerate(sides):
+        torch.save(torch.from_numpy(synthetic_attributes(n, k, seed + j)), at / f"{name}_attribute{suffix}.pt")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="furusato_recommend_tpu_torch.data.artifacts")
     ap.add_argument("--data_path", default="./data")
@@ -120,8 +167,10 @@ def main(argv=None) -> None:
     dataset = load_text_dataset(config)
     write_reference_features(synthetic_features(dataset, config, seed=args.seed), args.data_path, args.suffix)
     write_edge_artifacts(dataset, args.data_path, args.suffix, seed=args.seed)
-    print(f"wrote features of {dataset.n_users} users and {dataset.m_items} items, relation edges and "
-          f"purchase times under {args.data_path}")
+    write_sequence_artifacts(dataset, args.data_path, args.suffix, seed=args.seed)
+    write_attribute_artifacts(dataset, args.data_path, args.suffix, seed=args.seed)
+    print(f"wrote features of {dataset.n_users} users and {dataset.m_items} items, relation edges, "
+          f"purchase times, item sequences and attributes under {args.data_path}")
 
 
 if __name__ == "__main__":

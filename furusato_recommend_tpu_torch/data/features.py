@@ -17,7 +17,8 @@ package's, so one seed gives bit-equal arrays in both.
 c w t s r b``, and the per-edge purchase times (``buy_timestamp``) for tgsrec /
 sasgnn; ``numeric_artifact_paths`` names the numeric matrices that the
 out-of-core ``dask`` variant reads from disk instead (``data/ooc.py``);
-``load_relation_edges`` reads rsage's favourite and review edge sets.
+``load_relation_edges`` reads rsage's favourite and review edge sets,
+``load_attribute_coos`` asage's (entity, attribute) pairs.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ __all__ = [
     "text_from_scipy_csr",
     "load_reference_features",
     "load_relation_edges",
+    "load_attribute_coos",
     "edge_time_in_csr_order",
     "WORD2VEC_DIM",
     "SENTENCE_DIM",
@@ -416,3 +418,23 @@ def load_relation_edges(config: Config, base_path) -> Optional[list]:
         arr = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
         out.append((arr[:, 0].copy(), arr[:, 1].copy()))
     return out
+
+
+def load_attribute_coos(config: Config, base_path) -> Optional[dict]:
+    """asage's attribute graphs, ``attribute/{user,product}_attribute{sfx}.pt``
+    under ``base_path``: [2, nnz] (entity, attribute) index pairs, as
+    {"user_attr": (rows, cols, n, n_attrs), "item_attr": ...} keyword
+    arguments of the model (int64 arrays; n and n_attrs one past the largest
+    index), or None when either file is absent."""
+    at = Path(base_path) / "attribute"
+    paths = [at / f"{name}_attribute{config.suffix}.pt" for name in ("user", "product")]
+    if not all(p.exists() for p in paths):
+        return None
+
+    def coo(p):
+        t = torch.load(p, map_location="cpu", weights_only=False)
+        arr = np.asarray(t.detach().numpy() if hasattr(t, "detach") else t)
+        rows, cols = arr[0].astype(np.int64), arr[1].astype(np.int64)
+        return rows, cols, int(rows.max()) + 1, int(cols.max()) + 1
+
+    return {"user_attr": coo(paths[0]), "item_attr": coo(paths[1])}

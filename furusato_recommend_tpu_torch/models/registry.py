@@ -6,7 +6,11 @@ the keys this port has. The SAGE-family keys need ``features=`` (a
 ``transformer_cat`` convs, ``gnn`` takes its conv from ``--conv``. The
 edge-feature keys: ``tgsrec`` (``temporal``) and ``sasgnn`` (``recency``)
 read ``features.edge_time``, ``rsage`` (``relational_{--multi_relational}``)
-needs ``features.edge_label``. Not ported yet: ``sasrec`` and ``asage``."""
+needs ``features.edge_label``. ``sasrec`` (``models/sasrec.py``) also needs
+``sequences=`` (``data/sequence.py``); ``asage`` (``models/asage.py``) takes
+its attribute graphs as ``user_attr=`` / ``item_attr=`` COO pairs, else
+derives them from the categorical features. Every key of the JAX package's
+registry is here."""
 
 from __future__ import annotations
 
@@ -48,6 +52,23 @@ def _rsage(c, g, features=None, **kw):
     return SAGE(c, g, features, conv=f"relational_{c.multi_relational}", **kw)
 
 
+def _sasrec(c, g, features=None, sequences=None, **kw):
+    """The sequence model: item features, user item sequences."""
+    from .sasrec import SASRec
+
+    if features is None or sequences is None:
+        raise ValueError("sasrec requires features= and sequences=")
+    return SASRec(c, g, features, sequences, **kw)
+
+
+def _asage(c, g, features=None, **kw):
+    from .asage import ASAGE
+
+    if features is None:
+        raise ValueError("asage requires features=FeatureStore(...)")
+    return ASAGE(c, g, features, **kw)
+
+
 _REGISTRY: Dict[str, Callable[..., PairwiseModel]] = {
     "mf": lambda c, g, **kw: MF(c, g, **kw),
     "lgn": lambda c, g, **kw: LightGCN(c, g, norm="sym", **kw),
@@ -70,6 +91,8 @@ _REGISTRY: Dict[str, Callable[..., PairwiseModel]] = {
     "tgsrec": _sage("temporal"),
     "sasgnn": _sage("recency"),
     "rsage": _rsage,
+    "sasrec": _sasrec,
+    "asage": _asage,
 }
 
 #: the keys whose models take features (build_model_inputs loads them)

@@ -29,8 +29,11 @@ one ``scatter_add_rows`` kernel launch per side; so do the categorical
 embedding gathers, and rsage's relation rows: one call per layer for every
 neighbour slot of the step's trees that the layer consumes, so each
 layer's relation table (3 rows) takes its gradient in one kernel launch
-that sums repeated ids in shared memory. The JAX package takes plain XLA
-gathers there.
+that sums repeated ids in shared memory; so do the word rows of the text
+bags that ``_initial_side_emb`` assembles per id (sasrec's items, asage's
+attribute view), one call a word table: millions of rows a step on a few
+hundred words, which PyTorch's indexing backward took 2 s a step to sum on
+the H100 (PERF.md). The JAX package takes plain XLA gathers there.
 
 The edge-feature convs (``relational_*``, ``temporal``, ``recency``) read the
 features' per-edge arrays at each tree level's ``edge_pos``; rsage's
@@ -59,6 +62,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..convert import flatten_params
 from ..data.features import FeatureStore
 from ..data.graph import BipartiteGraph
 from ..data.ooc import CHUNK, stream_project
@@ -80,16 +84,17 @@ def _other(side: str) -> str:
     return "item" if side == "user" else "user"
 
 
-def dropout(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Each element kept with probability 1 - DROPOUT_RATE and scaled by
-    1 / (1 - DROPOUT_RATE), else 0; the mask drawn from ``generator`` on x's
-    device (the JAX package draws it from its threefry key)."""
-    if DROPOUT_RATE <= 0:
+def dropout(x: torch.Tensor, generator: Optional[torch.Generator], rate: Optional[float] = None) -> torch.Tensor:
+    """Each element kept with probability 1 - rate (default DROPOUT_RATE) and
+    scaled by 1 / (1 - rate), else 0; the mask drawn from ``generator`` on
+    x's device (the JAX package draws it from its threefry key)."""
+    rate = DROPOUT_RATE if rate is None else rate
+    if rate <= 0:
         return x
     if generator is None:
         raise ValueError("training dropout needs a generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - DROPOUT_RATE
-    return torch.where(keep, x / (1.0 - DROPOUT_RATE), 0.0)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class SAGE(PairwiseModel):
@@ -142,11 +147,11 @@ class SAGE(PairwiseModel):
 
         values = self._init_values(self._generator(generator))
         for name, v in values.items():
-            if name != "layers":
+            if isinstance(v, list):  # a list of parameter dicts: the conv layers (SASRec's blocks)
+                setattr(self, name, nn.ModuleList(
+                    nn.ParameterDict({k: nn.Parameter(t) for k, t in lp.items()}) for lp in v))
+            else:
                 self.register_parameter(name, nn.Parameter(v))
-        self.layers = nn.ModuleList(
-            nn.ParameterDict({k: nn.Parameter(t) for k, t in lp.items()}) for lp in values["layers"]
-        )
 
     # ---- set-up ----
     @staticmethod
@@ -227,10 +232,7 @@ class SAGE(PairwiseModel):
     def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Set every parameter in place to fresh values drawn on the CPU from
         ``generator`` (default: seeded with config.seed)."""
-        values = self._init_values(self._generator(generator))
-        flat = {k: v for k, v in values.items() if k != "layers"}
-        for i, lp in enumerate(values["layers"]):
-            flat.update({f"layers.{i}.{k}": t for k, t in lp.items()})
+        flat = flatten_params(self._init_values(self._generator(generator)))
         with torch.no_grad():
             for name, p in self.named_parameters():
                 p.copy_(flat[name])
@@ -266,16 +268,20 @@ class SAGE(PairwiseModel):
             x = torch.cat([id_rows, x], dim=-1)
         return x
 
-    def _text_bag(self, text: torch.Tensor, field: int) -> torch.Tensor:
-        """Mean learned embedding of one text field's distinct words."""
-        wids = text[..., field, :]
-        emb = self.word_emb[wids.clamp_min(0).long()]
+    def _text_bags(self, wids: torch.Tensor) -> torch.Tensor:
+        """[..., W] distinct word ids (-1 padded) -> [..., word_dim]: each
+        bag's mean learned word embedding. The word rows come through one
+        ``table_gather`` (its clamp reads a pad as word 0, masked out here),
+        so the word table's gradient, piled on a few hundred words, is one
+        scatter-add kernel launch."""
+        emb = table_gather(self.word_emb, wids)
         m = (wids >= 0)[..., None].to(emb.dtype)
         return (emb * m).sum(dim=-2) / m.sum(dim=-2).clamp_min(1.0)
 
     def _initial_side_emb(self, ids: torch.Tensor, side: str) -> torch.Tensor:
         """Initial embeddings of the entities ``ids`` (any shape) of one side,
-        assembled per id (the all-entity ``_initial_all`` gives the same rows)."""
+        assembled per id (the all-entity ``_initial_all`` gives the same rows);
+        the text bags' word rows in one ``table_gather``."""
         feats = self.features.user if side == "user" else self.features.item
         flags = self.user_flags if side == "user" else self.item_flags
         ids = ids.long()
@@ -285,11 +291,10 @@ class SAGE(PairwiseModel):
                 parts.append(self._proj(side, None)[ids])
             else:
                 parts.append(feats.numeric[ids] @ getattr(self, f"{side}_numeric_w") + getattr(self, f"{side}_numeric_b"))
-        if "t" in flags:
-            text = feats.text[ids]
-            parts.extend(self._text_bag(text, f) for f in range(3))
-        if side == "item" and "r" in flags:
-            parts.append(self._text_bag(feats.text[ids], 3))
+        fields = ([0, 1, 2] if "t" in flags else []) + ([3] if side == "item" and "r" in flags else [])
+        if fields:  # the three text fields, then the review field
+            bags = self._text_bags(feats.text[ids][..., fields, :])
+            parts.extend(bags[..., j, :] for j in range(len(fields)))
         if "w" in flags:
             parts.append(feats.word2vec[ids])
         if "c" in flags:
@@ -600,6 +605,29 @@ class SAGE(PairwiseModel):
         return user_emb, item_emb
 
     # ---- training loss ----
+    def _encode_batch(self, graph, batch, generator, trees, tables) -> Tuple[torch.Tensor, ...]:
+        """(u, p, n): the batch's seeds encoded through their fanout trees (or,
+        for ``full_graph_train``, gathered from the full propagation)."""
+        if self.full_graph_train:
+            user_emb, item_emb = self.propagate(graph)
+            return gather_batch_rows(user_emb, item_emb, batch)
+        seeds = ((batch.user, "user"), (batch.pos, "item"), (batch.neg, "item"))
+        if trees is None:
+            trees = [self.sample_seed_tree(graph, s, side, generator) for s, side in seeds]
+        specs = [
+            (self._sides(side), [s] + [lvl.ids for lvl in tree], [None] + [lvl.has_neighbors for lvl in tree],
+             [None] + [lvl.edge_pos for lvl in tree])
+            for (s, side), tree in zip(seeds, trees)
+        ]
+        if tables is None:
+            tables = self.initial_tables()
+        xs_all = self._gather_levels(tables, [(sides, lv) for sides, lv, _, _ in specs])
+        rel_all = self._gather_relations(graph, [(sides, pos) for sides, _, _, pos in specs])
+        return tuple(
+            self._combine(graph, xs, has_nbr, pos, sides, rel, generator, train=True)
+            for xs, rel, (sides, _, has_nbr, pos) in zip(xs_all, rel_all, specs)
+        )
+
     def loss(
         self,
         graph: BipartiteGraph,
@@ -615,26 +643,7 @@ class SAGE(PairwiseModel):
         else computed here from the parameters. ``full_graph_train`` (nssage)
         runs the full propagation and gathers the batch rows from it
         instead."""
-        if self.full_graph_train:
-            user_emb, item_emb = self.propagate(graph)
-            u, p, n = gather_batch_rows(user_emb, item_emb, batch)
-        else:
-            seeds = ((batch.user, "user"), (batch.pos, "item"), (batch.neg, "item"))
-            if trees is None:
-                trees = [self.sample_seed_tree(graph, s, side, generator) for s, side in seeds]
-            specs = [
-                (self._sides(side), [s] + [lvl.ids for lvl in tree], [None] + [lvl.has_neighbors for lvl in tree],
-                 [None] + [lvl.edge_pos for lvl in tree])
-                for (s, side), tree in zip(seeds, trees)
-            ]
-            if tables is None:
-                tables = self.initial_tables()
-            xs_all = self._gather_levels(tables, [(sides, lv) for sides, lv, _, _ in specs])
-            rel_all = self._gather_relations(graph, [(sides, pos) for sides, _, _, pos in specs])
-            u, p, n = (
-                self._combine(graph, xs, has_nbr, pos, sides, rel, generator, train=True)
-                for xs, rel, (sides, _, has_nbr, pos) in zip(xs_all, rel_all, specs)
-            )
+        u, p, n = self._encode_batch(graph, batch, generator, trees, tables)
         bpr = self.main_loss(u, p, n, batch.valid)
         reg = l2_params(self.parameters()) / batch.valid.sum().clamp_min(1)
         return bpr + self.config.decay * reg, {"bpr": bpr, "reg": reg}

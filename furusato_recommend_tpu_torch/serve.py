@@ -101,8 +101,9 @@ class Recommender:
         cls, ckpt_path: str, data_path: Optional[str] = None, **kw
     ) -> "Recommender":
         """Build from a checkpoint of ``core.checkpoint.save_checkpoint`` and
-        the text dataset (and, for the SAGE family, the feature artifacts)
-        its config (or ``data_path``) names."""
+        the text dataset (and, for the SAGE family, the feature artifacts;
+        for sasrec its item sequences, for asage its attribute graphs:
+        ``cli.build_model_inputs``) its config (or ``data_path``) names."""
         from .cli import build_model_inputs
         from .core.checkpoint import load_checkpoint
         from .data.dataset import load_text_dataset

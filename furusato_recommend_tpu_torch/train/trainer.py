@@ -17,8 +17,9 @@ draws positives by popularity instead (the reference's ``sample_prob_*.pkl``
 when the data path has one).
 
 The SAGE family's cadences of the all-entity initial (feature) tables, as the
-JAX trainer runs them (``train_emb`` and ``full_graph_train`` have none, and
-train as R = 1):
+JAX trainer runs them (``train_emb``, ``full_graph_train`` and a loss that
+takes no ``tables=``, SASRec's, have none: they train as R = 1 at any R,
+their epochs not rounded to blocks):
 
 - ``relin_every`` R = 1, ``feature_update_every`` T = 1: the loss computes the
   tables inside each step, one autograd pass;
@@ -47,6 +48,7 @@ PyTorch runs eagerly and its device queue already overlaps the host.
 
 from __future__ import annotations
 
+import inspect
 import time
 from typing import Dict, Optional, Sequence
 
@@ -133,11 +135,13 @@ class Trainer:
             raise ValueError(f"relin_every must be >= 0, got {self.relin_every}")
         if self.ooc and config.train_emb:
             raise ValueError("out-of-core numeric features (dask) require train_emb=False")
-        # the JAX trainer's cached-tables path: the SAGE family's cadences
+        # the JAX trainer's cached-tables path: the SAGE family's cadences,
+        # for a loss that takes tables (not SASRec's)
         cached = (
             not config.train_emb
             and hasattr(model, "initial_tables")
             and not getattr(model, "full_graph_train", False)
+            and "tables" in inspect.signature(model.loss).parameters
         )
         if self.ooc and not cached:
             raise ValueError("out-of-core numeric features need the cached-tables path (not full_graph_train)")
@@ -224,44 +228,43 @@ class Trainer:
         self.generator.manual_seed(seed)
         self.step = 0
 
-    def train_step(self, batch: BPRBatch, trees=None) -> torch.Tensor:
+    def train_step(self, batch: BPRBatch, draws: Optional[dict] = None) -> torch.Tensor:
         """One forward, backward and Adam step on ``batch`` with the tables
         computed inside the loss (R = 1); the loss stays on the device. The
         trainer's generator draws the step's randomness (edge dropout under
-        config.dropout; the SAGE family's trees, unless ``trees`` are given,
+        config.dropout; the SAGE family's trees, unless ``draws`` gives them,
         and dropout)."""
         self.model.zero_grad(set_to_none=True)
-        kw = {} if trees is None else {"trees": trees}
-        loss, _ = self.model.loss(self.graph, batch, generator=self.generator, **kw)
+        loss, _ = self.model.loss(self.graph, batch, generator=self.generator, **(draws or {}))
         loss.backward()
         self.optimizer.step()
         return loss.detach()
 
-    def _direct_step(self, batch: BPRBatch, trees, lin: _Linearization):
+    def _direct_step(self, batch: BPRBatch, draws: Optional[dict], lin: _Linearization):
         """Zero the gradients, then forward and backward of the loss on the
         linearization's tables as leaves: (loss, the tables' gradients); the
         parameters hold their direct gradients."""
         self.model.zero_grad(set_to_none=True)
         leaves = tuple(t.detach().requires_grad_(True) for t in lin.leaves)
-        kw = {} if trees is None else {"trees": trees}
-        loss, _ = self.model.loss(self.graph, batch, generator=self.generator, tables=leaves, **kw)
+        loss, _ = self.model.loss(self.graph, batch, generator=self.generator, tables=leaves, **(draws or {}))
         loss.backward()
         return loss.detach(), tuple(torch.zeros_like(t) if t.grad is None else t.grad for t in leaves)
 
     def _linearize(self) -> _Linearization:
         return _Linearization(self.model, self.feature_names, with_proj=bool(self.ooc))
 
-    def train_epoch(self, batches: Sequence[BPRBatch], trees: Optional[Sequence] = None) -> torch.Tensor:
+    def train_epoch(self, batches: Sequence[BPRBatch], draws: Optional[Sequence[dict]] = None) -> torch.Tensor:
         """The steps of one epoch over ``batches`` under the configured
-        cadence (module docstring); ``trees``: presampled (user, pos, neg)
-        fanout trees per batch, else drawn from the generator. Returns the
-        per-step losses, on the device."""
+        cadence (module docstring); ``draws``: per batch, the loss's
+        presampled keyword arguments (the (user, pos, neg) fanout trees as
+        ``trees``, ASAGE's attribute trees as ``attr_trees``), else drawn from
+        the generator. Returns the per-step losses, on the device."""
         n = len(batches)
-        tree = (lambda b: None) if trees is None else (lambda b: trees[b])
+        draw = (lambda b: None) if draws is None else (lambda b: draws[b])
         losses = torch.empty(n, device=self.device)
         if self.cadence == "fresh":
             for b in range(n):
-                losses[b] = self.train_step(batches[b], tree(b))
+                losses[b] = self.train_step(batches[b], draw(b))
             return losses
         if self.cadence == "super":
             t = self.feat_every
@@ -269,7 +272,7 @@ class Trainer:
             for s in range(0, n, t):
                 steps = range(s, min(s + t, n))
                 losses[s : s + len(steps)] = self._super_step(
-                    [batches[b] for b in steps], [tree(b) for b in steps], epoch_lin or self._linearize()
+                    [batches[b] for b in steps], [draw(b) for b in steps], epoch_lin or self._linearize()
                 )
             return losses
         if self.ooc:
@@ -281,7 +284,7 @@ class Trainer:
         for b in range(n):
             if b % span == 0:
                 lin = self._linearize()
-            losses[b], g_t = self._direct_step(batches[b], tree(b), lin)
+            losses[b], g_t = self._direct_step(batches[b], draw(b), lin)
             g_feat, g_proj = lin.pullback(g_t)
             for k, g in g_feat.items():  # the direct gradient plus the pullback
                 p = named[k]
@@ -293,7 +296,7 @@ class Trainer:
             self._apply_ooc_update(acc, n)
         return losses
 
-    def _super_step(self, batches, trees, lin: _Linearization) -> torch.Tensor:
+    def _super_step(self, batches, draws, lin: _Linearization) -> torch.Tensor:
         """T steps of the non-feature parameters with the feature parameters
         held, then one step of the feature parameters on the pullback of the
         mean table gradient plus the mean of their direct gradients."""
@@ -302,8 +305,8 @@ class Trainer:
         acc_t = [torch.zeros_like(x) for x in lin.leaves]
         acc_p = {k: torch.zeros_like(named[k]) for k in self.feature_names}
         losses = torch.empty(t, device=self.device)
-        for i, (batch, tr) in enumerate(zip(batches, trees)):
-            losses[i], g_t = self._direct_step(batch, tr, lin)
+        for i, (batch, dr) in enumerate(zip(batches, draws)):
+            losses[i], g_t = self._direct_step(batch, dr, lin)
             for a, g in zip(acc_t, g_t):
                 a += g
             for k, a in acc_p.items():

@@ -159,8 +159,8 @@ def env():
             t = [jm.sample_seed_tree(jd.graph, x, side, k)
                  for (x, side), k in zip(((jb.user, "user"), (jb.pos, "item"), (jb.neg, "item")), keys)]
             jtrees.append(t)
-            ttrees.append([[SampledNeighbors(*(torch.tensor(np.asarray(x)) for x in lvl)) for lvl in tr]
-                           for tr in t])
+            ttrees.append({"trees": [[SampledNeighbors(*(torch.tensor(np.asarray(x)) for x in lvl)) for lvl in tr]
+                                     for tr in t]})
         yield dict(jd=jd, td=td, tf=tf, jp=jp, jax=_Jax(jm, jd.graph), batches=batches,
                    jtrees=jtrees, ttrees=ttrees)
 
@@ -245,7 +245,7 @@ def test_cadence_matches_jax_loop(env, R, T):
     assert tr.cadence == ("fresh" if (R, T) == (1, 1) else "relin" if T == 1 else "super")
     jb = [b for b, _ in env["batches"]]
     jp, jlosses, _ = jax_cadence(env["jax"], env["jp"], jb, env["jtrees"], R, T, tr.config.lr)
-    losses = tr.train_epoch([b for _, b in env["batches"]], trees=env["ttrees"])
+    losses = tr.train_epoch([b for _, b in env["batches"]], draws=env["ttrees"])
     np.testing.assert_allclose(losses.numpy(), jlosses, **TOL)
     _assert_params(tr.model, jp, f"R={R} T={T}")
 
@@ -257,7 +257,7 @@ def test_feature_params_held_inside_a_super_step(env):
     named = dict(tr.model.named_parameters())
     before = {k: p.detach().clone() for k, p in named.items()}
     tb = [b for _, b in env["batches"]]
-    tr.train_epoch(tb[:3], trees=env["ttrees"][:3])  # a super-step cut short ends all the same
+    tr.train_epoch(tb[:3], draws=env["ttrees"][:3])  # a super-step cut short ends all the same
     moved = {k for k, p in named.items() if not torch.equal(p.detach(), before[k])}
     assert moved == set(named)
     tr2 = _port_trainer(env, feature_update_every=4)
@@ -317,16 +317,16 @@ def test_epoch_rounding_matches_jax_trainer(env, ddp, bs):
 def test_super_step_checkpoint_round_trip(env, tmp_path):
     tb, trees = [b for _, b in env["batches"]], env["ttrees"]
     whole = _port_trainer(env, feature_update_every=2, path=str(tmp_path))
-    whole.train_epoch(tb[:4], trees=trees[:4])
+    whole.train_epoch(tb[:4], draws=trees[:4])
     whole.save(tmp_path / "mid.ckpt")
-    whole.train_epoch(tb[4:], trees=trees[4:])
+    whole.train_epoch(tb[4:], draws=trees[4:])
     resumed = _port_trainer(env, feature_update_every=2, seed=5)
     resumed.restore(tmp_path / "mid.ckpt")
     for opt in (resumed.optimizer, resumed.opt_feat):
         assert all(int(st["step"]) > 0 for st in opt.state.values())
     assert int(next(iter(resumed.opt_feat.state.values()))["step"]) == 2  # one a super-step
     assert int(next(iter(resumed.optimizer.state.values()))["step"]) == 4
-    resumed.train_epoch(tb[4:], trees=trees[4:])
+    resumed.train_epoch(tb[4:], draws=trees[4:])
     a, b = flatten_params(params_to_numpy(whole.model)), flatten_params(params_to_numpy(resumed.model))
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
@@ -346,6 +346,6 @@ def test_two_transform_state_carries_across(env):
         count, mu, nu = adam_from_optax(jax.tree_util.tree_map(np.asarray, st))
         assert count == (4 if opt is tr.optimizer else 1)
         adam_state_from_jax(count, mu, nu, opt, tr.model)
-    losses = tr.train_epoch([b for _, b in env["batches"][4:]], trees=env["ttrees"][4:])
+    losses = tr.train_epoch([b for _, b in env["batches"][4:]], draws=env["ttrees"][4:])
     np.testing.assert_allclose(losses.numpy(), jlosses, **TOL)
     _assert_params(tr.model, jp2, "after the carried super-step")

@@ -629,7 +629,7 @@ def test_rsage_relin_block_matches_jax(data, no_text_hub, no_dropout):
         losses.append(float(loss))
     tr = Trainer(tm.config, td, tm, device="cpu", logger=MetricLogger(quiet=True))
     assert tr.cadence == "relin"
-    got = tr.train_epoch([b for _, b, _ in draws], trees=[_tree_to_torch(t) for _, _, t in draws])
+    got = tr.train_epoch([b for _, b, _ in draws], draws=[{"trees": _tree_to_torch(t)} for _, _, t in draws])
     np.testing.assert_allclose(got.numpy(), losses, rtol=1e-4, atol=1e-6)
     got_p = flatten_params(params_to_numpy(tr.model))
     for k, want in flatten_params(_np(jp)).items():

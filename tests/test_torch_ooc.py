@@ -167,7 +167,8 @@ def test_dask_epoch_matches_jax_ooc_branch(ooc_env):
         t = [jm.sample_seed_tree(jd.graph, x, side, k)
              for (x, side), k in zip(((jb.user, "user"), (jb.pos, "item"), (jb.neg, "item")), keys)]
         jtrees.append(t)
-        ttrees.append([[SampledNeighbors(*(torch.tensor(np.asarray(x)) for x in lvl)) for lvl in tr] for tr in t])
+        ttrees.append({"trees": [[SampledNeighbors(*(torch.tensor(np.asarray(x)) for x in lvl)) for lvl in tr]
+                                 for tr in t]})
     cfg = ooc_env["cfg"]
     jp, jlosses = jax_ooc_epoch(_Jax(jm, jd.graph, ooc=True), jm, ooc_env["jp"], [b for b, _ in batches],
                                 jtrees, cfg.lr, ooc_env["jmm"])
@@ -177,7 +178,7 @@ def test_dask_epoch_matches_jax_ooc_branch(ooc_env):
     named = dict(tm.named_parameters())
     assert {k for k, p in named.items() if id(p) not in stepped} == {
         f"{s}_numeric_{x}" for s in ("user", "item") for x in ("w", "b")}
-    losses = tr.train_epoch([b for _, b in batches], trees=ttrees)
+    losses = tr.train_epoch([b for _, b in batches], draws=ttrees)
     np.testing.assert_allclose(losses.numpy(), jlosses, **TOL)
     got = flatten_params(params_to_numpy(tm))
     want = flatten_params(jax.tree_util.tree_map(np.asarray, jp))

@@ -106,7 +106,7 @@ def test_params_round_trip_and_registry():
     with pytest.raises(KeyError):
         params_from_jax({"user_emb": p["user_emb"]}, tm)
     assert {"lgcnssm", "lgn", "mf", "radj", "rgcn", "textsage"} <= set(available_models())
-    for missing in ("asage", "sasrec", "nope"):
+    for missing in ("nope",):
         with pytest.raises(KeyError, match="available"):
             build_model(missing, cfg, td.graph)
     with pytest.raises(ValueError, match="features"):  # the SAGE family needs them

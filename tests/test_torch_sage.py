@@ -227,11 +227,25 @@ def test_registry_and_parameter_tree_round_trip(data, no_text_hub):
     cfg = Config(latent_dim=DIM, conv="gat")
     fs = synthetic_features(td, cfg, seed=1)
     assert build_model("gnn", cfg, td.graph, features=fs).conv_name == "gat"
-    for missing in ("sasrec", "asage"):
-        with pytest.raises(KeyError, match="available"):
-            build_model(missing, cfg, td.graph, features=fs)
-    for name in ("textsage", "lightsage", "pinsage", "mrec"):
-        _, _, jm, tm, p = _both(data, name)
+    with pytest.raises(KeyError, match="available"):
+        build_model("nope", cfg, td.graph, features=fs)
+    for name in ("textsage", "lightsage", "pinsage", "mrec", "sasrec", "asage"):
+        if name == "sasrec":  # the blocks and item_tower lists beside layers
+            from furusato_recommend_tpu.data.sequence import build_sequences as jbuild_sequences
+            from furusato_recommend_tpu_torch.data.sequence import build_sequences
+
+            jsets, _ = data
+            kw = dict(model=name, latent_dim=DIM, n_layers=2, user_feature="nwt", item_feature="nwt")
+            jm = jbuild_model(name, JConfig(**kw), jsets["default"].graph,
+                              features=jfeatures(jsets["default"], JConfig(**kw), seed=1),
+                              sequences=jbuild_sequences(jsets["default"]))
+            tm = build_model(name, Config(**kw), td.graph, features=synthetic_features(td, Config(**kw), seed=1),
+                             sequences=build_sequences(td))
+            p = jm.init(jax.random.PRNGKey(0))
+            params_from_jax(_np(p), tm)
+            assert len(params_to_numpy(tm)["blocks"]) == 2 and len(params_to_numpy(tm)["item_tower"]) == 1
+        else:
+            _, _, jm, tm, p = _both(data, name)
         out = params_to_numpy(tm)
         want = _np(p)
         assert jax.tree_util.tree_structure(out) == jax.tree_util.tree_structure(want), name

@@ -6,9 +6,11 @@
     python3 tools/anchor_torch.py --model textsage --seeds 0 1 2             # R = 1
     python3 tools/anchor_torch.py --model textsage --seeds 0 --relin_every 8
     python3 tools/anchor_torch.py --model lgn --seeds 0 1
+    python3 tools/anchor_torch.py --model sasrec --seeds 0
 
 The same data and recipes as the JAX records in ``benchmarks/results/``
-(``anchor20k_textsage_tpu_inf_s*.jsonl``, ``anchor20k_lgn_tpu_s*.jsonl``):
+(``anchor20k_textsage_tpu_inf_s*.jsonl``, ``anchor20k_lgn_tpu_s*.jsonl``,
+``anchor20k_sasrec_tpu_s0.jsonl``):
 
 - data: ``synthetic_structured_dataset(20000, 10000, avg_degree=8, seed=0,
   rank=16, signal=3.0, popularity_alpha=0.8)``, 139,576 train edges;
@@ -18,6 +20,9 @@ The same data and recipes as the JAX records in ``benchmarks/results/``
   420,000 samples an epoch (440,000 at R = 8: whole blocks), and
   ``--relin_every``;
 - lgn: d 32, B 2048, lr 0.01, decay 1e-7, the uniform sampler;
+- sasrec: ``synthetic_features(seed=0)`` (the records' "noise" features), the
+  train items in order as sequences (``build_sequences``), d 64, 2 layers, B
+  2048, lr 1e-3, decay 1e-6, features n / w / t, the uniform sampler;
 - 30 epochs, an evaluation (recall and ndcg at 10 and 20 over every user)
   every 3, from ``Trainer.init_state(seed)``.
 
@@ -46,7 +51,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from furusato_recommend_tpu_torch.config import Config, ddp_flagship_config  # noqa: E402
 from furusato_recommend_tpu_torch.core.device import resolve_device  # noqa: E402
 from furusato_recommend_tpu_torch.data.dataset import synthetic_structured_dataset  # noqa: E402
-from furusato_recommend_tpu_torch.data.features import informative_synthetic_features  # noqa: E402
+from furusato_recommend_tpu_torch.data.features import (  # noqa: E402
+    informative_synthetic_features,
+    synthetic_features,
+)
+from furusato_recommend_tpu_torch.data.sequence import build_sequences  # noqa: E402
 from furusato_recommend_tpu_torch.models.registry import build_model  # noqa: E402
 from furusato_recommend_tpu_torch.obs.log import MetricLogger  # noqa: E402
 from furusato_recommend_tpu_torch.train.trainer import Trainer  # noqa: E402
@@ -69,6 +78,11 @@ def anchor_config(model: str, seed: int, epochs: int, eval_every: int, relin_eve
             eval_user_batch=2048, topks=(10, 20), seed=seed, epochs=epochs, test_span=eval_every,
             relin_every=relin_every,
         )
+    if model == "sasrec":
+        return Config(
+            model="sasrec", latent_dim=64, bpr_batch_size=2048, lr=1e-3, decay=1e-6, user_feature="nwt",
+            item_feature="nwt", eval_user_batch=2048, topks=(10, 20), seed=seed, epochs=epochs, test_span=eval_every,
+        )
     return Config(
         model="lgn", latent_dim=32, bpr_batch_size=2048, lr=0.01, decay=1e-7, eval_user_batch=2048,
         topks=(10, 20), seed=seed, epochs=epochs, test_span=eval_every,
@@ -85,12 +99,11 @@ def card() -> dict:
     return {"card": name, "power_limit": limit}
 
 
-def run(args, ds, features, seed: int) -> str:
+def run(args, ds, inputs: dict, seed: int) -> str:
     cfg = anchor_config(args.model, seed, args.epochs, args.eval_every, args.relin_every)
     device = resolve_device(args.device)
-    kw = {"features": features} if args.model == "textsage" else {}
     ddp = args.model == "textsage"
-    trainer = Trainer(cfg, ds, build_model(args.model, cfg, ds.graph, **kw), logger=MetricLogger(quiet=True),
+    trainer = Trainer(cfg, ds, build_model(args.model, cfg, ds.graph, **inputs), logger=MetricLogger(quiet=True),
                       ddp_recipe=ddp, device=device)
     tag = f"_r{args.relin_every}" if args.model == "textsage" and args.relin_every != 1 else ""
     path = os.path.join(args.out_dir, f"anchor20k_{args.model}_{device.type}{tag}_s{seed}.jsonl")
@@ -126,7 +139,7 @@ def run(args, ds, features, seed: int) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="tools/anchor_torch.py")
-    ap.add_argument("--model", default="textsage", choices=["textsage", "lgn"])
+    ap.add_argument("--model", default="textsage", choices=["textsage", "lgn", "sasrec"])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     ap.add_argument("--relin_every", type=int, default=1)
     ap.add_argument("--epochs", type=int, default=30)
@@ -142,13 +155,16 @@ def main(argv=None) -> int:
     ds = anchor_dataset(args.users, args.items)
     if (args.users, args.items) == (N_USERS, M_ITEMS) and ds.train_size != TRAIN_EDGES:
         raise RuntimeError(f"{ds.train_size} train edges, the records have {TRAIN_EDGES}")
-    features = None
+    inputs = {}
     if args.model == "textsage":
-        features = informative_synthetic_features(ds, anchor_config("textsage", 0, 1, 1), dataset_seed=DSEED,
-                                                  rank=16, seed=0)
+        inputs["features"] = informative_synthetic_features(ds, anchor_config("textsage", 0, 1, 1),
+                                                            dataset_seed=DSEED, rank=16, seed=0)
+    elif args.model == "sasrec":
+        inputs["features"] = synthetic_features(ds, anchor_config("sasrec", 0, 1, 1), seed=0)
+        inputs["sequences"] = build_sequences(ds)
     print(json.dumps({"data_s": round(time.time() - t0, 1), "train_edges": ds.train_size}), flush=True)
     for seed in args.seeds:
-        run(args, ds, features, seed)
+        run(args, ds, inputs, seed)
     return 0
 
 

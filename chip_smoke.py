@@ -217,6 +217,36 @@ Phases (any failure raises and exits non-zero):
                word rows (500, 4680000, 16) and (500, 9360000, 16)): plan,
                kernel, row mode, index_add_ and plain in ten alternating
                rounds (a {"train_sequence": ...} line)
+ 16. production-20k
+               the production tier on phase 12's graph and features, from the
+               R = 8 TextSAGE trainer saved with Trainer.save after its 6
+               epochs (nothing trains): the data written in the reference's
+               layout under a temporary directory (cf/train.txt, test.txt and
+               inference.txt, train + test per user; the features through
+               write_reference_features), read back equal (the train CSR by
+               load_text_dataset, every feature tensor bit-equal by
+               load_reference_features); then as a user calls them, through
+               tools.main with --data_path: evaluate --save_result (one
+               masked_topk launch an evaluation tile; the metrics held against
+               the restored trainer's own evaluation under phase 7's rule;
+               one CSV row per test user, its predict_ids the evaluation's
+               top topks[0]), two infer calls inside obs.profiler.trace
+               (--user_batch 1000 --target_batches 0,9,25 --k 20, batch 25
+               skipped with the JAX package's line; --target_batches 19 --k
+               200 in two bounded launches: 1 + 1 + 2 launches), each CSV's
+               ids held against masked_topk_reference over a
+               Recommender(use_inference_edges=True) of the same checkpoint
+               under rule 3(b), no train positive predicted, at least one
+               user's top 20 otherwise over the train edges alone, the trace
+               naming the kernel, device_memory_stats logged through
+               log_device_memory (0 < in use <= peak <= the card's, above
+               70,000 MiB); recommend --users 3,17,19999 --k 10 (one launch),
+               each line under rule 3(b); the launch counts set to 0 before
+               each call and read after it; then the host seconds of each
+               call's parts and masked_topk at B = 1000, k = 20 and 200, its
+               device time from a profile that recorded every operation of
+               its calls (2 and 8 a call; a {"production": ...} line with the
+               card's name and power limit)
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
 30000, B in {1, 64, 512, 1024}, k in {10, 20}, and at phase 12's evaluation
@@ -230,14 +260,23 @@ labels drawn in the message graph's shares; and phase 15's: sasrec's item rows
 (32, 25000, 32) and (32, 50000, 32), and the text bags' word rows (500,
 360000, 32) and (500, 4680000, 16), half of them pads on word 0.
 
+A device profile (torch.profiler) counts the kernels of a range of n calls,
+after 512 one-element kernels that take the records a session drops at its
+start and a 50 ms sleep; masked_topk's profiles must hold pass 1 and the merge
+of every call, or are taken again (three at most).
+
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import csv
 import dataclasses
+import glob
 import inspect
+import io
 import json
 import os
 import subprocess
@@ -252,13 +291,20 @@ import numpy as np
 import torch
 
 from furusato_recommend_tpu_torch.config import Config, ddp_flagship_config
+from furusato_recommend_tpu_torch import tools as ttools
 from furusato_recommend_tpu_torch.convert import flatten_params, params_from_jax, params_to_numpy
 from furusato_recommend_tpu_torch.data import synthetic_dataset
-from furusato_recommend_tpu_torch.data.artifacts import synthetic_edge_times, write_edge_artifacts
-from furusato_recommend_tpu_torch.data.dataset import synthetic_structured_dataset
+from furusato_recommend_tpu_torch.data.artifacts import (
+    synthetic_edge_times,
+    write_edge_artifacts,
+    write_reference_features,
+    write_text_dataset,
+)
+from furusato_recommend_tpu_torch.data.dataset import load_text_dataset, synthetic_structured_dataset
 from furusato_recommend_tpu_torch.data.features import (
     edge_time_in_csr_order,
     informative_synthetic_features,
+    load_reference_features,
     load_relation_edges,
     synthetic_features,
 )
@@ -270,6 +316,7 @@ from furusato_recommend_tpu_torch.models import asage, sage, sasrec
 from furusato_recommend_tpu_torch.models.registry import build_model
 from furusato_recommend_tpu_torch.models.sage_convs import N_HEADS, edge_feature, get_conv
 from furusato_recommend_tpu_torch.obs.log import MetricLogger
+from furusato_recommend_tpu_torch.obs.profiler import log_device_memory, trace
 from furusato_recommend_tpu_torch.ops import _cuda
 from furusato_recommend_tpu_torch.ops import scatter as sc
 from furusato_recommend_tpu_torch.ops import streaming_topk as st
@@ -362,6 +409,11 @@ WORD_ROWS = (360_000, 4_680_000, 9_360_000)
 # levels)
 SCATTER_PER_STEP = {"rsage": 4, "sasrec": 2, "asage": 6}
 CADENCE_BLOCK = 8  # R = 8 and T = 8
+# phase 16: the infer calls' batch of users (the reference's USER_BATCH_SIZE)
+# and k, recommend's users and k, and the top-k kernel's names in a trace
+PROD_BATCH, PROD_K = 1000, 20
+PROD_USERS, PROD_REC_K = (3, 17, A20_USERS - 1), 10
+TOPK_KERNEL_NAMES = ("score_segments",)
 # profiler ranges (ops/segment.py, ops/scatter.py, sampling/bpr.py,
 # sampling/neighbor.py, eval/evaluate.py, torch.optim's own) and the step part
 # each one names
@@ -546,38 +598,80 @@ def _is_range(e) -> bool:
     return bool(getattr(e, "is_user_annotation", False)) or e.name in RANGES
 
 
-def device_profile(fn, n=20):
-    """torch.profiler over n calls of fn: device time per call by kernel name
-    (ms), all device time and device operations per call (fewer than the
-    calls launch means the profiler lost records), and the share of the
-    window's wall time with nothing running on the card (the profiler's own
-    overhead counts as idle). None when the profiler records no device
-    activity."""
-    from torch.profiler import ProfilerActivity, profile
+PROFILE_WINDOW = "chip_smoke.window"
+PROFILE_PAD = 512  # one-element kernels launched before the window
+PROFILE_GAP_S = 0.05  # sleep on either side of the window
 
+
+def _window_profile(fn, n):
+    """torch.profiler over PROFILE_PAD one-element kernels, then n calls of
+    fn inside a range, PROFILE_GAP_S of sleep on either side: the device
+    events within half a gap of the range, the range's wall time in us and
+    the pad's records kept. A session drops the records of the first
+    kernels launched in it (0 to 120 of them in whole-script runs on the
+    H100, after a sleep as well), so the pad takes that loss; the gap keeps
+    the pad out of the window although the card's clock and the host's may
+    differ a little."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pad = torch.zeros(1, device="cuda")
+        for _ in range(PROFILE_PAD):
+            pad.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_GAP_S)
+        with record_function(PROFILE_WINDOW):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        time.sleep(PROFILE_GAP_S)
+    events = prof.events()
+    win = [e for e in events if e.name == PROFILE_WINDOW and e.device_type == torch.autograd.DeviceType.CPU]
+    if len(win) != 1:
+        raise RuntimeError(f"the profile holds {len(win)} window ranges")
+    margin = 0.5e6 * PROFILE_GAP_S
+    lo, hi = win[0].time_range.start - margin, win[0].time_range.end + margin
+    # the port's profiler ranges also show as spans on the card: not work
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and not _is_range(e)
+              and e.name != PROFILE_WINDOW]
+    inside = [e for e in device if lo <= e.time_range.start < hi]
+    return inside, wall_us, sum(e.time_range.start < lo for e in device)
+
+
+def device_profile(fn, n=20, per_call=None):
+    """torch.profiler over n calls of fn: device time per call by kernel name
+    (ms), all device time and device operations per call, and the share of
+    the calls' wall time with nothing running on the card (the profiler's
+    own overhead counts as idle); the pad's records kept (of PROFILE_PAD +
+    1). None when the profiler records no device activity. ``per_call``:
+    kernel name part -> the records each call must give; a profile that
+    gives another count is taken again, and after three such profiles the
+    call raises."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    by_name, n_ops = {}, 0
-    for e in prof.events():
-        # the port's profiler ranges also show as spans on the card: not work
-        if e.device_type == torch.autograd.DeviceType.CUDA and not _is_range(e):
-            name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:48]
-            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
-            n_ops += 1
+    for attempt in range(1, 4):
+        inside, wall_us, pad_kept = _window_profile(fn, n)
+        counts = {part: sum(part in e.name for e in inside) for part in (per_call or {})}
+        if all(counts[part] == want * n for part, want in (per_call or {}).items()):
+            break
+    else:
+        raise RuntimeError(f"three profiles of {n} calls recorded {counts} kernels, want {per_call} a call")
+    by_name = {}
+    for e in inside:
+        name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:48]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     if not by_name:
         return None
     busy = sum(by_name.values())
     return {
         "by_kernel_ms": {k: v / n / 1e3 for k, v in sorted(by_name.items(), key=lambda x: -x[1])},
         "device_ms": busy / n / 1e3,
-        "device_ops_per_call": n_ops / n,
+        "device_ops_per_call": len(inside) / n,
         "idle_share": 1.0 - busy / wall_us,
+        "attempts": attempt,
+        "pad_kept": pad_kept,
     }
 
 
@@ -1041,7 +1135,10 @@ def topk_numbers(U, I, users, k, mask, pos_csr, dev, request=None) -> dict:
         "library_ms": event_ms(library),
         "bound_ms": 1e3 * max(t_bytes, t_flops),
         "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-        "kernel_profile": device_profile(lambda: st.masked_topk(U, I, users, k, *mask)),
+        # pass 1 and the merge, once a round: every record of the calls
+        "kernel_profile": device_profile(lambda: st.masked_topk(U, I, users, k, *mask),
+                                         per_call=dict.fromkeys(("score_segments", "merge_segments"),
+                                                                -(-k // st.MAX_K))),
     }
     if request is not None:
         out["request_ms"] = host_ms(request)
@@ -2096,6 +2193,214 @@ def sequence_attr_20k(ds, fs, dev, textsage_r1) -> dict:
             "textsage_R1": textsage_r1, "launches": launches}
 
 
+def _tools(argv) -> tuple:
+    """``tools.main(argv)`` with its stdout captured (and echoed); (result, stdout)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = ttools.main(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if not line.startswith(("  ", "{", "}")):  # the metrics' JSON is in the numbers line
+            log(f"  | {line}")
+    return out, text
+
+
+def masked_values(U, I, users, ids, mask) -> torch.Tensor:
+    """The scores of ``ids`` [B, K] as masked_topk scores them: <U[u], I[j]>,
+    or -1024 where j is a train positive of u."""
+    ids = ids.long()
+    s = (U[users.long()][:, None, :] * I[ids]).sum(-1)
+    csr = CSR(*mask)
+    deg = csr.degrees()[users.long()]
+    pos, valid = csr_gather_padded(csr, users, max(1, int(deg.max())))
+    hit = ((ids[:, :, None] == pos[:, None, :].long()) & valid[:, None, :]).any(-1)
+    return torch.where(hit, torch.full_like(s, float(st.MASK_SENTINEL)), s)
+
+
+def _csv_rows(path) -> list:
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _csv_ids(rows) -> np.ndarray:
+    return np.asarray([[int(x) for x in r["predict_ids"].split(",")] for r in rows], dtype=np.int64)
+
+
+def production_20k(ds, fs, dev, ckpt, root, smi) -> dict:
+    """Phase 16: the production tier on phase 12's graph and features, from
+    the R = 8 trainer's checkpoint (Trainer.save after its 6 epochs): the data
+    directory in the reference's layout, then tools evaluate / infer /
+    recommend as a user calls them, each with the launch counts set to 0
+    just before it and read just after; then their checks and numbers."""
+    t_phase = time.perf_counter()
+    data_dir = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    write_text_dataset(ds, data_dir)  # cf/train.txt, test.txt, inference.txt (train + test)
+    write_reference_features(fs, data_dir)
+    write_s = time.perf_counter() - t0
+    cfg = a20_config(data_path=data_dir)
+    back = load_text_dataset(cfg)
+    for f in ("train_user", "train_item", "test_user", "test_item"):
+        assert np.array_equal(getattr(back, f), getattr(ds, f)), f"{f} read back otherwise"
+    assert (back.n_users, back.m_items) == (ds.n_users, ds.m_items)
+    for f in ("indptr", "indices"):
+        assert torch.equal(getattr(back.graph.user_pos, f), getattr(ds.graph.user_pos, f).cpu()), f
+    assert back.has_inference_edges and len(back.inference_user) == ds.train_size + ds.test_size
+    every = load_reference_features(cfg.replace(user_feature="nctwb", item_feature="nctwsb"), data_dir,
+                                    dataset=back)
+    for side in ("user", "item"):
+        a, b = getattr(every, side), getattr(fs, side)
+        for f in ("numeric", "categorical", "word2vec", "bert") + (("sentence",) if side == "item" else ()):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f"{side} {f} read back otherwise"
+        w = b.text.shape[-1]  # read back as rows of 64 distinct words
+        assert torch.equal(a.text[..., :w], b.text) and bool((a.text[..., w:] == -1).all()), f"{side} text"
+    assert every.text_vocab == fs.text_vocab
+    log(f"production-20k data: {ds.n_users} users, {ds.m_items} items, {ds.train_size} train and "
+        f"{len(back.inference_user)} inference edges written and read back equal, features bit-equal "
+        f"({write_s:.1f} s to write)")
+    out_dir = os.path.join(root, "result")
+    common = ["--ckpt", ckpt, "--data_path", data_dir, "--device", dev.type]
+    facts = {"data_write_s": write_s, "inference_edges": len(back.inference_user)}
+
+    # the path: evaluate, infer (inside a profiler trace), recommend
+    eval_csv = os.path.join(root, "evaluate.csv")
+    st.launches = sc.launches = 0
+    ev, _ = _tools(["evaluate", *common, "--save_result", eval_csv])
+    launches = {"evaluate": st.launches}
+    trace_dir = os.path.join(root, "trace")
+    infer = {}
+    with trace(trace_dir):
+        for tag, targets, k in (("k20", "0,9,25", PROD_K), ("k200", "19", ATT_K)):
+            st.launches = 0
+            res, text = _tools(["infer", *common, "--out_dir", out_dir, "--user_batch", str(PROD_BATCH),
+                                "--target_batches", targets, "--k", str(k)])
+            launches[f"infer_{tag}"] = st.launches
+            infer[tag] = {"k": k, "targets": targets, "paths": [str(p) for p in res["paths"]],
+                          "seconds": res["seconds"], "stdout": text}
+    st.launches = 0
+    rec_out, _ = _tools(["recommend", *common, "--users", ",".join(map(str, PROD_USERS)), "--k", str(PROD_REC_K)])
+    launches["recommend"] = st.launches
+    launches["scatter_add_rows"] = sc.launches
+    assert sc.launches == 0, f"the production tier launched the scatter kernel {sc.launches} times"
+    mem = MetricLogger(jsonl_path=os.path.join(root, "memory.jsonl"), quiet=True)
+    memory = log_device_memory(mem, prefix="mem/production")
+    mem.close()
+
+    # evaluate: against the restored trainer's own evaluation of the same parameters
+    tr = cadence_trainer(ds, fs, dev, relin_every=CADENCE_BLOCK)
+    tr.restore(ckpt)
+    n_tiles = int(tr.eval_data.users.shape[0])
+    assert launches["evaluate"] == n_tiles, f"evaluate: {launches['evaluate']} launches for {n_tiles} tiles"
+    results_tr, shown_tr = tr.evaluator(tr.eval_data)
+    kmax = max(tr.config.topks)
+    with torch.no_grad():
+        U, I = tr.model.propagate(tr.graph)
+    U, I = U.float().contiguous(), I.float().contiguous()
+    mask = (tr.graph.user_pos.indptr, tr.graph.user_pos.indices)
+    valid = tr.eval_data.valid.reshape(-1)
+    users = tr.eval_data.users.reshape(-1)[valid]
+    topk = torch.from_numpy(np.asarray(ev["topk"])).to(dev)
+    assert topk.shape == (len(users), kmax), topk.shape
+    rv, ri = st.masked_topk_reference(U, I, users, kmax, *mask)
+    max_err = compare(masked_values(U, I, users, topk, mask), topk, rv, ri, exact=False)
+    moved = int((topk.cpu().numpy() != shown_tr).sum())
+    if moved == 0:
+        assert ev["results"] == results_tr, (ev["results"], results_tr)
+    else:  # ids swapped only inside near-ties (checked above)
+        for key, v in results_tr.items():
+            np.testing.assert_allclose(ev["results"][key], v, rtol=1e-3, err_msg=key)
+    rows = _csv_rows(eval_csv)
+    k0 = tr.config.topks[0]
+    assert len(rows) == len(users) == len(np.unique(ds.test_user))
+    assert np.array_equal(_csv_ids(rows), np.asarray(ev["topk"])[:, :k0]), "the CSV's ids are not the evaluation's"
+    log(f"production-20k evaluate: {n_tiles} masked_topk launches; metrics "
+        + ("equal to" if moved == 0 else f"within 1e-3 of ({moved} ids in near-ties placed otherwise)")
+        + f" the restored trainer's evaluation (recall@10 {ev['results']['recall@10']:.4f}); ids equal to the "
+        f"plain version's where their neighbours differ (max abs err {max_err:.3g}); {len(rows)} CSV rows")
+
+    # infer: each CSV against the plain top-k over the inference edges' propagation
+    rec_inf = Recommender.from_checkpoint(ckpt, data_path=data_dir, use_inference_edges=True, device=dev)
+    U_inf, I_inf = rec_inf._user_emb, rec_inf._item_emb
+    mask = (rec_inf._mask.indptr, rec_inf._mask.indices)
+    rec_tr = Recommender(rec_inf.model, back, rec_inf.config, None, use_inference_edges=False, device=dev)
+    pos = ds.all_pos()
+    assert launches["infer_k20"] == 2 and launches["infer_k200"] == -(-ATT_K // st.MAX_K), launches
+    skip = f"[infer] batch 25 out of range (n_users={ds.n_users}); skipped"
+    assert skip in infer["k20"]["stdout"], infer["k20"]["stdout"]
+    differs = 0
+    for tag, got in infer.items():
+        k = got["k"]
+        names = [os.path.basename(p) for p in got["paths"]]
+        want = [f"textsage_{TS_D}_2_{b}_inference.csv" for b in got["targets"].split(",")
+                if int(b) * PROD_BATCH < ds.n_users]
+        assert names == want, names
+        for p in got["paths"]:
+            b = int(os.path.basename(p).split("_")[3])
+            bu = torch.arange(b * PROD_BATCH, (b + 1) * PROD_BATCH, device=dev)
+            ids = _csv_ids(_csv_rows(p))
+            assert ids.shape == (PROD_BATCH, k), ids.shape
+            ki = torch.from_numpy(ids).to(dev)
+            rv, ri = st.masked_topk_reference(U_inf, I_inf, bu, k, *mask)
+            max_err = max(max_err, compare(masked_values(U_inf, I_inf, bu, ki, mask), ki, rv, ri, exact=False))
+            for u, row in zip(bu.tolist(), ids):
+                assert not set(row.tolist()) & set(pos[u].tolist()), f"user {u}: a train positive predicted"
+            if tag == "k20" and b == 0:
+                train_only, _ = rec_tr.recommend(bu.cpu().numpy(), k=k)
+                differs = int((train_only != ids).any(axis=1).sum())
+                assert differs > 0, "the inference edges changed no user's top 20"
+    text = "".join(open(f).read() for f in glob.glob(os.path.join(trace_dir, "*.pt.trace.json")))
+    assert text and any(name in text for name in TOPK_KERNEL_NAMES), "the trace names no top-k kernel"
+    assert 0 < memory["mib_in_use"] <= memory["peak_mib_in_use"] <= memory["mib_limit"], memory
+    assert memory["mib_limit"] > 70_000, memory
+    with open(os.path.join(root, "memory.jsonl")) as f:
+        assert set(json.loads(f.readline())) == {"ts", *(f"mem/production/{k}" for k in memory)}
+    log(f"production-20k infer: masked_topk launches {launches['infer_k20']} + {launches['infer_k200']} "
+        f"(k = {PROD_K}: batches 0 and 9, 25 skipped; k = {ATT_K}: batch 19 in two bounded rounds); every CSV "
+        f"equal to the plain top-k over the inference edges' propagation, no train positive predicted; "
+        f"{differs} of batch 0's {PROD_BATCH} users' top {PROD_K} differ over the train edges alone; the trace "
+        f"names the kernel ({len(text)} bytes); memory {memory['mib_in_use']:.0f} MiB in use, "
+        f"{memory['peak_mib_in_use']:.0f} at the peak, {memory['mib_limit']:.0f} on the card")
+
+    # recommend: each answer against the plain top-k for that user
+    assert launches["recommend"] == 1, launches
+    ru = torch.tensor(PROD_USERS, device=dev)
+    rv, ri = st.masked_topk_reference(U_inf, I_inf, ru, PROD_REC_K, *mask)
+    max_err = max(max_err, compare(torch.from_numpy(rec_out["scores"]), torch.from_numpy(rec_out["ids"]),
+                                   rv, ri, exact=False))
+    for line, u, row in zip(rec_out["lines"], PROD_USERS, rec_out["ids"]):
+        r = json.loads(line)
+        assert r["user"] == u and r["items"] == row.tolist(), line
+    log(f"production-20k recommend: {len(PROD_USERS)} users in 1 launch, answers equal to the plain version "
+        f"(max abs err over the phase {max_err:.3g})")
+
+    # numbers: the masked top-k at the infer calls' batch of 1000 users
+    bu = torch.arange(0, PROD_BATCH, device=dev)
+    numbers = {f"k{k}": topk_numbers(U_inf, I_inf, bu, k, mask, CSR(*mask), dev) for k in (PROD_K, ATT_K)}
+    # a call's device operations: pass 1 and the merge; at k = 200 twice, with
+    # the bound's two slices between the rounds and the two concatenations
+    for k, want in ((PROD_K, 2), (ATT_K, 8)):
+        got = numbers[f"k{k}"]["kernel_profile"]["device_ops_per_call"]
+        assert got == want, f"the k = {k} profile recorded {got} device operations a call, want {want}"
+    for tag, t in numbers.items():
+        prof = t["kernel_profile"]
+        log(f"masked_topk B={PROD_BATCH} {tag}: {t['ms']:.4f} ms (device {prof['device_ms']:.4f} in "
+            f"{prof['device_ops_per_call']:g} operations a call, profile {prof['attempts']} of 3, "
+            f"{prof['pad_kept']} of the pad's {PROFILE_PAD + 1} records kept; plain "
+            f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound {t['bound_ms']:.5f} by {t['bound_by']})")
+    del tr, rec_inf, rec_tr
+    facts.update(
+        card=smi, launches=launches, max_abs_err=max_err, ids_moved_in_ties=moved,
+        evaluate={"seconds": ev["seconds"], "results": ev["results"], "csv_rows": len(rows)},
+        infer={tag: {k: v for k, v in got.items() if k != "stdout"} for tag, got in infer.items()},
+        infer_top20_differs_over_train_edges=differs,
+        recommend={"seconds": rec_out["seconds"], "lines": rec_out["lines"]},
+        topk=numbers, memory=memory, trace_bytes=len(text),
+    )
+    facts["phase_s"] = time.perf_counter() - t_phase
+    log(f"production-20k: {facts['phase_s']:.0f} s")
+    return facts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -2288,6 +2593,11 @@ def main() -> int:
         a20_trainers = a20.pop("trainers")
         a20["eval_vs_plain"] = eval_kernel_vs_plain(a20_trainers["R8"])
         a20["card_vs_cpu"] = card_vs_cpu_cadences(a20_ds, a20_fs, a20_trainers["R8"], dev)
+        # phase 16 serves this checkpoint: the R = 8 trainer after its 6 epochs,
+        # before its numbers below train it on
+        prod_dir = tempfile.TemporaryDirectory()
+        prod_ckpt = os.path.join(prod_dir.name, "textsage_r8.ckpt")
+        a20_trainers["R8"].save(prod_ckpt)
         cadences_20k = {"R1": cadence_numbers(cadence_trainer(a20_ds, a20_fs, dev), "train-textsage-20k R=1")}
         for key, trainer_c in a20_trainers.items():
             cadences_20k[key] = cadence_numbers(
@@ -2321,6 +2631,13 @@ def main() -> int:
     # and trained
     seq = sequence_attr_20k(a20_ds, a20_fs, dev, cadences_20k["R1"])
 
+    # 16. production-20k: phase 12's checkpoint through tools evaluate / infer
+    # / recommend, production inference over the inference edge set
+    prod = production_20k(a20_ds, a20_fs, dev, prod_ckpt, prod_dir.name, smi)
+    prod_dir.cleanup()
+    prod_launches = prod["launches"]["evaluate"] + prod["launches"]["infer_k20"] + prod["launches"][
+        "infer_k200"] + prod["launches"]["recommend"]
+
     ts_serve_launches = ts_serve["launches"]["masked_topk"]
     ts_train_launches = ts_train["launches"]
     kernels = [{
@@ -2331,14 +2648,15 @@ def main() -> int:
         "launches": (serve_launches + train["launches"]["masked_topk"] + ts_serve_launches
                      + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]
                      + att["launches"]["masked_topk"] + edge["launches"]["masked_topk"]
-                     + seq["launches"]["masked_topk"]),
+                     + seq["launches"]["masked_topk"] + prod_launches),
         "launches_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"],
                              "serve_textsage": ts_serve_launches,
                              "train_textsage": ts_train_launches["masked_topk"],
                              "train_textsage_20k": a20["launches"]["masked_topk"],
                              "attention_20k": att["launches"]["masked_topk"],
                              "edge_20k": edge["launches"]["masked_topk"],
-                             "sequence_attr_20k": seq["launches"]["masked_topk"]},
+                             "sequence_attr_20k": seq["launches"]["masked_topk"],
+                             "production_20k": prod_launches},
         "launches_per_call": f"ceil(k / {st.MAX_K}): one a round",
         "k200": {"at": {"B": 512, "k": ATT_K, "M": a20_ds.m_items, "d": TS_D}, "launches_per_call": 2,
                  **{key: att_k200[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -2372,7 +2690,8 @@ def main() -> int:
                              "train_textsage_20k": a20["launches"]["scatter_add_rows"],
                              "attention_20k": att["launches"]["scatter_add_rows"],
                              "edge_20k": edge["launches"]["scatter_add_rows"],
-                             "sequence_attr_20k": seq["launches"]["scatter_add_rows"]},
+                             "sequence_attr_20k": seq["launches"]["scatter_add_rows"],
+                             "production_20k": prod["launches"]["scatter_add_rows"]},
         "launches_per_step": train["scatter_launches_per_step"],
         "launches_per_step_textsage": ts_train["scatter_launches_per_step"],
         "textsage_shapes": ts_sc_shapes,
@@ -2427,6 +2746,9 @@ def main() -> int:
     log(json.dumps({"train_sequence": {
         "d": {"sasrec": SEQ_D, "asage": TS_D}, "users": A20_USERS, "items": A20_ITEMS, "train_edges": A20_EDGES,
         "features": "informative", **seq}}))
+    log(json.dumps({"production": {
+        "model": "textsage", "d": TS_D, "relin_every": CADENCE_BLOCK, "users": A20_USERS, "items": A20_ITEMS,
+        "train_edges": A20_EDGES, "features": "informative", **prod}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

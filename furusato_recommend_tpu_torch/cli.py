@@ -19,8 +19,10 @@ the reference's feature artifacts under
 ``--ddp_recipe``, ``--sample_pow``, ``--inference sample`` and
 ``--feature_update_every``. ``--a_fold``, ``--compile_cache`` and
 ``--pipeline_dispatch`` concern the TPU layout and XLA: each prints a notice
-and is ignored. ``--ckpt_backend orbax``, a mesh and the wandb / tensorboard
-sinks raise.
+and is ignored. ``--wandb NAME`` logs to a wandb run and ``--tensorboard 1``
+to ``{path}/{model}/tb``, each falling back to the JSONL file and stdout when
+its package is missing (``obs/log.py``); ``--ckpt_backend orbax`` and a mesh
+raise.
 """
 
 from __future__ import annotations
@@ -205,8 +207,6 @@ def main(argv=None):
     parser = build_argparser()
     args = parser.parse_args(argv)
     config = config_from_args(args)
-    if config.wandb or config.tensorboard:
-        raise NotImplementedError("the wandb and tensorboard sinks are not ported yet")
     if config.ckpt_backend == "orbax":
         raise NotImplementedError("--ckpt_backend orbax is JAX's; the port writes its own .npz checkpoints")
     for attr, why in _IGNORED.items():
@@ -228,7 +228,11 @@ def main(argv=None):
     )
     graph, model_kw = build_model_inputs(config, dataset)
     model = build_model(config.model, config, graph, **model_kw)
-    logger = MetricLogger(jsonl_path=f"{config.path}/{config.model}/metrics.jsonl")
+    logger = MetricLogger(
+        jsonl_path=f"{config.path}/{config.model}/metrics.jsonl",
+        wandb_run=(None if config.test_mode else config.wandb or None),
+        tensorboard_dir=(f"{config.path}/{config.model}/tb" if config.tensorboard else None),
+    )
     try:
         trainer = Trainer(config, dataset, model, logger=logger, ddp_recipe=args.ddp_recipe, device=device)
         resume = False

@@ -1,6 +1,8 @@
 """Seeded synthetic side features for a text dataset, written in the
 reference's artifact layout, so the SAGE family can train on that dataset
-through the CLIs (``features.load_reference_features`` reads them back).
+through the CLIs (``features.load_reference_features`` reads them back); and
+a dataset's interactions as the reference's text files
+(``write_text_dataset``, which ``load_text_dataset`` reads back).
 
     python -m furusato_recommend_tpu_torch.data.artifacts --data_path ./data [--seed 0] [--suffix ""]
 
@@ -36,6 +38,7 @@ from .features import TEXT_FIELDS, FeatureStore, synthetic_features
 __all__ = [
     "synthetic_attributes", "synthetic_edge_times", "synthetic_relation_edges", "synthetic_sequences",
     "write_attribute_artifacts", "write_edge_artifacts", "write_reference_features", "write_sequence_artifacts",
+    "write_text_dataset",
 ]
 
 _FIELD_NAMES = ("name", "main_comment", "main_list_comment")
@@ -49,6 +52,38 @@ def _counts(text: np.ndarray, vocab: int):
     return sp.csr_matrix(
         (np.ones(len(rows), np.int64), (rows, text[rows, cols])), shape=(text.shape[0], vocab)
     )
+
+
+def _rows(users: np.ndarray, items: np.ndarray, n: int) -> list:
+    """Each user's items, in the arrays' order."""
+    order = np.argsort(users, kind="stable")
+    bounds = np.searchsorted(users[order], np.arange(n + 1))
+    it = items[order]
+    return [it[bounds[u] : bounds[u + 1]] for u in range(n)]
+
+
+def write_text_dataset(dataset, base_path, suffix: str = "") -> None:
+    """The interactions of ``dataset`` as the reference's adjacency-list files
+    ``{base_path}/cf/train{suffix}.txt``, ``test{suffix}.txt`` and
+    ``inference{suffix}.txt`` (``uid item item ...``, a user's items in the
+    dataset's order): the inference file holds the dataset's inference edge
+    set, or each user's train then test items. ``load_text_dataset`` reads
+    back the same arrays when the largest user and item ids have
+    interactions."""
+    cf = Path(base_path) / "cf"
+    cf.mkdir(parents=True, exist_ok=True)
+    n = dataset.n_users
+    splits = {
+        "train": _rows(dataset.train_user, dataset.train_item, n),
+        "test": _rows(dataset.test_user, dataset.test_item, n),
+    }
+    if dataset.has_inference_edges:
+        splits["inference"] = _rows(dataset.inference_user, dataset.inference_item, n)
+    else:
+        splits["inference"] = [np.concatenate([a, b]) for a, b in zip(splits["train"], splits["test"])]
+    for name, rows in splits.items():
+        with open(cf / f"{name}{suffix}.txt", "w") as f:
+            f.writelines(f"{u} {' '.join(map(str, row.tolist()))}\n" for u, row in enumerate(rows) if len(row))
 
 
 def write_reference_features(store: FeatureStore, base_path, suffix: str = "") -> None:

@@ -5,6 +5,8 @@ or COO arrays -> host arrays + a lazily built ``BipartiteGraph``.
   ``for_lgbm``, ``cold_start`` and ``test_mode`` slicing rules;
 - the production inference edge set: an ``inference{suffix}.txt`` file, or
   train + test when ``suffix == "all"``;
+- the reference's pickled DataFrames (``Dataset.from_reference_pickles``,
+  which needs pandas);
 - ``synthetic_dataset``, ``synthetic_zipf_dataset`` and
   ``synthetic_structured_dataset`` (with its ground-truth latents,
   ``structured_latents``) draw the same numpy streams as the JAX package's, so
@@ -121,6 +123,62 @@ class Dataset:
             test_item=test_item,
             inference_user=inference_user,
             inference_item=inference_item,
+        )
+
+    @classmethod
+    def from_reference_pickles(cls, data_path: str, suffix: str = "") -> "Dataset":
+        """The reference's on-disk dataset of its DDP path: five pickled
+        DataFrames.
+
+        - ``{data_path}/cb/{suffix}/product_cb{suffix}.pkl`` and
+          ``customer_cb{suffix}.pkl``: entity frames, whose lengths are
+          m_items and n_users;
+        - ``{data_path}/{suffix}/train{suffix}.pkl`` and ``test{suffix}.pkl``:
+          interaction frames with ``cf_customer`` / ``cf_product`` columns;
+        - ``{data_path}/{suffix}/inference{suffix}.pkl`` when ``suffix ==
+          "all"`` or the file exists: the production inference edge set.
+
+        The per-user positives come from the train COO (``all_pos``), so the
+        reference's ``allPos{suffix}.pkl`` is not read. Without the entity
+        frames the id spaces are max id + 1, with a warning. Reading a pickled
+        DataFrame needs pandas, which is imported here, not with the module."""
+        import pandas as pd
+
+        base = Path(data_path)
+        sub = base / suffix if suffix else base
+
+        def _edges(name):
+            df = pd.read_pickle(sub / f"{name}{suffix}.pkl")
+            return (
+                df["cf_customer"].values.astype(np.int64),
+                df["cf_product"].values.astype(np.int64),
+            )
+
+        tr_u, tr_i = _edges("train")
+        te_u, te_i = _edges("test")
+        inf_u = inf_i = None
+        if suffix == "all" or (sub / f"inference{suffix}.pkl").exists():
+            inf_u, inf_i = _edges("inference")
+
+        n_users = m_items = None
+        cb = base / "cb" / suffix if suffix else base / "cb"
+        cust_p = cb / f"customer_cb{suffix}.pkl"
+        prod_p = cb / f"product_cb{suffix}.pkl"
+        if cust_p.exists() and prod_p.exists():
+            n_users = len(pd.read_pickle(cust_p))
+            m_items = len(pd.read_pickle(prod_p))
+        else:
+            import warnings
+
+            warnings.warn(
+                f"entity frames not found under {cb}; inferring n_users/m_items "
+                "from max interaction ids (entities with no interactions will "
+                "be missing from the id space)"
+            )
+        return cls.from_interactions(
+            tr_u, tr_i, te_u, te_i,
+            n_users=n_users, m_items=m_items,
+            inference_user=inf_u, inference_item=inf_i,
         )
 
     def all_pos(self) -> List[np.ndarray]:

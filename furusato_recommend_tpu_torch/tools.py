@@ -1,0 +1,264 @@
+"""Checkpoint tools of the port (counterpart of ``tools.py``):
+
+  python -m furusato_recommend_tpu_torch.tools evaluate --ckpt ... [--save_result out.csv]
+  python -m furusato_recommend_tpu_torch.tools infer --ckpt ... --target_batches 0,9 --k 20
+  python -m furusato_recommend_tpu_torch.tools recommend --ckpt ... --users 3,17 --k 10
+
+Each loads a checkpoint of the port (``Trainer.save`` or
+``core.checkpoint.save_checkpoint``; ``tools/export_jax_checkpoint.py``
+converts one of the JAX package's) and rebuilds its dataset and model from the
+reference's layout under the config's ``data_path`` (or ``--data_path``):
+
+- ``evaluate``: the full-catalog metrics as JSON, and with ``--save_result``
+  the per-user CSV of every test user at ``topks[0]``;
+- ``infer``: one propagation over the inference edge set, a masked top-k per
+  target batch of users masking only the train positives, one CSV a batch
+  (``eval/inference.py``);
+- ``recommend``: one JSON line a user through ``serve.Recommender``.
+
+The flags are the JAX package's, with its defaults, plus ``--device``
+(default ``cuda``; raises without CUDA unless ``--device cpu``). The
+subcommands of the two-stage ranker (``dump-candidates``, ``train-ranker``,
+``rerank-eval``) and of preprocessing (``preprocess``, ``convert-recbole``)
+take the JAX package's flags and raise ``NotImplementedError``: they are not
+ported yet. ``main`` returns what the subcommand computed, with the host
+seconds of its parts under ``"seconds"`` (``obs.log.step_timer``, which does
+not wait for the card: a part that needs the card's results waits for them).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Dict
+
+import numpy as np
+
+__all__ = ["main"]
+
+#: the subcommands not ported yet, and the step of ROADMAP.md's queue 1 that ports them
+_NOT_PORTED = {
+    "dump-candidates": "2 (two-stage ranking)",
+    "train-ranker": "2 (two-stage ranking)",
+    "rerank-eval": "2 (two-stage ranking)",
+    "preprocess": "3 (preprocessing)",
+    "convert-recbole": "3 (preprocessing)",
+}
+
+
+class _Seconds:
+    """A ``step_timer`` sink: the seconds of each name, summed over its blocks."""
+
+    def __init__(self):
+        self.seconds: Dict[str, float] = {}
+
+    def log(self, metrics, step=None) -> None:
+        for key, v in metrics.items():
+            name = key.removeprefix("time/")
+            self.seconds[name] = self.seconds.get(name, 0.0) + float(v)
+
+
+def _load_run(args):
+    """(config, dataset, model on the device with the checkpoint's parameters)."""
+    from .cli import build_argparser, build_model_inputs, config_from_args
+    from .config import Config
+    from .convert import params_from_jax
+    from .core.checkpoint import load_checkpoint
+    from .data.dataset import load_text_dataset
+    from .models.registry import build_model
+
+    state = load_checkpoint(args.ckpt)
+    cfg_json = state.get("__config__")
+    config = (
+        Config.from_json(json.dumps(cfg_json))
+        if cfg_json
+        else config_from_args(build_argparser().parse_args([]))
+    )
+    if args.data_path:
+        config = config.replace(data_path=args.data_path)
+    dataset = load_text_dataset(config)
+    graph, model_kw = build_model_inputs(config, dataset)
+    model = build_model(config.model, config, graph, **model_kw)
+    params_from_jax(state["params"], model)
+    return config, dataset, model.to(args.device)
+
+
+def cmd_evaluate(args):
+    from .eval.evaluate import Evaluator, build_eval_data
+    from .obs.log import step_timer
+
+    timer = _Seconds()
+    with step_timer("load", timer):
+        config, dataset, model = _load_run(args)
+    with step_timer("evaluate", timer, trace=True):
+        max_deg = int(np.max(np.bincount(dataset.train_user, minlength=dataset.n_users)))
+        ev = Evaluator(model, dataset.graph.to(args.device), config, max_train_degree=max_deg)
+        data = build_eval_data(dataset, config.eval_user_batch, device=args.device)
+        results, topk = ev(data)
+    print(json.dumps({k: round(v, 6) for k, v in results.items()}, indent=2))
+    if args.save_result:
+        from .eval.results import save_result
+
+        with step_timer("csv", timer, trace=True):
+            save_result(args.save_result, dataset, topk, k=config.topks[0])
+        print(f"wrote {args.save_result}")
+    return {"results": results, "topk": topk, "seconds": timer.seconds}
+
+
+def cmd_infer(args):
+    """Checkpoint -> propagation over the inference edge set -> per target
+    batch a masked top-k and a CSV."""
+    from .eval.inference import production_inference
+    from .obs.log import step_timer
+
+    timer = _Seconds()
+    with step_timer("load", timer):
+        config, dataset, model = _load_run(args)
+    if not dataset.has_inference_edges:
+        print(
+            "[infer] no separate inference edge set (need --suffix all or an "
+            "inference{suffix}.txt); propagating over train edges"
+        )
+    target = [int(t) for t in args.target_batches.split(",") if t != ""]
+    paths = production_inference(
+        model,
+        None,
+        dataset,
+        config,
+        out_dir=args.out_dir,
+        user_batch_size=args.user_batch,
+        target_batches=target,
+        k=args.k,
+        device=args.device,
+        sink=timer,
+    )
+    print(f"wrote {len(paths)} csv(s)")
+    return {"paths": paths, "seconds": timer.seconds}
+
+
+def cmd_recommend(args):
+    """Checkpoint -> propagated embeddings kept on the device -> masked top-k
+    for the requested users (``serve.Recommender``)."""
+    from .obs.log import step_timer
+    from .serve import Recommender
+
+    timer = _Seconds()
+    with step_timer("load_and_propagate", timer, trace=True):
+        rec = Recommender.from_checkpoint(
+            args.ckpt,
+            data_path=args.data_path,
+            use_inference_edges=not args.train_edges_only,
+            device=args.device,
+        )
+    users = [int(u) for u in args.users.split(",") if u != ""]
+    with step_timer("topk", timer, trace=True):
+        ids, scores = rec.recommend(users, k=args.k)
+    lines = [
+        json.dumps({"user": u, "items": row.tolist(), "scores": [round(float(s), 4) for s in srow]})
+        for u, row, srow in zip(users, ids, scores)
+    ]
+    for line in lines:
+        print(line)
+    return {"lines": lines, "ids": ids, "scores": scores, "seconds": timer.seconds}
+
+
+def _not_ported(args):
+    raise NotImplementedError(
+        f"`tools {args.cmd}` is not ported yet: ROADMAP.md queue 1, step {_NOT_PORTED[args.cmd]}"
+    )
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="furusato_recommend_tpu_torch.tools")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    d = sub.add_parser("dump-candidates", help="checkpoint -> top-k dump (not ported yet)")
+    d.add_argument("--ckpt", required=True)
+    d.add_argument("--k", type=int, default=50)
+    d.add_argument("--out", default=None)
+    d.add_argument("--data_path", default=None)
+
+    e = sub.add_parser("evaluate", help="checkpoint -> metrics")
+    e.add_argument("--ckpt", required=True)
+    e.add_argument("--data_path", default=None)
+    e.add_argument("--save_result", default=None, help="also write per-user CSV")
+    e.set_defaults(fn=cmd_evaluate)
+
+    i = sub.add_parser("infer", help="checkpoint -> per-user CSVs over the inference edge set")
+    i.add_argument("--ckpt", required=True)
+    i.add_argument("--data_path", default=None)
+    i.add_argument("--out_dir", default="./data/result")
+    i.add_argument("--user_batch", type=int, default=1000)
+    i.add_argument(
+        "--target_batches",
+        default="0",
+        help="comma-separated user-batch indices (reference ran 1000,5000,8500)",
+    )
+    i.add_argument("--k", type=int, default=20)
+    i.set_defaults(fn=cmd_infer)
+
+    s = sub.add_parser("recommend", help="online serving one-shot: checkpoint -> top-K per user")
+    s.add_argument("--ckpt", required=True)
+    s.add_argument("--users", required=True, help="comma-separated user ids")
+    s.add_argument("--k", type=int, default=10)
+    s.add_argument("--data_path", default=None)
+    s.add_argument("--train_edges_only", action="store_true",
+                   help="propagate over train edges even if an inference edge set exists")
+    s.set_defaults(fn=cmd_recommend)
+
+    t = sub.add_parser("train-ranker", help="candidates -> ranker (not ported yet)")
+    t.add_argument("--candidates", nargs="+", required=True)
+    t.add_argument("--data_path", default="./data")
+    t.add_argument("--lgbm_ratio", type=float, default=0.1)
+    t.add_argument("--epochs", type=int, default=30)
+    t.add_argument("--out", default="./ranker.ckpt")
+
+    r = sub.add_parser("rerank-eval", help="candidates -> re-ranked metrics (not ported yet)")
+    r.add_argument("--candidates", nargs="+", required=True)
+    r.add_argument("--ranker", required=True)
+    r.add_argument("--data_path", default="./data")
+    r.add_argument("--k", type=int, default=10)
+
+    pp = sub.add_parser("preprocess", help="raw dataframes -> artifact dir (not ported yet)")
+    pp.add_argument("--products", required=True, help=".csv or .pkl product frame")
+    pp.add_argument("--customers", required=True)
+    pp.add_argument("--transactions", required=True)
+    pp.add_argument("--product_category", default=None)
+    pp.add_argument("--partner", default=None)
+    pp.add_argument("--reviews", default=None)
+    pp.add_argument("--out", required=True, help="artifact directory (becomes --data_path)")
+    pp.add_argument("--suffix", default="")
+    pp.add_argument("--incremental_frac", type=float, default=0.1)
+    pp.add_argument("--test_holdout", type=int, default=1)
+
+    c = sub.add_parser("convert-recbole", help="dataframes -> RecBole atomic files (not ported yet)")
+    c.add_argument("--interactions", required=True, help=".csv or .pkl dataframe")
+    c.add_argument("--users", default=None)
+    c.add_argument("--items", default=None)
+    c.add_argument("--out", required=True)
+    c.add_argument("--name", default="furusato")
+    c.add_argument("--k_core", type=int, default=1)
+    c.add_argument("--iterate", action="store_true")
+    c.add_argument("--user_col", default="customer_id")
+    c.add_argument("--item_col", default="remap_id")
+    c.add_argument("--extra_inter_cols", default="")
+    c.add_argument("--types", default="")
+
+    for name, parser in sub.choices.items():
+        parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+        if name in _NOT_PORTED:
+            parser.set_defaults(fn=_not_ported)
+    return p
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    if args.fn is not _not_ported:
+        from .core.device import resolve_device
+
+        args.device = resolve_device(args.device)  # raises without CUDA unless --device cpu
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -75,7 +75,11 @@ from ..sampling.weights import (
     sample_prob_edge_weights,
 )
 
-__all__ = ["Trainer"]
+__all__ = ["OPTIMIZER_PREFIXES", "Trainer"]
+
+#: the checkpoint's key prefix of each Adam: the one that steps every step,
+#: then the feature parameters' under ``feature_update_every`` > 1
+OPTIMIZER_PREFIXES = ("adam", "feat_adam")
 
 
 class _Linearization:
@@ -389,9 +393,9 @@ class Trainer:
 
     def _optimizers(self) -> Dict[str, torch.optim.Adam]:
         """Checkpoint prefix -> optimizer."""
-        opts = {"adam": self.optimizer}
+        opts = {OPTIMIZER_PREFIXES[0]: self.optimizer}
         if self.opt_feat is not None:
-            opts["feat_adam"] = self.opt_feat
+            opts[OPTIMIZER_PREFIXES[1]] = self.opt_feat
         return opts
 
     def save(self, path=None) -> None:
@@ -411,7 +415,10 @@ class Trainer:
         )
 
     def restore(self, path=None) -> None:
-        """Load the full training state written by ``save``."""
+        """Load the full training state written by ``save``, or by
+        ``tools/export_jax_checkpoint.py``: its file has no generator state
+        (JAX's key has no torch counterpart), and the sampler's stream then
+        starts from config.seed."""
         ckpt = load_checkpoint(path or checkpoint_path(self.config))
         st = ckpt["state"]
         params_from_jax(ckpt["params"], self.model)
@@ -427,6 +434,9 @@ class Trainer:
                     opt,
                     self.model,
                 )
-        self.generator.set_state(torch.from_numpy(st["generator"]))
+        if "generator" in st:
+            self.generator.set_state(torch.from_numpy(st["generator"]))
+        else:
+            self.generator.manual_seed(self.config.seed)
         self.step = int(st["step"])
         self.max_recall = float(st["max_recall"])

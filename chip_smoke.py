@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
-check them.
+"""Drive the PyTorch port's serving, training, production and ranking paths on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root, on a machine with one card
 
@@ -247,6 +247,41 @@ Phases (any failure raises and exits non-zero):
                device time from a profile that recorded every operation of
                its calls (2 and 8 a call; a {"production": ...} line with the
                card's name and power limit)
+ 17. rank-20k  the two-stage ranker on phase 12's graph and features, from
+               phase 16's data directory, as tools/rank20k_torch.py runs the
+               JAX record's protocol (benchmarks/rank20k.py) with the epochs
+               cut: the for_lgbm split read by load_text_dataset (128,736
+               reduced and 10,840 held edges, the record's); lgn (d 32, B
+               2048, lr 0.01) and TextSAGE (the flagship recipe) trained 6
+               epochs on the reduced set, each user's top 50 dumped
+               (dump_candidates, 10 masked_topk launches a dump, sigmoid
+               off); the parity and aux groups; the parity ranker and the aux
+               ranker (15 warm epochs on wa alone, the users % 5 != 0 groups)
+               fitted 10 epochs (NeuralRanker at its defaults, 256 groups a
+               batch, lr 1e-3: one scatter_add_rows launch a joint step, none
+               a warm one); both retrievers retrained 6 epochs on the full set
+               and dumped again; rerank_eval of the parity, aux and
+               val-calibrated stack rankers; then tools dump-candidates from
+               phase 12's R = 8 checkpoint (20 launches at its batch of 1024),
+               train-ranker --epochs 1 on that dump and rerank-eval of that
+               ranker; the launch counts set to 0 before each part and read
+               after it. Checks: every dump against masked_topk_reference
+               (sigmoid off) under rule 3(b) against a plain top (k + 1),
+               neighbouring values within 2 x atol counted as ties, rows
+               unique, no train positive; the stage-B dumps' first 10 columns
+               against the trainer's evaluation (the same ids but near-ties;
+               recall@10 equal when no id moved); the parity loss on 2048
+               groups below its value at the fit's initial parameters; 4
+               ranker steps on the card against the CPU (phase 10's rule, each
+               step from the CPU's state); rank() in tiles of 2048 against one
+               tile (ids equal but near-ties); the stack's recall@10 above the
+               parity rerank's and at least 0.95 x the best retriever alone;
+               then the host seconds of each part, masked_topk at the dump's
+               shape (B 2048, k 50, unmasked, sigmoid off) beside matmul +
+               torch.topk and torch.topk alone, scatter_add_rows at the ids
+               of one real ranker step (N 32, R 256 x C x 9, D 16), rank() at
+               4096 users x 100 candidates (a {"rank": ...} line with the
+               card's name and power limit)
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
 30000, B in {1, 64, 512, 1024}, k in {10, 20}, and at phase 12's evaluation
@@ -258,7 +293,10 @@ rsage's relation-row gathers of phase 14, (3, 450000, 32) and (3, 75000, 32),
 labels drawn in the message graph's shares; and phase 15's: sasrec's item rows
 (10000, 106496, 64), 0.86 of them the pad id 0, asage's attribute rows
 (32, 25000, 32) and (32, 50000, 32), and the text bags' word rows (500,
-360000, 32) and (500, 4680000, 16), half of them pads on word 0.
+360000, 32) and (500, 4680000, 16), half of them pads on word 0; and phase
+17's: masked_topk at k = 50 over the anchor20k catalog in tiles of 2048 and
+1024 users, and scatter_add_rows at (32, 255744, 16), the ranker step's
+categorical rows.
 
 A device profile (torch.profiler) counts the kernels of a range of n calls,
 after 512 one-element kernels that take the records a session drops at its
@@ -275,6 +313,7 @@ import copy
 import csv
 import dataclasses
 import glob
+import importlib.util
 import inspect
 import io
 import json
@@ -292,7 +331,13 @@ import torch
 
 from furusato_recommend_tpu_torch.config import Config, ddp_flagship_config
 from furusato_recommend_tpu_torch import tools as ttools
-from furusato_recommend_tpu_torch.convert import flatten_params, params_from_jax, params_to_numpy
+from furusato_recommend_tpu_torch.convert import (
+    adam_state_from_jax,
+    adam_state_to_numpy,
+    flatten_params,
+    params_from_jax,
+    params_to_numpy,
+)
 from furusato_recommend_tpu_torch.data import synthetic_dataset
 from furusato_recommend_tpu_torch.data.artifacts import (
     synthetic_edge_times,
@@ -321,6 +366,8 @@ from furusato_recommend_tpu_torch.ops import _cuda
 from furusato_recommend_tpu_torch.ops import scatter as sc
 from furusato_recommend_tpu_torch.ops import streaming_topk as st
 from furusato_recommend_tpu_torch.ops.csr_search import csr_gather_padded
+from furusato_recommend_tpu_torch.rank.pipeline import _compact_rows, _dedup_rows
+from furusato_recommend_tpu_torch.rank.ranker import NeuralRanker, epoch_batches
 from furusato_recommend_tpu_torch.sampling.bpr import sample_bpr
 from furusato_recommend_tpu_torch.serve import Recommender, make_server
 from furusato_recommend_tpu_torch.train.trainer import Trainer
@@ -414,6 +461,16 @@ CADENCE_BLOCK = 8  # R = 8 and T = 8
 PROD_BATCH, PROD_K = 1000, 20
 PROD_USERS, PROD_REC_K = (3, 17, A20_USERS - 1), 10
 TOPK_KERNEL_NAMES = ("score_segments",)
+# phase 17: the two-stage ranker (tools/rank20k_torch.py's protocol) with the
+# retrievers' and the rankers' epochs cut from the record's 30 and 40; the
+# dumps' k and batch (tools dump-candidates' default batch: 1024); a ranker
+# step's categorical rows at the record's group width, 256 groups x 111
+# candidates x 9 columns into the 32-row table at emb 16 (phase 3's case)
+RANK_RETRIEVER_EPOCHS, RANK_RANKER_EPOCHS, RANK_STEPS_VS_CPU = 6, 10, 4
+RANK_K, RANK_DUMP_B, RANK_TOOL_B = 50, 2048, 1024
+RANK_ROWS, RANK_VOCAB, RANK_EMB = 256 * 111 * 9, 32, 16
+RANK_STACK_OF_BEST = 0.95  # the stack's recall@10 against the best retriever alone
+RANK_LATENCY_USERS, RANK_LATENCY_WIDTH = 4096, 100
 # profiler ranges (ops/segment.py, ops/scatter.py, sampling/bpr.py,
 # sampling/neighbor.py, eval/evaluate.py, torch.optim's own) and the step part
 # each one names
@@ -434,15 +491,17 @@ def log(*a):
     print(*a, flush=True)
 
 
-def compare(kv, ki, rv, ri, exact: bool) -> float:
-    """Rule 3 of the module docstring; returns the max abs value error."""
+def compare(kv, ki, rv, ri, exact: bool, tie_atol: float = 0.0) -> float:
+    """Rule 3 of the module docstring; returns the max abs value error.
+    ``tie_atol``: neighbouring values closer than that are ties too (scores
+    near 0, whose rounding error is not relative to them)."""
     kv, ki, rv, ri = (x.cpu().numpy() for x in (kv, ki, rv, ri))
     if exact:
         np.testing.assert_array_equal(ki, ri)
         np.testing.assert_array_equal(kv, rv)
         return 0.0
     np.testing.assert_allclose(kv, rv, rtol=RTOL, atol=ATOL)
-    gap = np.abs(np.diff(rv, axis=1)) > TIE_RTOL * np.abs(rv[:, 1:])
+    gap = np.abs(np.diff(rv, axis=1)) > TIE_RTOL * np.abs(rv[:, 1:]) + tie_atol
     sep = np.ones(ri.shape, dtype=bool)
     sep[:, 1:] &= gap
     sep[:, :-1] &= gap
@@ -527,6 +586,11 @@ def kernel_cases(dev) -> float:
         wide, wide_err = wide + c, max(wide_err, e)
     c, e = _topk_cases(dev, rng, 600, 300, TS_D, (1, 65, 512), (300,), True)
     wide, wide_err = wide + c, max(wide_err, e)
+    # the ranker's candidate dumps (phase 17): k = 50 over the anchor20k
+    # catalog, tiles of 2048 and of tools dump-candidates' 1024 users
+    c, e = _topk_cases(dev, np.random.default_rng(SEED + 17), A20_USERS, A20_ITEMS, TS_D,
+                       (RANK_DUMP_B, RANK_TOOL_B), (RANK_K,), True)
+    n, max_err = n + c, max(max_err, e)
     log(f"kernels: {n + wide} cases equal to the plain version (max abs err {max(max_err, wide_err):.3g}), "
         f"{wide} of them at k > {st.MAX_K} in bounded rounds (max abs err {wide_err:.3g}); "
         f"no host sync in the wrapper")
@@ -724,6 +788,9 @@ def scatter_cases(dev) -> float:
     # and the word rows of their per-id text bags (half of them pads on word 0)
     cases += [(500, np.where(rng.random(r) < 0.5, 0, rng.integers(0, 500, r)), d, None)
               for r, d in zip(WORD_ROWS[:2], (SEQ_D // 2, TS_D // 2))]
+    # the ranker's categorical rows (phase 17): 9 columns of 256 groups x 111
+    # candidates into the 32-row table at emb 16, about 8,000 rows an id
+    cases.append((RANK_VOCAB, np.random.default_rng(SEED + 17).integers(0, RANK_VOCAB, RANK_ROWS), RANK_EMB, None))
     max_err, n_cases = 0.0, 0
     for n, ids, d, plan in cases:
         ids_t = torch.from_numpy(ids.astype(np.int32)).to(dev)
@@ -2027,11 +2094,10 @@ def recency_first_max_on_card(ds, fs, dev) -> dict:
     return {"rows": b, "rows_tied_at_latest": ties}
 
 
-def step_gathers(trainer, batch, draws) -> list:
-    """(N, D, ids) of every ``table_gather`` that one training step of
-    ``trainer`` on ``batch`` makes, in the forward's order: the tables'
-    shapes and the clamped ids that the step's scatter launches receive. The
-    step is taken."""
+def recorded_gathers(fn) -> list:
+    """(N, D, ids) of every ``table_gather`` that ``fn()`` makes, in the
+    forward's order: the tables' shapes and the clamped ids that the
+    backward's scatter launches receive. ``fn`` runs."""
     seen, forward = [], sc._TableGather.forward
 
     def recording(ctx, table, ids):
@@ -2040,10 +2106,16 @@ def step_gathers(trainer, batch, draws) -> list:
 
     sc._TableGather.forward = staticmethod(recording)
     try:
-        trainer.train_epoch([batch], draws=[draws])
+        fn()
     finally:
         sc._TableGather.forward = staticmethod(forward)
     return seen
+
+
+def step_gathers(trainer, batch, draws) -> list:
+    """``recorded_gathers`` of one training step of ``trainer`` on ``batch``
+    (the step is taken)."""
+    return recorded_gathers(lambda: trainer.train_epoch([batch], draws=[draws]))
 
 
 def edge_20k(ds, fs, dev, textsage_r1, tgrec) -> dict:
@@ -2401,6 +2473,329 @@ def production_20k(ds, fs, dev, ckpt, root, smi) -> dict:
     return facts
 
 
+def _rank20k_module():
+    """``tools/rank20k_torch.py``: the protocol that phase 17 drives."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "rank20k_torch.py")
+    spec = importlib.util.spec_from_file_location("rank20k_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def compare_prefix(kv, ki, rv, ri, tie_atol: float = 0.0) -> float:
+    """``compare`` of k kernel columns against a plain top (k + 1): the
+    plain version's next key is appended to the kernel's columns, so a k-th
+    key tied with the (k + 1)-th may be either."""
+    k = ki.shape[1]
+    return compare(torch.cat([kv, rv[:, k:]], 1), torch.cat([ki, ri[:, k:]], 1), rv, ri, exact=False,
+                   tie_atol=tie_atol)
+
+
+def dump_vs_plain(U, I, mask, cand, batch) -> float:
+    """A dump [N, k] against masked_topk_reference (sigmoid off) on the same
+    embeddings and mask, batch by batch under rule 3(b) (``compare_prefix``),
+    neighbouring values within 2 x its atol counted as ties; every row
+    unique and free of train positives. Returns the max abs value error."""
+    n, k = cand.shape
+    err = 0.0
+    for lo in range(0, n, batch):
+        users = torch.arange(lo, min(lo + batch, n), device=U.device)
+        ids = torch.from_numpy(cand[lo:lo + batch]).to(U.device).long()
+        rv, ri = st.masked_topk_reference(U, I, users, k + 1, *mask, sigmoid=False)
+        # at k = 50 a weak retriever's dump reaches scores near 0, where two
+        # values within the value check's atol are ties too
+        err = max(err, compare_prefix(masked_values(U, I, users, ids, mask), ids, rv, ri, tie_atol=2 * ATOL))
+    srt = np.sort(cand, axis=1)
+    assert (srt[:, 1:] != srt[:, :-1]).all(), "a dump row repeats an item"
+    indptr, indices = (x.cpu().numpy() for x in mask)
+    m = I.shape[0]
+    train_keys = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr)) * m + indices
+    assert not np.isin(np.arange(n, dtype=np.int64)[:, None] * m + cand, train_keys).any(), \
+        "a train positive in a dump"
+    return err
+
+
+def ranker_card_vs_cpu(ranker, fs, groups, lr, dev) -> dict:
+    """RANK_STEPS_VS_CPU Adam steps of ``ranker``'s copies on the card and on
+    the CPU on the same batches, each card step from the CPU's parameters and
+    moments, under phase 10's rule (losses within rtol 1e-4, every parameter
+    within 2 lr, all but 1e-3 of them within 1e-6 + 1e-5 |p|); one scatter
+    launch a card step."""
+    cpu = NeuralRanker(fs, aux_dim=ranker.aux_dim)
+    card = NeuralRanker(fs, aux_dim=ranker.aux_dim).to(dev)
+    state = {k: v.detach().cpu() for k, v in ranker.state_dict().items()}
+    cpu.load_state_dict(state)
+    opt_cpu, opt_card = cpu.optimizer(lr), card.optimizer(lr)
+    perm = torch.randperm(len(groups), generator=torch.Generator().manual_seed(SEED + 17))
+    batches = epoch_batches(perm, 256)[:RANK_STEPS_VS_CPU]
+    groups_cpu, groups_card = groups.to("cpu"), groups.to(dev)
+    off = total = 0
+    worst = 0.0
+    losses = []
+    for step, idx in enumerate(batches):
+        params_from_jax({k: p.detach() for k, p in cpu.named_parameters()}, card)
+        if step:
+            adam_state_from_jax(*adam_state_to_numpy(opt_cpu, cpu), opt_card, card)
+        before = sc.launches
+        lc = float(card.train_step(groups_card, idx.to(dev), opt_card))
+        assert sc.launches == before + 1, "a ranker step on the card did not launch the scatter once"
+        lp = float(cpu.train_step(groups_cpu, idx, opt_cpu))
+        np.testing.assert_allclose(lc, lp, rtol=1e-4, err_msg=f"step {step}")
+        losses.append((lc, lp))
+        ref = dict(cpu.named_parameters())
+        for name, p in card.named_parameters():
+            diff = (p.detach().cpu() - ref[name].detach()).abs()
+            assert bool((diff <= 2 * lr).all()), f"step {step} {name}: {float(diff.max())}"
+            off += int((diff > 1e-6 + 1e-5 * ref[name].detach().abs()).sum())
+            total += diff.numel()
+            worst = max(worst, float(diff.max()))
+    assert off <= 1e-3 * total, f"{off} of {total} parameter values differ"
+    log(f"rank-20k ranker card vs CPU ({RANK_STEPS_VS_CPU} steps, each from the CPU's state): losses "
+        f"{[round(a, 6) for a, _ in losses]} / {[round(b, 6) for _, b in losses]}; parameters within 1e-6 + "
+        f"1e-5 |p| but {off} of {total} (max abs diff {worst:.3g})")
+    return {"losses": losses, "params_off": off, "params_total": total, "max_abs_diff": worst}
+
+
+def rank_tiles_vs_one(ranker, full, dumps) -> dict:
+    """rank() over the evaluation's candidate union in tiles of 2048 users
+    against one tile of all of them: ids equal, or swapped only inside
+    near-ties of the scores (rtol 1e-5)."""
+    eval_dict = full.test_dict()
+    users = np.asarray(sorted(eval_dict), np.int64)
+    cand = np.concatenate([d[users].astype(np.int64) for d in dumps], axis=1)
+    kept, (cand_mat,) = _compact_rows(_dedup_rows(cand, np.ones_like(cand, dtype=bool)), cand, width=160)
+    u = torch.from_numpy(users.astype(np.int32))
+    c = torch.from_numpy(np.where(kept, cand_mat, 0).astype(np.int32))
+    mask = torch.from_numpy(np.ascontiguousarray(kept))
+    tiled = ranker.rank(u, c, k=10, mask=mask, chunk=2048).cpu().numpy()
+    one = ranker.rank(u, c, k=10, mask=mask, chunk=len(users)).cpu().numpy()
+    rows = np.nonzero((tiled != one).any(axis=1))[0]
+    if len(rows):
+        sel = torch.from_numpy(rows)
+        with torch.no_grad():
+            s = ranker.score(u[sel, None], c[sel]).cpu().numpy()
+        for r, row in enumerate(rows):
+            col = {int(i): float(v) for i, v in zip(c[row].tolist(), s[r])}
+            a = np.asarray([col[int(i)] for i in tiled[row] if i >= 0])
+            b = np.asarray([col[int(i)] for i in one[row] if i >= 0])
+            np.testing.assert_allclose(np.sort(a), np.sort(b), rtol=1e-5, err_msg=f"user {users[row]}")
+    log(f"rank-20k rank(): {len(users)} users in tiles of 2048 and in one tile, ids equal but {len(rows)} "
+        f"rows' near-ties")
+    return {"users": len(users), "rows_in_near_ties": int(len(rows))}
+
+
+def rank_dump_numbers(U, I, dev) -> dict:
+    """masked_topk at the dump's shape (B 2048, M 10000, d 32, k 50, unmasked,
+    sigmoid off) beside its plain version, matmul + torch.topk, torch.topk
+    alone over the same scores, and the bound (2 B M d operations)."""
+    users = torch.arange(RANK_DUMP_B, device=dev)
+    b, m, d, k = RANK_DUMP_B, I.shape[0], I.shape[1], RANK_K
+    scores = U[users] @ I.T
+    t_bytes = (4 * (m * d + b * d + b) + 12 * b * k) / HBM_BYTES_PER_S
+    t_flops = 2 * b * m * d / F32_FLOP_PER_S
+    out = {
+        "B": b, "M": m, "d": d, "k": k, "masked": False, "sigmoid": False,
+        "ms": event_ms(lambda: st.masked_topk(U, I, users, k)),
+        "plain_ms": event_ms(lambda: st.masked_topk_reference(U, I, users, k)),
+        "library_ms": event_ms(lambda: torch.topk(U[users] @ I.T, k)),
+        "topk_only_ms": event_ms(lambda: torch.topk(scores, k)),
+        "bound_ms": 1e3 * max(t_bytes, t_flops),
+        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "kernel_profile": device_profile(lambda: st.masked_topk(U, I, users, k),
+                                         per_call=dict.fromkeys(("score_segments", "merge_segments"), 1)),
+    }
+    log(f"masked_topk B={b} k={k} (the dump's shape): {out['ms']:.4f} ms (device "
+        f"{out['kernel_profile']['device_ms']:.4f}); plain {out['plain_ms']:.4f}, matmul + torch.topk "
+        f"{out['library_ms']:.4f}, torch.topk alone {out['topk_only_ms']:.4f}, bound {out['bound_ms']:.5f} by "
+        f"{out['bound_by']}")
+    return out
+
+
+def rank_20k(ds, fs, dev, root, ckpt, smi) -> dict:
+    """Phase 17: the two-stage ranker on phase 12's graph and features, as
+    tools/rank20k_torch.py runs it at cut epochs, with phase 16's data
+    directory and checkpoint; each part with the launch counts set to 0 just
+    before it and read just after; then its checks and numbers."""
+    t_phase = time.perf_counter()
+    r20 = _rank20k_module()
+    data_dir = os.path.join(root, "data")  # phase 16's, in the reference's layout
+    launches = {}
+
+    @contextlib.contextmanager
+    def counted(name):
+        st.launches = sc.launches = 0
+        yield
+        launches[name] = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
+
+    # the path: the split, stages A and B, then the tools
+    t0 = time.perf_counter()
+    reduced, full, held = r20.lgbm_split(data_dir)
+    split_s = time.perf_counter() - t0
+    assert (reduced.train_size, len(held[0])) == (r20.REDUCED_EDGES, r20.HELD_EDGES), (
+        reduced.train_size, len(held[0]))
+    assert full.train_size == ds.train_size and (full.n_users, full.m_items) == (ds.n_users, ds.m_items)
+    log(f"rank-20k split: {reduced.train_size} reduced and {len(held[0])} held edges, as the JAX record "
+        f"({split_s:.1f} s to read)")
+    rows = []
+    out = r20.run(reduced, full, held, fs, RANK_RETRIEVER_EPOCHS, RANK_RANKER_EPOCHS, dev, seed=SEED,
+                  emit=lambda **row: rows.append(row), part=counted)
+    tool_dir = os.path.join(root, "rank")
+    os.makedirs(tool_dir, exist_ok=True)
+    cand_path, ranker_path = os.path.join(tool_dir, "candidates_textsage.npy"), os.path.join(tool_dir, "ranker.ckpt")
+    common = ["--data_path", data_dir, "--device", dev.type]
+    tools = {}
+    for name, argv in (("tool_dump", ["dump-candidates", "--ckpt", ckpt, "--out", cand_path]),
+                       ("tool_train_ranker", ["train-ranker", "--candidates", cand_path, "--epochs", "1",
+                                              "--out", ranker_path]),
+                       ("tool_rerank_eval", ["rerank-eval", "--candidates", cand_path, "--ranker", ranker_path])):
+        with counted(name):
+            tools[name], _ = _tools([*argv, *common])
+
+    # checks: the launches of each part
+    n_tiles = -(-full.n_users // RANK_DUMP_B)
+    per_step = {"lgn": 4, "textsage": 2}
+    for (name, stage), tr in out["trainers"].items():
+        want = {"masked_topk": 0, "scatter_add_rows": per_step[name] * tr.num_batches * RANK_RETRIEVER_EPOCHS}
+        assert launches[f"train_{name}_{stage}"] == want, (name, stage, launches[f"train_{name}_{stage}"], want)
+        assert launches[f"dump_{name}_{stage}"] == {"masked_topk": n_tiles, "scatter_add_rows": 0}, (
+            name, stage, launches[f"dump_{name}_{stage}"])
+    for name in r20.RETRIEVERS:
+        eval_tiles = int(out["trainers"][(name, "B")].eval_data.users.shape[0])
+        assert launches[f"evaluate_{name}"] == {"masked_topk": eval_tiles, "scatter_add_rows": 0}
+    g_fit = int((out["groups_aux"].users % r20.VAL_EVERY != 0).sum())
+    steps = {"ref": RANK_RANKER_EPOCHS * max(len(out["groups"]) // 256, 1),
+             "aux": RANK_RANKER_EPOCHS * max(g_fit // 256, 1)}
+    for tag, n in steps.items():  # one a joint step; the warm steps take wa's gradient alone
+        assert launches[f"fit_{tag}"] == {"masked_topk": 0, "scatter_add_rows": n}, (tag, launches[f"fit_{tag}"], n)
+    for name in ("groups", "groups_aux", "rerank", "rerank_aux", "calibrate", "rerank_stack", "tool_rerank_eval"):
+        assert launches[name] == {"masked_topk": 0, "scatter_add_rows": 0}, (name, launches[name])
+    assert launches["tool_dump"] == {"masked_topk": -(-full.n_users // RANK_TOOL_B), "scatter_add_rows": 0}
+    tool_steps = max(tools["tool_train_ranker"]["groups"] // 256, 1)
+    assert launches["tool_train_ranker"] == {"masked_topk": 0, "scatter_add_rows": tool_steps}
+    log(f"rank-20k: masked_topk launches {n_tiles} a dump (4 dumps), {eval_tiles} an evaluation, "
+        f"{launches['tool_dump']['masked_topk']} for tools dump-candidates at its batch of {RANK_TOOL_B}; "
+        f"scatter_add_rows once a ranker step: {steps['ref']} (parity), {steps['aux']} (aux, after its warm "
+        f"epochs), {tool_steps} (tools train-ranker)")
+
+    # checks: every dump against the plain top-k, first 10 columns against the evaluation
+    max_err, moved = 0.0, {}
+    for (name, stage), tr in out["trainers"].items():
+        with torch.no_grad():
+            U, I = tr.model.propagate(tr.graph)
+        U, I = U.float().contiguous(), I.float().contiguous()
+        mask = (tr.graph.user_pos.indptr, tr.graph.user_pos.indices)
+        cand = out["dumps"][(name, stage)]
+        assert cand.shape == (full.n_users, RANK_K) and cand.dtype == np.int32
+        max_err = max(max_err, dump_vs_plain(U, I, mask, cand, RANK_DUMP_B))
+        if stage == "B":
+            results, topk = out["trainer_eval"][name]
+            valid = tr.eval_data.valid.reshape(-1)
+            users = tr.eval_data.users.reshape(-1)[valid]
+            ids = torch.from_numpy(cand[users.cpu().numpy(), :10]).to(dev).long()
+            shown = torch.from_numpy(np.asarray(topk)[:, :10]).to(dev).long()
+            rv, ri = st.masked_topk_reference(U, I, users, 11, *mask)
+            compare_prefix(masked_values(U, I, users, shown, mask), shown, rv, ri)
+            moved[name] = int((shown != ids).sum())
+            alone = out["alone"][name]["recall@10"]
+            if moved[name] == 0:
+                assert abs(alone - results["recall@10"]) <= 1e-6, (name, alone, results["recall@10"])
+            else:  # ids swapped only inside near-ties (checked above)
+                np.testing.assert_allclose(alone, results["recall@10"], rtol=1e-3, err_msg=name)
+            if name == "textsage":
+                numbers_U, numbers_I = U, I
+    rec = Recommender.from_checkpoint(ckpt, data_path=data_dir, use_inference_edges=False, device=dev)
+    tool_cand = np.load(cand_path)
+    max_err = max(max_err, dump_vs_plain(rec._user_emb, rec._item_emb, (rec._mask.indptr, rec._mask.indices),
+                                         tool_cand, RANK_TOOL_B))
+    assert np.array_equal(tool_cand, tools["tool_dump"]["candidates"])
+    log(f"rank-20k dumps: 5 dumps of {full.n_users} x {RANK_K} equal to the plain top-k under rule 3(b) (max abs "
+        f"err {max_err:.3g}), rows unique, no train positive; the first 10 columns equal to the trainer's "
+        f"evaluation but {moved} ids in near-ties (recall@10 lgn {out['alone']['lgn']['recall@10']:.5f}, "
+        f"textsage {out['alone']['textsage']['recall@10']:.5f})")
+
+    # checks: the parity fit lowers the loss; the card against the CPU; tiles
+    sub = out["groups"].select(torch.arange(min(2048, len(out["groups"])))).to(dev)
+    fresh = NeuralRanker(fs).to(dev)
+    fresh.init_parameters(torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        loss_init, loss_fit = float(fresh.group_loss(sub)), float(out["ranker_ref"].group_loss(sub))
+    assert loss_fit < loss_init, (loss_init, loss_fit)
+    losses = out["losses_ref"]
+    log(f"rank-20k parity fit: {len(out['groups'])} groups of width {out['groups'].items.shape[1]}, {steps['ref']} "
+        f"steps; loss on 2048 groups {loss_init:.5f} at init -> {loss_fit:.5f}; epoch means {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}")
+    vs_cpu = ranker_card_vs_cpu(out["ranker_ref"], fs, out["groups"], r20.RANKER["lr"], dev)
+    tiles = rank_tiles_vs_one(out["ranker_ref"], full, [out["dumps"][(n, "B")] for n in r20.RETRIEVERS])
+
+    # checks: the re-rank quality
+    rr = out["rerank"]
+    best = max(out["alone"][n]["recall@10"] for n in r20.RETRIEVERS)
+    stack = rr["stack"]["rerank_recall@10"]
+    assert stack > rr["ref"]["rerank_recall@10"], (stack, rr["ref"])
+    assert stack >= RANK_STACK_OF_BEST * best, (stack, best)
+    assert all(0.0 <= v <= 1.0 for v in tools["tool_rerank_eval"]["results"].values())
+    beta, gamma, val_r = out["calibration"]
+    log(f"rank-20k recall@10: lgn alone {out['alone']['lgn']['recall@10']:.5f}, textsage alone "
+        f"{out['alone']['textsage']['recall@10']:.5f}, parity rerank {rr['ref']['rerank_recall@10']:.5f}, aux "
+        f"rerank {rr['aux']['rerank_recall@10']:.5f}, stack {stack:.5f} (beta {beta}, gamma {gamma}, val recall "
+        f"{val_r:.5f}; at least {RANK_STACK_OF_BEST} x the best alone and above parity); tools rerank-eval "
+        f"{tools['tool_rerank_eval']['results']['rerank_recall@10']:.5f} (JAX record, TPU, 30 / 40 epochs: "
+        f"0.09768, 0.21118, 0.19903, 0.16702, 0.22985)")
+
+    # numbers: the dump's top-k, a real ranker step's scatter, rank()
+    dump_topk = rank_dump_numbers(numbers_U, numbers_I, dev)
+    step_ranker = NeuralRanker(fs).to(dev)
+    step_ranker.load_state_dict(out["ranker_ref"].state_dict())
+    opt = step_ranker.optimizer(r20.RANKER["lr"])
+    gidx = torch.arange(256, device=dev)
+    groups_dev = out["groups"].to(dev)
+    (gather,) = recorded_gathers(lambda: step_ranker.train_step(groups_dev, gidx, opt))
+    n, d, ids = gather
+    assert (n, d) == (RANK_VOCAB, RANK_EMB) and ids.numel() == 256 * out["groups"].items.shape[1] * 9, gather[:2]
+    (scatter,) = scatter_numbers_at([(n, ids)], dev, d, rows_seed=SEED + 18)
+    lat_users = torch.arange(RANK_LATENCY_USERS, device=dev, dtype=torch.int32)
+    lat_cand = torch.from_numpy(np.concatenate(
+        [out["dumps"][(nm, "B")][:RANK_LATENCY_USERS] for nm in r20.RETRIEVERS], axis=1)).to(dev)
+    assert lat_cand.shape[1] == RANK_LATENCY_WIDTH
+    lat_mask = torch.ones_like(lat_cand, dtype=torch.bool)
+
+    def rank_call():
+        return out["ranker_ref"].rank(lat_users, lat_cand, k=10, mask=lat_mask)
+
+    rank_prof = device_profile(rank_call, n=10)
+    rank_numbers = {"users": RANK_LATENCY_USERS, "cand_width": RANK_LATENCY_WIDTH, "host_ms": host_ms(rank_call),
+                    "device_ms": rank_prof["device_ms"] if rank_prof else None, "profile": rank_prof}
+    if rank_prof:
+        rank_numbers["users_per_s_device"] = RANK_LATENCY_USERS / (rank_prof["device_ms"] / 1e3)
+    rank_numbers["users_per_s_host"] = RANK_LATENCY_USERS / (rank_numbers["host_ms"] / 1e3)
+    log(f"rank-20k rank(): {RANK_LATENCY_USERS} users x {RANK_LATENCY_WIDTH} candidates {rank_numbers['host_ms']:.3f} "
+        f"ms on the host, device {rank_numbers['device_ms']} ms")
+    secs = out["seconds"]
+    fits = {tag: {"groups": g, "epochs": RANK_RANKER_EPOCHS, "fit_s": secs[f"fit_{tag}"],
+                  "groups_per_s": g * RANK_RANKER_EPOCHS / secs[f"fit_{tag}"],
+                  "s_per_epoch": secs[f"fit_{tag}"] / (RANK_RANKER_EPOCHS + (r20.WARM_EPOCHS if tag == "aux" else 0))}
+            for tag, g in (("ref", len(out["groups"])), ("aux", g_fit))}
+    facts = {
+        "card": smi, "retriever_epochs": RANK_RETRIEVER_EPOCHS, "ranker_epochs": RANK_RANKER_EPOCHS,
+        "split": {"reduced_edges": reduced.train_size, "held_edges": len(held[0]), "read_s": split_s},
+        "groups": {"n": len(out["groups"]), "width": int(out["groups"].items.shape[1]),
+                   "n_aux": len(out["groups_aux"]), "n_aux_fit": g_fit},
+        "launches": launches, "seconds": secs, "fits": fits, "rows": rows,
+        "alone": out["alone"], "trainer_recall@10": {n: out["trainer_eval"][n][0]["recall@10"]
+                                                      for n in r20.RETRIEVERS},
+        "rerank": rr, "calibration": {"beta": beta, "gamma": gamma, "val_recall": val_r},
+        "wa": [float(x) for x in out["ranker_aux"].wa.detach().cpu()],
+        "loss_init_fit": [loss_init, loss_fit], "card_vs_cpu": vs_cpu, "tiles": tiles,
+        "dump_max_abs_err": max_err, "ids_moved_in_ties": moved,
+        "tools": {k: {"seconds": v["seconds"]} for k, v in tools.items()},
+        "tool_rerank_eval": tools["tool_rerank_eval"]["results"],
+        "dump_topk": dump_topk, "ranker_scatter": scatter, "rank": rank_numbers,
+    }
+    facts["phase_s"] = time.perf_counter() - t_phase
+    log(f"rank-20k: {facts['phase_s']:.0f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")")
+    return facts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -2634,7 +3029,13 @@ def main() -> int:
     # 16. production-20k: phase 12's checkpoint through tools evaluate / infer
     # / recommend, production inference over the inference edge set
     prod = production_20k(a20_ds, a20_fs, dev, prod_ckpt, prod_dir.name, smi)
+
+    # 17. rank-20k: the two-stage ranker on the anchor20k graph from phase
+    # 16's data directory; the tools from phase 12's checkpoint
+    rank = rank_20k(a20_ds, a20_fs, dev, prod_dir.name, prod_ckpt, smi)
     prod_dir.cleanup()
+    rank_launches = {kernel: sum(part[kernel] for part in rank["launches"].values())
+                     for kernel in ("masked_topk", "scatter_add_rows")}
     prod_launches = prod["launches"]["evaluate"] + prod["launches"]["infer_k20"] + prod["launches"][
         "infer_k200"] + prod["launches"]["recommend"]
 
@@ -2648,7 +3049,7 @@ def main() -> int:
         "launches": (serve_launches + train["launches"]["masked_topk"] + ts_serve_launches
                      + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]
                      + att["launches"]["masked_topk"] + edge["launches"]["masked_topk"]
-                     + seq["launches"]["masked_topk"] + prod_launches),
+                     + seq["launches"]["masked_topk"] + prod_launches + rank_launches["masked_topk"]),
         "launches_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"],
                              "serve_textsage": ts_serve_launches,
                              "train_textsage": ts_train_launches["masked_topk"],
@@ -2656,8 +3057,12 @@ def main() -> int:
                              "attention_20k": att["launches"]["masked_topk"],
                              "edge_20k": edge["launches"]["masked_topk"],
                              "sequence_attr_20k": seq["launches"]["masked_topk"],
-                             "production_20k": prod_launches},
+                             "production_20k": prod_launches,
+                             "rank_20k": rank_launches["masked_topk"]},
         "launches_per_call": f"ceil(k / {st.MAX_K}): one a round",
+        "rank_dump": {key: rank["dump_topk"][key] for key in (
+            "B", "k", "M", "d", "ms", "plain_ms", "library_ms", "topk_only_ms", "bound_ms", "bound_by",
+            "kernel_profile")},
         "k200": {"at": {"B": 512, "k": ATT_K, "M": a20_ds.m_items, "d": TS_D}, "launches_per_call": 2,
                  **{key: att_k200[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                                    "kernel_profile", "request_ms")}},
@@ -2683,7 +3088,8 @@ def main() -> int:
         "replaces": "furusato_recommend_tpu/ops/pallas_scatter.py:97",
         "launches": (train["launches"]["scatter_add_rows"] + ts_train_launches["scatter_add_rows"]
                      + a20["launches"]["scatter_add_rows"] + att["launches"]["scatter_add_rows"]
-                     + edge["launches"]["scatter_add_rows"] + seq["launches"]["scatter_add_rows"]),
+                     + edge["launches"]["scatter_add_rows"] + seq["launches"]["scatter_add_rows"]
+                     + rank_launches["scatter_add_rows"]),
         "launches_by_path": {"serve": 0, "train": train["launches"]["scatter_add_rows"],
                              "serve_textsage": ts_serve["launches"]["scatter_add_rows"],
                              "train_textsage": ts_train_launches["scatter_add_rows"],
@@ -2691,7 +3097,8 @@ def main() -> int:
                              "attention_20k": att["launches"]["scatter_add_rows"],
                              "edge_20k": edge["launches"]["scatter_add_rows"],
                              "sequence_attr_20k": seq["launches"]["scatter_add_rows"],
-                             "production_20k": prod["launches"]["scatter_add_rows"]},
+                             "production_20k": prod["launches"]["scatter_add_rows"],
+                             "rank_20k": rank_launches["scatter_add_rows"]},
         "launches_per_step": train["scatter_launches_per_step"],
         "launches_per_step_textsage": ts_train["scatter_launches_per_step"],
         "textsage_shapes": ts_sc_shapes,
@@ -2704,6 +3111,10 @@ def main() -> int:
                                                           "library_device_ms", "bound_ms", "bound_by",
                                                           "global_adds", "largest_id_share")}
                                  for t in seq["scatter_shapes"]],
+        "rank_shape": {key: rank["ranker_scatter"][key] for key in (
+            "N", "R", "D", "plan", "ms", "row_mode_ms", "plain_ms", "library_ms", "device_ms",
+            "row_mode_device_ms", "library_device_ms", "bound_ms", "bound_by", "global_adds",
+            "largest_id_share")},
         "max_abs_err": sc_max_err,
         "ms": sc_head["ms"],
         "row_mode_ms": sc_head["row_mode_ms"],
@@ -2749,6 +3160,10 @@ def main() -> int:
     log(json.dumps({"production": {
         "model": "textsage", "d": TS_D, "relin_every": CADENCE_BLOCK, "users": A20_USERS, "items": A20_ITEMS,
         "train_edges": A20_EDGES, "features": "informative", **prod}}))
+    log(json.dumps({"rank": {
+        "retrievers": {"lgn": {"d": 32, "B": 2048, "lr": 0.01}, "textsage": {"d": TS_D, "recipe": "ddp_flagship"}},
+        "k_cand": RANK_K, "users": A20_USERS, "items": A20_ITEMS, "train_edges": A20_EDGES,
+        "features": "informative", **rank}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -11,7 +11,10 @@ losses, the table gather whose backward is the scatter-add kernel
 ``ops/scatter.py``, the trainer, the evaluator and ``cli.py``); for the SAGE
 family (``models/sage.py``), serving and training with the ddp recipe, the
 trainer's cadences of the cached feature tables and the out-of-core ``dask``
-variant (``data/ooc.py``). Each kernel's CUDA source is in ``csrc/``.
+variant (``data/ooc.py``); the checkpoint tools (``tools.py``); the two-stage
+ranker (``rank/``: candidate dumps through the masked top-k, the neural
+LambdaRank re-ranker whose embedding gradient goes through the scatter-add).
+Each kernel's CUDA source is in ``csrc/``.
 
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``.
 """

@@ -17,6 +17,12 @@ trainer's partitioned optimizers (``optax.multi_transform`` of ``adam`` and
 features) keep an Adam state whose moments are ``MaskedNode``s outside its
 group; the port keeps one ``torch.optim.Adam`` a group, and
 ``adam_state_from_jax`` sets only the parameters its optimizer steps.
+
+The re-ranker (``rank/ranker.py``) keeps JAX's flat names too. A ranker
+calibrated by the JAX package carries its (beta, gamma, val recall) as a
+``_calibration`` leaf among its parameters; the port keeps them beside the
+ranker (``ranker_params_from_jax`` returns them, ``ranker_params_to_numpy``
+writes them back as that leaf).
 """
 
 from __future__ import annotations
@@ -29,8 +35,10 @@ from torch import nn
 
 __all__ = [
     "params_from_jax", "params_to_numpy", "adam_state_from_jax", "adam_state_to_numpy",
-    "flatten_params", "nest_params",
+    "flatten_params", "nest_params", "ranker_params_from_jax", "ranker_params_to_numpy",
 ]
+
+CALIBRATION = "_calibration"  # the JAX ranker's (beta, gamma, val recall) leaf
 
 
 def _is_dict_list(v) -> bool:
@@ -155,3 +163,26 @@ def adam_state_to_numpy(
             mu[name] = np.zeros(tuple(p.shape), np.float32)
             nu[name] = np.zeros(tuple(p.shape), np.float32)
     return count, nest_params(mu, _list_lengths(model)), nest_params(nu, _list_lengths(model))
+
+
+def ranker_params_from_jax(
+    np_params: Mapping[str, Any], ranker: nn.Module
+) -> Optional[Tuple[float, float, float]]:
+    """Copy the JAX ranker's parameter dict into ``ranker`` (as
+    ``params_from_jax``); returns its ``_calibration`` leaf as (beta, gamma,
+    val recall), or None when it has none."""
+    params = dict(np_params)
+    cal = params.pop(CALIBRATION, None)
+    params_from_jax(params, ranker)
+    return None if cal is None else tuple(float(x) for x in np.asarray(cal).reshape(-1))
+
+
+def ranker_params_to_numpy(
+    ranker: nn.Module, calibration: Optional[Tuple[float, float, float]] = None
+) -> Dict[str, Any]:
+    """The ranker's parameters as the JAX package's dict of numpy arrays,
+    with ``calibration`` as its ``_calibration`` leaf when given."""
+    out = params_to_numpy(ranker)
+    if calibration is not None:
+        out[CALIBRATION] = np.asarray(calibration, np.float32)
+    return out

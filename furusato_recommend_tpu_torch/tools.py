@@ -1,12 +1,15 @@
-"""Checkpoint tools of the port (counterpart of ``tools.py``):
+"""Checkpoint and ranker tools of the port (counterpart of ``tools.py``):
 
   python -m furusato_recommend_tpu_torch.tools evaluate --ckpt ... [--save_result out.csv]
   python -m furusato_recommend_tpu_torch.tools infer --ckpt ... --target_batches 0,9 --k 20
   python -m furusato_recommend_tpu_torch.tools recommend --ckpt ... --users 3,17 --k 10
+  python -m furusato_recommend_tpu_torch.tools dump-candidates --ckpt ... --k 50
+  python -m furusato_recommend_tpu_torch.tools train-ranker --candidates a.npy b.npy
+  python -m furusato_recommend_tpu_torch.tools rerank-eval --candidates a.npy b.npy --ranker r.ckpt
 
-Each loads a checkpoint of the port (``Trainer.save`` or
+The checkpoint subcommands load a checkpoint of the port (``Trainer.save`` or
 ``core.checkpoint.save_checkpoint``; ``tools/export_jax_checkpoint.py``
-converts one of the JAX package's) and rebuilds its dataset and model from the
+converts one of the JAX package's) and rebuild its dataset and model from the
 reference's layout under the config's ``data_path`` (or ``--data_path``):
 
 - ``evaluate``: the full-catalog metrics as JSON, and with ``--save_result``
@@ -14,16 +17,25 @@ reference's layout under the config's ``data_path`` (or ``--data_path``):
 - ``infer``: one propagation over the inference edge set, a masked top-k per
   target batch of users masking only the train positives, one CSV a batch
   (``eval/inference.py``);
-- ``recommend``: one JSON line a user through ``serve.Recommender``.
+- ``recommend``: one JSON line a user through ``serve.Recommender``;
+- ``dump-candidates``: every user's top k with the train positives masked,
+  ``candidates_<model>.npy`` (``rank/pipeline.py::dump_candidates``).
+
+The two-stage ranker's subcommands read the data directory's ``nc`` features:
+
+- ``train-ranker``: the ``for_lgbm`` split (``lgbm_ratio / 0.7`` of each
+  user's items held out), the candidate dumps labelled by the held-out edges,
+  a ``NeuralRanker`` fit, its parameters saved under the JAX names;
+- ``rerank-eval``: that ranker re-ranks the dumps' union; recall, ndcg and
+  hit rate at k on the test split as JSON.
 
 The flags are the JAX package's, with its defaults, plus ``--device``
 (default ``cuda``; raises without CUDA unless ``--device cpu``). The
-subcommands of the two-stage ranker (``dump-candidates``, ``train-ranker``,
-``rerank-eval``) and of preprocessing (``preprocess``, ``convert-recbole``)
-take the JAX package's flags and raise ``NotImplementedError``: they are not
-ported yet. ``main`` returns what the subcommand computed, with the host
-seconds of its parts under ``"seconds"`` (``obs.log.step_timer``, which does
-not wait for the card: a part that needs the card's results waits for them).
+subcommands of preprocessing (``preprocess``, ``convert-recbole``) take the
+JAX package's flags and raise ``NotImplementedError``: they are not ported
+yet. ``main`` returns what the subcommand computed, with the host seconds of
+its parts under ``"seconds"`` (``obs.log.step_timer``, which does not wait
+for the card: a part that needs the card's results waits for them).
 """
 
 from __future__ import annotations
@@ -38,9 +50,6 @@ __all__ = ["main"]
 
 #: the subcommands not ported yet, and the step of ROADMAP.md's queue 1 that ports them
 _NOT_PORTED = {
-    "dump-candidates": "2 (two-stage ranking)",
-    "train-ranker": "2 (two-stage ranking)",
-    "rerank-eval": "2 (two-stage ranking)",
     "preprocess": "3 (preprocessing)",
     "convert-recbole": "3 (preprocessing)",
 }
@@ -162,6 +171,90 @@ def cmd_recommend(args):
     return {"lines": lines, "ids": ids, "scores": scores, "seconds": timer.seconds}
 
 
+def cmd_dump_candidates(args):
+    """Checkpoint -> propagation -> every user's masked top k, saved as .npy."""
+    from .obs.log import step_timer
+    from .rank.pipeline import dump_candidates
+
+    timer = _Seconds()
+    with step_timer("load", timer):
+        config, dataset, model = _load_run(args)
+    with step_timer("dump", timer, trace=True):
+        cands = dump_candidates(model, dataset.graph, k=args.k, device=args.device)
+    out = args.out or f"candidates_{config.model}.npy"
+    with step_timer("save", timer):
+        np.save(out, cands)
+    print(f"wrote {out} shape={cands.shape}")
+    return {"path": out, "candidates": cands, "seconds": timer.seconds}
+
+
+def _ranker_inputs(config):
+    """(dataset, features) of the ranker's data directory."""
+    from .data.dataset import load_text_dataset
+    from .data.features import load_reference_features
+
+    return load_text_dataset(config), load_reference_features(config, config.data_path)
+
+
+def cmd_train_ranker(args):
+    """Candidate dumps -> labelled groups over the for_lgbm holdout ->
+    ``NeuralRanker.fit`` -> checkpoint."""
+    from .config import Config
+    from .convert import ranker_params_to_numpy
+    from .core.checkpoint import save_checkpoint
+    from .data.dataset import load_text_dataset
+    from .obs.log import step_timer
+    from .rank.pipeline import build_rank_groups
+    from .rank.ranker import NeuralRanker
+
+    timer = _Seconds()
+    # make_X reads the numeric and categorical columns
+    config = Config(data_path=args.data_path, for_lgbm=True, lgbm_ratio=args.lgbm_ratio,
+                    user_feature="nc", item_feature="nc")
+    with step_timer("load", timer):
+        dataset, features = _ranker_inputs(config)
+        full = load_text_dataset(config.replace(for_lgbm=False))
+        cands = [np.load(p) for p in args.candidates]
+    with step_timer("groups", timer):
+        # held out: the full edge set less the for_lgbm train set, one
+        # setdiff over flat (user, item) keys
+        m = np.int64(full.m_items)
+        key_full = full.train_user.astype(np.int64) * m + full.train_item
+        key_train = dataset.train_user.astype(np.int64) * m + dataset.train_item
+        held_keys = np.setdiff1d(key_full, key_train)
+        groups = build_rank_groups(dataset, cands, holdout=(held_keys // m, held_keys % m))
+    with step_timer("fit", timer, trace=True):
+        ranker = NeuralRanker(features).to(args.device)
+        losses = ranker.fit(groups, epochs=args.epochs, verbose=True).cpu().numpy()
+    with step_timer("save", timer):
+        save_checkpoint(args.out, ranker_params_to_numpy(ranker), config)
+    print(f"wrote {args.out}")
+    return {"path": args.out, "groups": len(groups), "losses": losses, "seconds": timer.seconds}
+
+
+def cmd_rerank_eval(args):
+    """Ranker checkpoint + candidate dumps -> re-ranked metrics on the test split."""
+    from .config import Config
+    from .convert import ranker_params_from_jax
+    from .core.checkpoint import load_checkpoint
+    from .obs.log import step_timer
+    from .rank.pipeline import rerank_eval
+    from .rank.ranker import NeuralRanker
+
+    timer = _Seconds()
+    config = Config(data_path=args.data_path, user_feature="nc", item_feature="nc")
+    with step_timer("load", timer):
+        dataset, features = _ranker_inputs(config)
+        ranker = NeuralRanker(features)
+        ranker_params_from_jax(load_checkpoint(args.ranker)["params"], ranker)
+        ranker.to(args.device)
+        cands = [np.load(p) for p in args.candidates]
+    with step_timer("rerank", timer, trace=True):
+        results = rerank_eval(ranker, dataset, cands, dataset.test_dict(), k=args.k)
+    print(json.dumps(results, indent=2))
+    return {"results": results, "seconds": timer.seconds}
+
+
 def _not_ported(args):
     raise NotImplementedError(
         f"`tools {args.cmd}` is not ported yet: ROADMAP.md queue 1, step {_NOT_PORTED[args.cmd]}"
@@ -172,11 +265,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="furusato_recommend_tpu_torch.tools")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    d = sub.add_parser("dump-candidates", help="checkpoint -> top-k dump (not ported yet)")
+    d = sub.add_parser("dump-candidates", help="checkpoint -> top-k dump")
     d.add_argument("--ckpt", required=True)
     d.add_argument("--k", type=int, default=50)
     d.add_argument("--out", default=None)
     d.add_argument("--data_path", default=None)
+    d.set_defaults(fn=cmd_dump_candidates)
 
     e = sub.add_parser("evaluate", help="checkpoint -> metrics")
     e.add_argument("--ckpt", required=True)
@@ -206,18 +300,20 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="propagate over train edges even if an inference edge set exists")
     s.set_defaults(fn=cmd_recommend)
 
-    t = sub.add_parser("train-ranker", help="candidates -> ranker (not ported yet)")
+    t = sub.add_parser("train-ranker", help="candidates -> ranker")
     t.add_argument("--candidates", nargs="+", required=True)
     t.add_argument("--data_path", default="./data")
     t.add_argument("--lgbm_ratio", type=float, default=0.1)
     t.add_argument("--epochs", type=int, default=30)
     t.add_argument("--out", default="./ranker.ckpt")
+    t.set_defaults(fn=cmd_train_ranker)
 
-    r = sub.add_parser("rerank-eval", help="candidates -> re-ranked metrics (not ported yet)")
+    r = sub.add_parser("rerank-eval", help="candidates -> re-ranked metrics")
     r.add_argument("--candidates", nargs="+", required=True)
     r.add_argument("--ranker", required=True)
     r.add_argument("--data_path", default="./data")
     r.add_argument("--k", type=int, default=10)
+    r.set_defaults(fn=cmd_rerank_eval)
 
     pp = sub.add_parser("preprocess", help="raw dataframes -> artifact dir (not ported yet)")
     pp.add_argument("--products", required=True, help=".csv or .pkl product frame")

@@ -160,6 +160,15 @@ def test_cuda_kernel_above_128_in_rounds(m, d):
 
 
 @pytest.mark.cuda
+def test_cuda_kernel_at_the_candidate_dump_shape():
+    """The ranker's candidate dumps: k = 50 over 10,000 items at d = 32, tiles
+    of 2048 and 1024 users (and one), the sigmoid off as the dumps run it
+    (and on)."""
+    _need_card()
+    _check_topk(2100, 10000, 32, (1, 1024, 2048), (50,), torch.device("cuda"))
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_whole_catalog_in_rounds():
     """k = M = 300: three rounds, the densely masked row's -1024 entries
     ranked by id at its end."""
@@ -274,6 +283,16 @@ def test_cuda_scatter_matches_plain_version(n, r, d, exact):
     rng = np.random.default_rng(n + r + d)
     ids = _zipf_ids(n, r, rng) if (n, r) == (30_000, 285_000) else rng.integers(0, n, r)
     _check_scatter(n, ids, d, exact, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+def test_cuda_scatter_at_the_ranker_shape(exact):
+    """The ranker's categorical gradient: 256 groups x 111 candidates x 9
+    columns into a 32-row table at emb 16, about 8,000 rows an id."""
+    _need_card()
+    rng = np.random.default_rng(23)
+    _check_scatter(32, rng.integers(0, 32, 256 * 111 * 9), 16, exact, rng)
 
 
 @pytest.mark.cuda

@@ -23,6 +23,12 @@ outside both packages. It writes the port's ``.npz``
 JAX's threefry key cannot be carried into a ``torch.Generator``: the file has
 no ``generator`` state, and ``Trainer.restore`` starts the sampler's stream
 from ``config.seed``.
+
+A ranker checkpoint of the JAX package's ``tools train-ranker`` (``{"params":
+...}``, no optimizer state) exports as its parameters and config; a
+calibrated ranker's ``_calibration`` leaf goes along as one of them, and the
+port's ``tools rerank-eval`` reads it through
+``convert.ranker_params_from_jax``.
 """
 
 from __future__ import annotations

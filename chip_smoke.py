@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, production and ranking paths on
-one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training, production, ranking and
+preprocessing paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root, on a machine with one card
 
@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero):
   1. device    the card's name and power limit (nvidia-smi); fails without CUDA
   2. build     every CUDA source of the port, compiled by nvcc for sm_90a, one
                nvcc per source, all started together; the top-k pass 1's
-               blocks per SM from the occupancy API
+               blocks per SM from the occupancy API; the host C++
+               (csrc/host/furusato_host.cpp) by g++, whose failure fails the run
   3. kernels   each kernel against its plain PyTorch version on the card.
                masked_topk (d=64, M=20000, B in {1, 8, 64, 512}, k in
                {10, 20, 128}; and the tiling's edges: (M, d) in {(127, 32),
@@ -282,6 +283,32 @@ Phases (any failure raises and exits non-zero):
                of one real ranker step (N 32, R 256 x C x 9, D 16), rank() at
                4096 users x 100 candidates (a {"rank": ...} line with the
                card's name and power limit)
+ 18. preprocess-20k
+               preprocessing on the host, then training on its output:
+               synthetic_raw_tables(seed 0) written as CSV files under a
+               temporary directory (20,000 customers; 12,000 product rows that
+               dedup to the 10,000 planted products; 1,741 partners; 40
+               categories; about 180,000 transactions; 20,000 reviews);
+               tools preprocess --incremental_frac 0.1 --test_holdout 1 run
+               twice into two directories, every file byte-equal between
+               them, n_product the planted count; load_text_dataset and
+               load_reference_features read the directory back (user
+               features n / c / t, item features n / c / t / s / r, as
+               tests/test_full_chain.py trains), the shapes those of the
+               summary; tools convert-recbole --k_core 5 --iterate on the
+               transactions, its .inter read back by read_recbole with every
+               user and item at 5 rows or more; the flagship recipe
+               (Trainer(ddp_recipe=True), d 32, L 2, fanout 5, B 5000, tiles
+               of 2048 users) for 3 epochs between two evaluations: the last
+               epoch's loss below the first's, recall@10 above its start,
+               scatter_add_rows 4 times a step (a tree gather and a
+               categorical gather a side) and masked_topk once per
+               evaluation tile, counted from 0 over the training; one
+               evaluation against the plain top-k (phase 7's rule); 2 steps
+               on the card against the CPU (phase 12's step-by-step rule);
+               then the host seconds of each stage of both runs and of
+               cuckoo_build at this phase's edges and at phase 6's (a
+               {"preprocess": ...} line with the card's name and power limit)
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
 30000, B in {1, 64, 512, 1024}, k in {10, 20}, and at phase 12's evaluation
@@ -366,6 +393,11 @@ from furusato_recommend_tpu_torch.ops import _cuda
 from furusato_recommend_tpu_torch.ops import scatter as sc
 from furusato_recommend_tpu_torch.ops import streaming_topk as st
 from furusato_recommend_tpu_torch.ops.csr_search import csr_gather_padded
+from furusato_recommend_tpu_torch.ops.cuckoo import build_cuckoo_set
+from furusato_recommend_tpu_torch.preprocessing import native
+from furusato_recommend_tpu_torch.preprocessing.filtering import read_recbole
+from furusato_recommend_tpu_torch.preprocessing.pipeline import STAGES as PRE_PIPELINE_STAGES
+from furusato_recommend_tpu_torch.preprocessing.synthetic import synthetic_raw_tables
 from furusato_recommend_tpu_torch.rank.pipeline import _compact_rows, _dedup_rows
 from furusato_recommend_tpu_torch.rank.ranker import NeuralRanker, epoch_batches
 from furusato_recommend_tpu_torch.sampling.bpr import sample_bpr
@@ -471,6 +503,15 @@ RANK_K, RANK_DUMP_B, RANK_TOOL_B = 50, 2048, 1024
 RANK_ROWS, RANK_VOCAB, RANK_EMB = 256 * 111 * 9, 32, 16
 RANK_STACK_OF_BEST = 0.95  # the stack's recall@10 against the best retriever alone
 RANK_LATENCY_USERS, RANK_LATENCY_WIDTH = 4096, 100
+# phase 18: tools preprocess on synthetic_raw_tables' default sizes (20,000
+# customers, 12,000 product rows of 10,000 products, 1,741 partners, 40
+# categories, 20,000 reviews), then the flagship recipe on its output with
+# the features tests/test_full_chain.py trains with; the card's steps held
+# against the CPU
+PRE_UNIQUE = 10_000
+PRE_FEATURES = {"user_feature": "nct", "item_feature": "nctsr"}
+PRE_EPOCHS, PRE_STEPS_VS_CPU, PRE_RECBOLE_K = 3, 2, 5
+PRE_STAGES = ("read",) + PRE_PIPELINE_STAGES
 # profiler ranges (ops/segment.py, ops/scatter.py, sampling/bpr.py,
 # sampling/neighbor.py, eval/evaluate.py, torch.optim's own) and the step part
 # each one names
@@ -2796,6 +2837,133 @@ def rank_20k(ds, fs, dev, root, ckpt, smi) -> dict:
     return facts
 
 
+def _files(root) -> dict:
+    """{path under root: bytes} of every file below ``root``."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            with open(os.path.join(d, n), "rb") as f:
+                out[os.path.relpath(os.path.join(d, n), root)] = f.read()
+    return out
+
+
+def preprocess_20k(dev, smi, lgn_edges) -> dict:
+    """Phase 18: raw tables -> tools preprocess (twice, byte-equal) -> the
+    artifact directory read back -> tools convert-recbole -> the flagship
+    recipe trained on the directory through both kernels; then the host
+    seconds of each stage and of cuckoo_build."""
+    t_phase = time.perf_counter()
+    facts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        raw = synthetic_raw_tables(seed=SEED)
+        paths = raw.write_csv(os.path.join(tmp, "raw"))
+        facts["tables_s"] = time.perf_counter() - t0
+        facts["rows"] = {name: len(next(iter(cols.values()))) for name, cols in raw.tables.items()}
+        assert raw.n_unique_products == PRE_UNIQUE
+        runs = []
+        for name in ("a", "b"):
+            out, _ = _tools(["preprocess", "--products", paths["products"], "--customers", paths["customers"],
+                             "--transactions", paths["transactions"], "--product_category", paths["category"],
+                             "--partner", paths["partner"], "--reviews", paths["reviews"],
+                             "--out", os.path.join(tmp, name), "--incremental_frac", "0.1",
+                             "--test_holdout", "1"])
+            runs.append(out)
+        summary = runs[0]["summary"]
+        assert runs[1]["summary"] == {**summary, "out_dir": os.path.join(tmp, "b")}
+        files = [_files(os.path.join(tmp, name)) for name in ("a", "b")]
+        assert sorted(files[0]) == sorted(files[1]) and all(files[0][k] == files[1][k] for k in files[0]), [
+            k for k in files[0] if files[0][k] != files[1].get(k)]
+        assert summary["n_product"] == PRE_UNIQUE, (summary["n_product"], PRE_UNIQUE)
+        log(f"preprocess-20k: {facts['rows']} rows -> {summary['n_product']} products (the planted count), "
+            f"{summary['n_customer']} customers, {summary['n_transaction']} transactions, vocabulary "
+            f"{summary['text_vocab']}; two runs byte-equal over {len(files[0])} files "
+            f"({sum(len(v) for v in files[0].values()) / 2**20:.1f} MiB)")
+
+        # the directory read back
+        data = os.path.join(tmp, "a")
+        cfg = a20_config(data_path=data, **PRE_FEATURES)
+        t0 = time.perf_counter()
+        ds = load_text_dataset(cfg)
+        fs = load_reference_features(cfg, data)
+        facts["load_s"] = time.perf_counter() - t0
+        assert (ds.n_users, ds.m_items) == (summary["n_customer"], summary["n_product"])
+        assert list(fs.user.categorical.shape) == summary["user_categorical_shape"]
+        assert list(fs.item.categorical.shape) == summary["item_categorical_shape"]
+        assert fs.item.text.shape[:2] == (summary["n_product"], 4) and fs.user.text.shape[:2] == (
+            summary["n_customer"], 3)
+        assert fs.item.sentence.shape == (summary["n_product"], 768)
+        assert fs.user.numeric.shape[0] == summary["n_customer"] and fs.item.numeric.shape[0] == summary["n_product"]
+        shapes = {f"{side}_{k}": list(getattr(getattr(fs, side), k).shape) for side in ("user", "item")
+                  for k in ("numeric", "categorical", "text") + (("sentence",) if side == "item" else ())}
+        log(f"preprocess-20k read back: {ds.train_size} train edges; features {shapes} "
+            f"({facts['load_s']:.1f} s)")
+
+        # the RecBole export of the raw transactions, 5-core to its fixpoint
+        rb = os.path.join(tmp, "recbole")
+        out, _ = _tools(["convert-recbole", "--interactions", paths["transactions"], "--user_col", "customer_id",
+                         "--item_col", "product_id", "--k_core", str(PRE_RECBOLE_K), "--iterate", "--out", rb])
+        inter = read_recbole(os.path.join(rb, "furusato.inter"))
+        assert len(inter) == out["rows"] > 0
+        least = {}
+        for col in ("user_id", "item_id"):
+            _, counts = np.unique(inter[col].astype(str), return_counts=True)
+            least[col] = int(counts.min())
+            assert least[col] >= PRE_RECBOLE_K, (col, least[col])
+        facts["recbole"] = {"rows": len(inter), "least_rows": least, "seconds": out["seconds"]}
+
+        # the flagship recipe on the directory
+        st.launches = sc.launches = 0
+        model = build_model("textsage", cfg, ds.graph, features=fs, generator=torch.Generator().manual_seed(SEED))
+        trainer = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=True, device=dev)
+        trainer.init_state()
+        n_tiles = int(trainer.eval_data.users.shape[0])
+        before = trainer.test()
+        runs_ep = [_timed_epoch(trainer) for _ in range(PRE_EPOCHS)]
+        after = trainer.test()
+        launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
+        steps = PRE_EPOCHS * trainer.num_batches
+        # a step: one tree gather a side, and a categorical gather a side (features c)
+        per_step = 2 + sum("c" in cfg_f for cfg_f in (cfg.user_feature, cfg.item_feature))
+        assert launches["scatter_add_rows"] == per_step * steps, (launches, per_step, steps)
+        assert launches["masked_topk"] == 2 * n_tiles, (launches, n_tiles)
+        losses = [m for _, m, _ in runs_ep]
+        assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+        assert after["recall@10"] > before["recall@10"], (before, after)
+        log(f"preprocess-20k train: {PRE_EPOCHS} epochs of {trainer.num_batches} steps, loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, recall@10 {before['recall@10']:.4f} -> {after['recall@10']:.4f}; scatter "
+            f"launches {launches['scatter_add_rows']} ({per_step} per step over {steps} steps), masked_topk "
+            f"launches {launches['masked_topk']} ({n_tiles} tiles per evaluation)")
+        facts.update(
+            launches=launches, scatter_per_step=per_step, steps=steps, eval_tiles=n_tiles,
+            epoch_s=[e for e, _, _ in runs_ep], loss=losses,
+            recall={"before": before, "after": after}, features=shapes, summary=summary,
+        )
+        facts["eval_vs_plain"] = eval_kernel_vs_plain(trainer)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+        batches, draws = _block(trainer, gen, PRE_STEPS_VS_CPU)
+        facts["card_vs_cpu"] = card_vs_cpu_epoch(ds, fs, cfg, params_to_numpy(trainer.model), batches, draws,
+                                                 dev, "preprocess-20k card vs CPU")
+        del trainer, model
+
+        # cuckoo_build on the host: this phase's train edges and phase 6's
+        cuckoo = {}
+        for name, (u, v) in (("preprocess_20k", (ds.train_user, ds.train_item)), ("lgn_50k", lgn_edges)):
+            t0 = time.perf_counter()
+            cs = build_cuckoo_set(u, v)
+            cuckoo[name] = {"edges": int(len(u)), "seconds": time.perf_counter() - t0,
+                            "table_slots": int(cs.mask + 1)}
+        facts["cuckoo_build"] = cuckoo
+    facts["seconds"] = {"tables": facts["tables_s"], **{f"run{i + 1}": r["seconds"] for i, r in enumerate(runs)}}
+    facts["smi"] = smi
+    facts["phase_s"] = time.perf_counter() - t_phase
+    stage = ", ".join(f"{k} {runs[0]['seconds'][k]:.2f}" for k in PRE_STAGES)
+    log(f"preprocess-20k host s (run 1): {stage}; cuckoo_build "
+        + ", ".join(f"{k} {v['edges']} edges {v['seconds']:.3f} s" for k, v in cuckoo.items())
+        + f"; phase {facts['phase_s']:.0f} s")
+    return facts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -2814,6 +2982,9 @@ def main() -> int:
     t0 = time.perf_counter()
     report = _cuda.build()
     log(f"build: {len(report)} sources in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    native.library()  # the host C++ (g++); a failed build raises
+    log(f"build: the host library in {time.perf_counter() - t0:.1f} s")
     for name, r in report.items():
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -3039,6 +3210,10 @@ def main() -> int:
     prod_launches = prod["launches"]["evaluate"] + prod["launches"]["infer_k20"] + prod["launches"][
         "infer_k200"] + prod["launches"]["recommend"]
 
+    # 18. preprocess-20k: raw tables -> tools preprocess -> the flagship
+    # trained and evaluated on the artifact directory
+    pre = preprocess_20k(dev, smi, (ds.train_user, ds.train_item))
+
     ts_serve_launches = ts_serve["launches"]["masked_topk"]
     ts_train_launches = ts_train["launches"]
     kernels = [{
@@ -3049,7 +3224,8 @@ def main() -> int:
         "launches": (serve_launches + train["launches"]["masked_topk"] + ts_serve_launches
                      + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]
                      + att["launches"]["masked_topk"] + edge["launches"]["masked_topk"]
-                     + seq["launches"]["masked_topk"] + prod_launches + rank_launches["masked_topk"]),
+                     + seq["launches"]["masked_topk"] + prod_launches + rank_launches["masked_topk"]
+                     + pre["launches"]["masked_topk"]),
         "launches_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"],
                              "serve_textsage": ts_serve_launches,
                              "train_textsage": ts_train_launches["masked_topk"],
@@ -3058,7 +3234,8 @@ def main() -> int:
                              "edge_20k": edge["launches"]["masked_topk"],
                              "sequence_attr_20k": seq["launches"]["masked_topk"],
                              "production_20k": prod_launches,
-                             "rank_20k": rank_launches["masked_topk"]},
+                             "rank_20k": rank_launches["masked_topk"],
+                             "preprocess_20k": pre["launches"]["masked_topk"]},
         "launches_per_call": f"ceil(k / {st.MAX_K}): one a round",
         "rank_dump": {key: rank["dump_topk"][key] for key in (
             "B", "k", "M", "d", "ms", "plain_ms", "library_ms", "topk_only_ms", "bound_ms", "bound_by",
@@ -3089,7 +3266,7 @@ def main() -> int:
         "launches": (train["launches"]["scatter_add_rows"] + ts_train_launches["scatter_add_rows"]
                      + a20["launches"]["scatter_add_rows"] + att["launches"]["scatter_add_rows"]
                      + edge["launches"]["scatter_add_rows"] + seq["launches"]["scatter_add_rows"]
-                     + rank_launches["scatter_add_rows"]),
+                     + rank_launches["scatter_add_rows"] + pre["launches"]["scatter_add_rows"]),
         "launches_by_path": {"serve": 0, "train": train["launches"]["scatter_add_rows"],
                              "serve_textsage": ts_serve["launches"]["scatter_add_rows"],
                              "train_textsage": ts_train_launches["scatter_add_rows"],
@@ -3098,7 +3275,8 @@ def main() -> int:
                              "edge_20k": edge["launches"]["scatter_add_rows"],
                              "sequence_attr_20k": seq["launches"]["scatter_add_rows"],
                              "production_20k": prod["launches"]["scatter_add_rows"],
-                             "rank_20k": rank_launches["scatter_add_rows"]},
+                             "rank_20k": rank_launches["scatter_add_rows"],
+                             "preprocess_20k": pre["launches"]["scatter_add_rows"]},
         "launches_per_step": train["scatter_launches_per_step"],
         "launches_per_step_textsage": ts_train["scatter_launches_per_step"],
         "textsage_shapes": ts_sc_shapes,
@@ -3164,6 +3342,8 @@ def main() -> int:
         "retrievers": {"lgn": {"d": 32, "B": 2048, "lr": 0.01}, "textsage": {"d": TS_D, "recipe": "ddp_flagship"}},
         "k_cand": RANK_K, "users": A20_USERS, "items": A20_ITEMS, "train_edges": A20_EDGES,
         "features": "informative", **rank}}))
+    log(json.dumps({"preprocess": {
+        "model": "textsage", "d": TS_D, **PRE_FEATURES, "epochs": PRE_EPOCHS, **pre}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

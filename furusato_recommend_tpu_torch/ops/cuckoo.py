@@ -6,10 +6,12 @@ every probe depends on the previous one.
 
 - Every inserted pair is found; a query that was not inserted is reported as
   present only on a full 32-bit fingerprint collision (about n / 2^32).
-- The table is built on the host by ``build_cuckoo_set`` (numpy; the JAX
-  package's C++ builder is not carried over, its numpy fallback is) and probed
-  on any device by ``cuckoo_contains``. Both share the murmur3 ``fmix32`` slot
-  math bit for bit with the JAX package, so the same pairs give the same table.
+- The table is built on the host by ``build_cuckoo_set`` through the host
+  library's ``cuckoo_build`` (``preprocessing/native.py``, the port's copy of
+  the JAX package's C++ build; ``_build_numpy`` is its plain version, for
+  the tests) and probed on any device by ``cuckoo_contains``. Both share the
+  murmur3 ``fmix32`` slot math bit for bit with the JAX package, so the same
+  pairs give the same table.
 
 torch has no full uint32 arithmetic: on tensors, the 32-bit values live in
 int64 and every product is masked back to its low 32 bits, which a wrapped
@@ -78,9 +80,10 @@ class CuckooSet:
 
 
 def _build_numpy(fps: np.ndarray, table: np.ndarray, max_kicks: int) -> int:
-    """Insert every fingerprint into ``table`` (uint32, zeroed) by cuckoo
-    eviction walks; returns the number of keys that found no slot. The hash
-    math is vectorised; the walk uses plain Python ints."""
+    """The plain version of the host library's ``cuckoo_build``: insert every
+    fingerprint into ``table`` (uint32, zeroed) by cuckoo eviction walks;
+    returns the number of keys that found no slot. The hash math is
+    vectorised; the walk uses plain Python ints."""
     mask = len(table) - 1
     with np.errstate(over="ignore"):
         h1s = (_fmix32(fps ^ np.uint32(_C_H1)) & np.uint32(mask)).astype(np.int64)
@@ -114,15 +117,17 @@ def _build_numpy(fps: np.ndarray, table: np.ndarray, max_kicks: int) -> int:
 
 
 def build_cuckoo_set(u: np.ndarray, v: np.ndarray, load: float = 0.35) -> CuckooSet:
-    """Host build over int pair arrays, as a CPU tensor. Doubles the table
-    until every key places: a failed eviction walk strands a displaced key,
-    so the whole table is rebuilt."""
+    """Host build over int pair arrays, as a CPU tensor, through the host
+    library's ``cuckoo_build``. Doubles the table until every key places: a
+    failed eviction walk strands a displaced key, so the whole table is
+    rebuilt."""
+    from ..preprocessing.native import cuckoo_build
     fps = np.ascontiguousarray(_fingerprints(np.asarray(u), np.asarray(v)))
     n = len(fps)
     size = 1 << max(int(np.ceil(np.log2(max(n, 1) / load))), 4)
     while True:
         table = np.zeros(size, dtype=np.uint32)
-        if _build_numpy(fps, table, 500) == 0:
+        if cuckoo_build(fps, table, 500) == 0:
             return CuckooSet(table=torch.from_numpy(table.astype(np.int64)), mask=size - 1)
         size *= 2
 

@@ -6,6 +6,9 @@
   python -m furusato_recommend_tpu_torch.tools dump-candidates --ckpt ... --k 50
   python -m furusato_recommend_tpu_torch.tools train-ranker --candidates a.npy b.npy
   python -m furusato_recommend_tpu_torch.tools rerank-eval --candidates a.npy b.npy --ranker r.ckpt
+  python -m furusato_recommend_tpu_torch.tools preprocess --products p.csv --customers c.csv \
+      --transactions t.csv --out ./data
+  python -m furusato_recommend_tpu_torch.tools convert-recbole --interactions t.csv --out ./recbole
 
 The checkpoint subcommands load a checkpoint of the port (``Trainer.save`` or
 ``core.checkpoint.save_checkpoint``; ``tools/export_jax_checkpoint.py``
@@ -29,13 +32,22 @@ The two-stage ranker's subcommands read the data directory's ``nc`` features:
 - ``rerank-eval``: that ranker re-ranks the dumps' union; recall, ndcg and
   hit rate at k on the test split as JSON.
 
-The flags are the JAX package's, with its defaults, plus ``--device``
-(default ``cuda``; raises without CUDA unless ``--device cpu``). The
-subcommands of preprocessing (``preprocess``, ``convert-recbole``) take the
-JAX package's flags and raise ``NotImplementedError``: they are not ported
-yet. ``main`` returns what the subcommand computed, with the host seconds of
-its parts under ``"seconds"`` (``obs.log.step_timer``, which does not wait
-for the card: a part that needs the card's results waits for them).
+The preprocessing subcommands run on the host alone, on CSV (or, with
+pandas, ``.pkl``) tables:
+
+- ``preprocess``: raw product, customer and transaction tables (and the
+  optional category, partner and review tables) to the artifact directory
+  that ``--data_path`` then names (``preprocessing/pipeline.py``), its summary
+  as JSON;
+- ``convert-recbole``: an interaction table, k-core filtered when asked, to
+  RecBole's atomic files (``preprocessing/filtering.py``).
+
+The flags are the JAX package's, with its defaults; the subcommands that use
+the card also take ``--device`` (default ``cuda``; raises without CUDA unless
+``--device cpu``). ``main`` returns what the subcommand computed, with the
+host seconds of its parts under ``"seconds"`` (``obs.log.step_timer``, which
+does not wait for the card: a part that needs the card's results waits for
+them).
 """
 
 from __future__ import annotations
@@ -48,11 +60,8 @@ import numpy as np
 
 __all__ = ["main"]
 
-#: the subcommands not ported yet, and the step of ROADMAP.md's queue 1 that ports them
-_NOT_PORTED = {
-    "preprocess": "3 (preprocessing)",
-    "convert-recbole": "3 (preprocessing)",
-}
+#: the subcommands that run on the host alone and take no --device
+_HOST_ONLY = ("preprocess", "convert-recbole")
 
 
 class _Seconds:
@@ -255,10 +264,63 @@ def cmd_rerank_eval(args):
     return {"results": results, "seconds": timer.seconds}
 
 
-def _not_ported(args):
-    raise NotImplementedError(
-        f"`tools {args.cmd}` is not ported yet: ROADMAP.md queue 1, step {_NOT_PORTED[args.cmd]}"
+def cmd_preprocess(args):
+    """Raw tables -> ID dedup -> categorical / numeric / text / category
+    features -> the optional incremental round -> the artifact directory
+    and the cf/train.txt / test.txt split."""
+    from .obs.log import step_timer
+    from .preprocessing.frame import read_table
+    from .preprocessing.pipeline import run_preprocessing
+
+    timer = _Seconds()
+    with step_timer("read", timer):
+        tables = {name: read_table(getattr(args, name)) for name in (
+            "products", "customers", "transactions", "product_category", "partner", "reviews")}
+    summary = run_preprocessing(
+        tables["products"],
+        tables["customers"],
+        tables["transactions"],
+        args.out,
+        product_category=tables["product_category"],
+        partner=tables["partner"],
+        reviews=tables["reviews"],
+        suffix=args.suffix,
+        incremental_frac=args.incremental_frac,
+        test_holdout=args.test_holdout,
+        sink=timer,
     )
+    print(json.dumps(summary, indent=2))
+    return {"summary": summary, "seconds": timer.seconds}
+
+
+def cmd_convert_recbole(args):
+    """An interaction table (k-core filtered when asked) -> RecBole atomic files."""
+    from .obs.log import step_timer
+    from .preprocessing.filtering import k_core, write_recbole
+    from .preprocessing.frame import read_table
+
+    timer = _Seconds()
+    with step_timer("read", timer):
+        inter = read_table(args.interactions)
+        users, items = read_table(args.users), read_table(args.items)
+    if args.k_core > 1:
+        before = len(inter)
+        with step_timer("k_core", timer):
+            inter = k_core(inter, args.k_core, item_col=args.item_col, user_col=args.user_col,
+                           iterate=args.iterate)
+        print(f"k_core({args.k_core}): {before} -> {len(inter)} interactions")
+    extra = [c for c in args.extra_inter_cols.split(",") if c]
+    dropped = [c for c in inter.columns if c not in (args.user_col, args.item_col, *extra)]
+    if dropped:
+        print(f"[convert-recbole] dropping interaction columns {dropped} "
+              f"(pass --extra_inter_cols to keep them)")
+    types = dict(kv.split("=", 1) for kv in args.types.split(",") if kv)
+    with step_timer("write", timer):
+        written = write_recbole(args.out, args.name, inter, users=users, items=items,
+                                item_col=args.item_col, user_col=args.user_col,
+                                extra_inter_cols=extra, types=types)
+    print(json.dumps(written, indent=2))
+    return {"written": written, "rows": len(inter), "seconds": timer.seconds}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -315,7 +377,7 @@ def build_argparser() -> argparse.ArgumentParser:
     r.add_argument("--k", type=int, default=10)
     r.set_defaults(fn=cmd_rerank_eval)
 
-    pp = sub.add_parser("preprocess", help="raw dataframes -> artifact dir (not ported yet)")
+    pp = sub.add_parser("preprocess", help="raw tables -> artifact dir")
     pp.add_argument("--products", required=True, help=".csv or .pkl product frame")
     pp.add_argument("--customers", required=True)
     pp.add_argument("--transactions", required=True)
@@ -324,32 +386,42 @@ def build_argparser() -> argparse.ArgumentParser:
     pp.add_argument("--reviews", default=None)
     pp.add_argument("--out", required=True, help="artifact directory (becomes --data_path)")
     pp.add_argument("--suffix", default="")
-    pp.add_argument("--incremental_frac", type=float, default=0.1)
-    pp.add_argument("--test_holdout", type=int, default=1)
+    pp.add_argument("--incremental_frac", type=float, default=0.1,
+                    help="fraction of every input pushed through update() after "
+                         "initialize (the reference's OFFSET slicing; 0 disables)")
+    pp.add_argument("--test_holdout", type=int, default=1,
+                    help="last-k interactions per user written to cf/test.txt")
+    pp.set_defaults(fn=cmd_preprocess)
 
-    c = sub.add_parser("convert-recbole", help="dataframes -> RecBole atomic files (not ported yet)")
+    c = sub.add_parser("convert-recbole",
+                       help="tables -> RecBole atomic files (optionally k-core filtered first)")
     c.add_argument("--interactions", required=True, help=".csv or .pkl dataframe")
     c.add_argument("--users", default=None)
     c.add_argument("--items", default=None)
     c.add_argument("--out", required=True)
     c.add_argument("--name", default="furusato")
-    c.add_argument("--k_core", type=int, default=1)
-    c.add_argument("--iterate", action="store_true")
+    c.add_argument("--k_core", type=int, default=1, help="5/10 = README five_core/ten_core")
+    c.add_argument("--iterate", action="store_true", help="iterate k-core to fixpoint")
     c.add_argument("--user_col", default="customer_id")
     c.add_argument("--item_col", default="remap_id")
-    c.add_argument("--extra_inter_cols", default="")
-    c.add_argument("--types", default="")
+    c.add_argument("--extra_inter_cols", default="",
+                   help="comma-separated interaction columns to keep beyond "
+                        "user/item (e.g. rating,timestamp)")
+    c.add_argument("--types", default="",
+                   help="col=type overrides, comma-separated; namespace with "
+                        "table. for per-table types (e.g. "
+                        "timestamp=float,user.timestamp=token)")
+    c.set_defaults(fn=cmd_convert_recbole)
 
     for name, parser in sub.choices.items():
-        parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-        if name in _NOT_PORTED:
-            parser.set_defaults(fn=_not_ported)
+        if name not in _HOST_ONLY:
+            parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.fn is not _not_ported:
+    if args.cmd not in _HOST_ONLY:
         from .core.device import resolve_device
 
         args.device = resolve_device(args.device)  # raises without CUDA unless --device cpu

@@ -491,13 +491,19 @@ def test_export_refuses_a_moment_unlike_its_parameter(leaf):
 
 
 @pytest.mark.parametrize("cmd", ["preprocess", "convert-recbole"])
-def test_unported_subcommands_raise(cmd):
+def test_unported_subcommands_raise(cmd, tmp_path):
+    """The preprocessing subcommands, once unported, now run on the host:
+    they take no --device (so no CUDA check) and read their tables, which
+    raises for a file that is not there."""
     args = {
-        "preprocess": ["--products", "p", "--customers", "c", "--transactions", "t", "--out", "o"],
-        "convert-recbole": ["--interactions", "i", "--out", "o"],
+        "preprocess": ["--products", "p.csv", "--customers", "c.csv", "--transactions", "t.csv"],
+        "convert-recbole": ["--interactions", "i.csv"],
     }[cmd]
-    with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP.md queue 1, step 3"):
-        ttools.main([cmd, *args])
+    missing = [str(tmp_path / a) if a.endswith(".csv") else a for a in args]
+    with pytest.raises(FileNotFoundError):
+        ttools.main([cmd, *missing, "--out", str(tmp_path / "o")])
+    with pytest.raises(SystemExit):
+        ttools.build_argparser().parse_args([cmd, *missing, "--out", "o", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("cmd", ["evaluate", "infer", "recommend", "dump-candidates", "train-ranker", "rerank-eval"])

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, production, ranking and
-preprocessing paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training, production, ranking,
+preprocessing and multi-device paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root, on a machine with one card
 
@@ -267,11 +267,14 @@ Phases (any failure raises and exits non-zero):
                train-ranker --epochs 1 on that dump and rerank-eval of that
                ranker; the launch counts set to 0 before each part and read
                after it. Checks: every dump against masked_topk_reference
-               (sigmoid off) under rule 3(b) against a plain top (k + 1),
-               neighbouring values within 2 x atol counted as ties, rows
-               unique, no train positive; the stage-B dumps' first 10 columns
-               against the trainer's evaluation (the same ids but near-ties;
-               recall@10 equal when no id moved); the parity loss on 2048
+               (sigmoid off) on the embeddings the dump scored (a
+               propagation does not repeat itself bit for bit on the card)
+               under rule 3(b) against a plain top (k + 1), neighbouring
+               values within 2 x atol counted as ties, rows unique, no train
+               positive; the trainer's evaluation against the plain top-k on
+               its own embeddings, and the stage-B dumps' first 10 columns
+               against it (the same ids but near-ties; recall@10 equal when
+               no id moved); the parity loss on 2048
                groups below its value at the fit's initial parameters; 4
                ranker steps on the card against the CPU (phase 10's rule, each
                step from the CPU's state); rank() in tiles of 2048 against one
@@ -309,6 +312,51 @@ Phases (any failure raises and exits non-zero):
                then the host seconds of each stage of both runs and of
                cuckoo_build at this phase's edges and at phase 6's (a
                {"preprocess": ...} line with the card's name and power limit)
+ 19. mesh-20k  the (data, model) mesh of torch.distributed at (2, 2): 4 rank
+               processes, all on cuda:0, collectives over gloo (NCCL refuses
+               two ranks on one card), each building its Trainer from phase
+               16's data directory as a user does. The DDP flagship (textsage,
+               ddp_flagship_config, d 32) and lgn (d 64), both with the ddp
+               recipe and float32 SpMM operands (MESH_DTYPE says why), each
+               against the same config, seed and draws in one process on the
+               card: 2 steps from fresh parameters on the same batches under
+               phase 7's rule (losses within rtol 1e-5 and 1e-4, every
+               parameter within 4 x lr, all but 1e-3 of them within 1e-6 +
+               1e-5 |p|), the first step's gradients within 1e-6 + 1e-4 x
+               their tensor's largest magnitude; then an evaluation, 2
+               epochs and an evaluation: losses within rtol MESH_LOSS_RTOL,
+               metrics within MESH_METRIC_ATOL, every parameter within
+               MESH_PARAM_LRS x lr (the scatter's atomic adds and the GEMMs
+               over a data rank's rows round otherwise, and Adam turns a
+               near-zero gradient's rounding into +-lr; two one-process
+               runs of textsage are printed beside them); the four ranks
+               bit-equal to rank 0 in losses, metrics, the first step's
+               gradients, whole parameters and Adam moments (the replicas
+               must not drift apart); textsage saved with Trainer.save on
+               every rank: rank 0 alone writes, the keys and shapes of the
+               one-process checkpoint, whole tables and moments bit-equal to
+               the ranks', the one-process run's generator state (the mesh
+               draws what one process draws), and a one-process Trainer
+               restores it and evaluates within MESH_RESTORE_ATOL of the
+               mesh; on every rank scatter_add_rows launched 2 times a
+               textsage step and 4 times an lgn step, masked_topk once a
+               tile of each evaluation (the rank's half of each tile of 2048
+               users against its half of the catalog), counted from 0 over
+               each path, every launch at a shape of MESH_SCATTER_SHAPES /
+               MESH_TOPK_SHAPES, which phase 3 holds against the plain
+               versions; each rank's MiB of row-sharded parameters and Adam
+               moments against the whole tables'; sharded_masked_topk at (M,
+               d) = (10000, 32) and (10000, 64), the rank's 1024 of 2048
+               users, k in {20, 200} against the plain top-k over the whole
+               catalog (rule 3(b)), and sharded_embedding_lookup's rows
+               (equal) and gradient (within 1e-5 + 1e-5 x the magnitudes
+               summed into the element) against the plain gather and scatter
+               at 285,000 ids over the 10000-row table; then in one more
+               process a one-rank NCCL world runs every collective helper and
+               those two checks once. Its samples/s are 4
+               processes sharing one card through host-memory collectives:
+               printed and so labelled, no scaling claim (a {"mesh": ...}
+               line)
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
 30000, B in {1, 64, 512, 1024}, k in {10, 20}, and at phase 12's evaluation
@@ -323,7 +371,12 @@ labels drawn in the message graph's shares; and phase 15's: sasrec's item rows
 360000, 32) and (500, 4680000, 16), half of them pads on word 0; and phase
 17's: masked_topk at k = 50 over the anchor20k catalog in tiles of 2048 and
 1024 users, and scatter_add_rows at (32, 255744, 16), the ranker step's
-categorical rows.
+categorical rows; and phase 19's, a (2, 2) mesh rank's: masked_topk at (B,
+M, d) = (1024, 5000, 32) and (1024, 5000, 64), k in {10, 20}, each model
+rank's block under the local CSR that local_mask builds from a whole train
+mask, and scatter_add_rows at (20000, 90000, 32), (10000, 142500, 32),
+(20000, 2500, 64) and (10000, 5000, 64), the rank's half of textsage's tree
+gathers and of lgn's batch rows.
 
 A device profile (torch.profiler) counts the kernels of a range of n calls,
 after 512 one-element kernels that take the records a session drops at its
@@ -356,7 +409,7 @@ import warnings
 import numpy as np
 import torch
 
-from furusato_recommend_tpu_torch.config import Config, ddp_flagship_config
+from furusato_recommend_tpu_torch.config import Config, MeshConfig, ddp_flagship_config
 from furusato_recommend_tpu_torch import tools as ttools
 from furusato_recommend_tpu_torch.convert import (
     adam_state_from_jax,
@@ -365,6 +418,9 @@ from furusato_recommend_tpu_torch.convert import (
     params_from_jax,
     params_to_numpy,
 )
+from furusato_recommend_tpu_torch.core.checkpoint import load_checkpoint
+from furusato_recommend_tpu_torch.core.distributed import initialize_multihost, shutdown
+from furusato_recommend_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, Mesh, make_mesh
 from furusato_recommend_tpu_torch.data import synthetic_dataset
 from furusato_recommend_tpu_torch.data.artifacts import (
     synthetic_edge_times,
@@ -383,8 +439,10 @@ from furusato_recommend_tpu_torch.data.features import (
 from furusato_recommend_tpu_torch.data.graph import CSR, build_relational_graph
 from furusato_recommend_tpu_torch.data.ooc import MemmapNumeric, stream_project, stream_project_grad
 from furusato_recommend_tpu_torch.eval.metrics import batch_metric_sums
+from furusato_recommend_tpu_torch.eval.sharded import item_block, local_mask, sharded_masked_topk
 from furusato_recommend_tpu_torch.data.sequence import build_sequences
 from furusato_recommend_tpu_torch.models import asage, sage, sasrec
+from furusato_recommend_tpu_torch.models.lightgcn import LightGCN
 from furusato_recommend_tpu_torch.models.registry import build_model
 from furusato_recommend_tpu_torch.models.sage_convs import N_HEADS, edge_feature, get_conv
 from furusato_recommend_tpu_torch.obs.log import MetricLogger
@@ -394,6 +452,7 @@ from furusato_recommend_tpu_torch.ops import scatter as sc
 from furusato_recommend_tpu_torch.ops import streaming_topk as st
 from furusato_recommend_tpu_torch.ops.csr_search import csr_gather_padded
 from furusato_recommend_tpu_torch.ops.cuckoo import build_cuckoo_set
+from furusato_recommend_tpu_torch.ops.sharded_embedding import sharded_embedding_lookup
 from furusato_recommend_tpu_torch.preprocessing import native
 from furusato_recommend_tpu_torch.preprocessing.filtering import read_recbole
 from furusato_recommend_tpu_torch.preprocessing.pipeline import STAGES as PRE_PIPELINE_STAGES
@@ -512,6 +571,54 @@ PRE_UNIQUE = 10_000
 PRE_FEATURES = {"user_feature": "nct", "item_feature": "nctsr"}
 PRE_EPOCHS, PRE_STEPS_VS_CPU, PRE_RECBOLE_K = 3, 2, 5
 PRE_STAGES = ("read",) + PRE_PIPELINE_STAGES
+# phase 19: the (data, model) mesh of 4 ranks on card 0 over gloo; lgn's
+# width; the epochs between the two evaluations; float32 SpMM operands (under
+# bfloat16 each data rank rounds its own cotangent before the transposed SpMM,
+# where one process rounds their sum: the gradients then differ by up to 2^-8
+# relative, and Adam turns a near-zero one's sign into +-lr). Against one
+# process: the first steps from the same state, the first step's gradients
+# within 1e-6 + MESH_GRAD_RTOL x their tensor's largest magnitude (a missing
+# or doubled term shows there, which Adam's scale invariance hides in the
+# parameters), the parameters under phase 7's rule; after 2 epochs the losses
+# within MESH_LOSS_RTOL (the JAX package's mesh tests'), the metrics within
+# MESH_METRIC_ATOL, every parameter within MESH_PARAM_LRS x lr: the scatter
+# kernel's atomic adds sum in no fixed order, so one process does not repeat
+# itself bit for bit on the card either, and over 168 steps Adam turns that
+# rounding into +-lr moves where a gradient is near 0 (the phase prints two
+# one-process runs' spread beside the mesh's). The four ranks are held bit-equal
+# to one another: world-averaged gradients leave no replica to drift. The
+# checkpoint restored into one process evaluates within MESH_RESTORE_ATOL of the
+# mesh (the same parameters; only the merge's and the sums' order differ).
+# The sharded top-k's users and k, and the sharded lookup's ids (a step's
+# item-side tree gather, B = 5000)
+MESH = (2, 2)
+MESH_LGN_D = 64
+MESH_EPOCHS = 2
+MESH_DTYPE = "float32"
+MESH_FIRST_STEPS = 2
+MESH_GRAD_RTOL = 1e-4
+MESH_LOSS_RTOL = 2e-3
+MESH_METRIC_ATOL = 1e-2
+MESH_PARAM_LRS = 10
+MESH_TOPK_B = A20_EVAL_TILE  # a data rank scores its half, as on the path
+MESH_TOPK_KS = (20, 200)
+MESH_RESTORE_ATOL = 1e-6
+MESH_LOOKUP_R = 285_000
+MESH_TIMEOUT_S = 600
+# the kernels' shapes on a rank of the (2, 2) mesh's path, checked against
+# their plain versions in phase 3 and held against the shapes every rank's
+# path launches: scatter_add_rows (N, R, D) at the rank's half of textsage's
+# tree gathers and of lgn's batch rows (the propagated and the ego tables);
+# masked_topk (B, M, d, k) at the rank's half of a tile against its half of
+# the catalog, in local ids under its local_mask CSR
+MESH_B = ddp_flagship_config().bpr_batch_size
+MESH_EVAL_K = 20
+MESH_SCATTER_SHAPES = (
+    (A20_USERS, TS_SCATTER[0][1] // MESH[0], TS_D), (A20_ITEMS, TS_SCATTER[1][1] // MESH[0], TS_D),
+    (A20_USERS, MESH_B // MESH[0], MESH_LGN_D), (A20_ITEMS, 2 * MESH_B // MESH[0], MESH_LGN_D),
+)
+MESH_TOPK_SHAPES = tuple((A20_EVAL_TILE // MESH[0], -(-A20_ITEMS // MESH[1]), d, MESH_EVAL_K)
+                         for d in (TS_D, MESH_LGN_D))
 # profiler ranges (ops/segment.py, ops/scatter.py, sampling/bpr.py,
 # sampling/neighbor.py, eval/evaluate.py, torch.optim's own) and the step part
 # each one names
@@ -636,6 +743,48 @@ def kernel_cases(dev) -> float:
         f"{wide} of them at k > {st.MAX_K} in bounded rounds (max abs err {wide_err:.3g}); "
         f"no host sync in the wrapper")
     return max(max_err, wide_err)
+
+
+def mesh_topk_cases(dev) -> float:
+    """Phase 3, masked_topk at a (2, 2) mesh rank's shapes on phase 19's path
+    (MESH_TOPK_SHAPES): each model rank's block of an anchor20k-sized
+    catalog under the local CSR that ``local_mask`` builds from a whole
+    train mask (1 to 40 positives a user, one user masked on all but 50
+    items), k in {10, 20}, with and without the sigmoid, against the plain
+    version on the same block and mask under rule 3 (exact inputs: equal);
+    returns the max abs error."""
+    rng = np.random.default_rng(SEED + 19)
+    n, m = A20_USERS, A20_ITEMS
+    rows = [np.unique(rng.integers(0, m, rng.integers(1, 40))) for _ in range(n)]
+    rows[0] = np.sort(rng.choice(m, m - 50, replace=False))
+    indptr = torch.from_numpy(np.concatenate([[0], np.cumsum([len(r) for r in rows])]).astype(np.int32)).to(dev)
+    indices = torch.from_numpy(np.concatenate(rows).astype(np.int32)).to(dev)
+    max_err, n_cases = 0.0, 0
+    for b, m_block, d, k_path in MESH_TOPK_SHAPES:
+        users = torch.from_numpy(rng.choice(n, b, replace=False).astype(np.int32)).to(dev)
+        users[0] = 0
+        exact = (torch.from_numpy((rng.integers(-4, 5, (n, d)) / 8).astype(np.float32)).to(dev),
+                 torch.from_numpy((rng.integers(-2, 3, (m, d)) / 8).astype(np.float32)).to(dev))
+        gauss = (torch.from_numpy((0.3 * rng.standard_normal((n, d))).astype(np.float32)).to(dev),
+                 torch.from_numpy((0.3 * rng.standard_normal((m, d))).astype(np.float32)).to(dev))
+        for r in range(MESH[1]):
+            rank = Mesh(MESH[0], MESH[1], r, dev, {})  # model rank r of data row 0; no collective
+            mask = local_mask(CSR(indptr, indices), m, rank, m)
+            for kind, (U, I) in (("exact", exact), ("gauss", gauss)):
+                block = item_block(I, rank)
+                assert tuple(block.shape) == (m_block, d), block.shape
+                for k in (10, k_path):
+                    for sig in (False, True):
+                        before = st.launches
+                        kv, ki = st.masked_topk(U, block, users, k, *mask, sigmoid=sig)
+                        assert st.launches == before + 1
+                        rv, ri = st.masked_topk_reference(U, block, users, k, *mask, sigmoid=sig)
+                        torch.cuda.synchronize()
+                        max_err = max(max_err, compare(kv, ki, rv, ri, exact=kind == "exact"))
+                        n_cases += 1
+    log(f"kernels at the mesh rank's shapes {MESH_TOPK_SHAPES} under local_mask: {n_cases} cases equal to the "
+        f"plain version (max abs err {max_err:.3g})")
+    return max_err
 
 
 def reference_propagate(graph, params, n_layers, cdt) -> np.ndarray:
@@ -829,6 +978,10 @@ def scatter_cases(dev) -> float:
     # and the word rows of their per-id text bags (half of them pads on word 0)
     cases += [(500, np.where(rng.random(r) < 0.5, 0, rng.integers(0, 500, r)), d, None)
               for r, d in zip(WORD_ROWS[:2], (SEQ_D // 2, TS_D // 2))]
+    # a (2, 2) mesh rank's half of phase 19's step gathers (MESH_SCATTER_SHAPES)
+    rng19 = np.random.default_rng(SEED + 19)
+    cases += [(n, np.minimum(rng19.zipf(1.2, r) - 1, n - 1) if n == A20_ITEMS else rng19.integers(0, n, r), d, None)
+              for n, r, d in MESH_SCATTER_SHAPES]
     # the ranker's categorical rows (phase 17): 9 columns of 256 groups x 111
     # candidates into the 32-row table at emb 16, about 8,000 rows an id
     cases.append((RANK_VOCAB, np.random.default_rng(SEED + 17).integers(0, RANK_VOCAB, RANK_ROWS), RANK_EMB, None))
@@ -2335,6 +2488,32 @@ def _csv_rows(path) -> list:
         return list(csv.DictReader(f))
 
 
+@contextlib.contextmanager
+def record_propagations(part: dict, *classes):
+    """Within, each ``propagate`` of the given model classes keeps its
+    embeddings (float32) under the name of the part it ran in,
+    {part["name"]: (U, I)} (the part's last propagation). Phases 16 and 17
+    hold the tools', the dumps' and the evaluations' top-k against the plain
+    top-k on the embeddings they scored: a propagation does not repeat
+    itself bit for bit on the card (the atomics of the sparse products and
+    of index_add_), and under bfloat16 operands a last-bit change can round
+    a layer's input to the next bfloat16 value."""
+    kept = {}
+    originals = {cls: cls.__dict__["propagate"] for cls in classes}
+    for cls, fn in originals.items():
+        def keep(self, *a, _fn=fn, **k):
+            out = _fn(self, *a, **k)
+            kept[part["name"]] = tuple(t.detach().float().contiguous() for t in out)
+            return out
+
+        cls.propagate = keep
+    try:
+        yield kept
+    finally:
+        for cls, fn in originals.items():
+            cls.propagate = fn
+
+
 def _csv_ids(rows) -> np.ndarray:
     return np.asarray([[int(x) for x in r["predict_ids"].split(",")] for r in rows], dtype=np.int64)
 
@@ -2375,24 +2554,30 @@ def production_20k(ds, fs, dev, ckpt, root, smi) -> dict:
     common = ["--ckpt", ckpt, "--data_path", data_dir, "--device", dev.type]
     facts = {"data_write_s": write_s, "inference_edges": len(back.inference_user)}
 
-    # the path: evaluate, infer (inside a profiler trace), recommend
+    # the path: evaluate, infer (inside a profiler trace), recommend; the
+    # embeddings each call scored are kept for its checks
     eval_csv = os.path.join(root, "evaluate.csv")
-    st.launches = sc.launches = 0
-    ev, _ = _tools(["evaluate", *common, "--save_result", eval_csv])
-    launches = {"evaluate": st.launches}
-    trace_dir = os.path.join(root, "trace")
-    infer = {}
-    with trace(trace_dir):
-        for tag, targets, k in (("k20", "0,9,25", PROD_K), ("k200", "19", ATT_K)):
-            st.launches = 0
-            res, text = _tools(["infer", *common, "--out_dir", out_dir, "--user_batch", str(PROD_BATCH),
-                                "--target_batches", targets, "--k", str(k)])
-            launches[f"infer_{tag}"] = st.launches
-            infer[tag] = {"k": k, "targets": targets, "paths": [str(p) for p in res["paths"]],
-                          "seconds": res["seconds"], "stdout": text}
-    st.launches = 0
-    rec_out, _ = _tools(["recommend", *common, "--users", ",".join(map(str, PROD_USERS)), "--k", str(PROD_REC_K)])
-    launches["recommend"] = st.launches
+    part = {"name": "evaluate"}
+    with record_propagations(part, sage.SAGE) as kept:
+        st.launches = sc.launches = 0
+        ev, _ = _tools(["evaluate", *common, "--save_result", eval_csv])
+        launches = {"evaluate": st.launches}
+        trace_dir = os.path.join(root, "trace")
+        infer = {}
+        with trace(trace_dir):
+            for tag, targets, k in (("k20", "0,9,25", PROD_K), ("k200", "19", ATT_K)):
+                part["name"] = f"infer_{tag}"
+                st.launches = 0
+                res, text = _tools(["infer", *common, "--out_dir", out_dir, "--user_batch", str(PROD_BATCH),
+                                    "--target_batches", targets, "--k", str(k)])
+                launches[f"infer_{tag}"] = st.launches
+                infer[tag] = {"k": k, "targets": targets, "paths": [str(p) for p in res["paths"]],
+                              "seconds": res["seconds"], "stdout": text}
+        part["name"] = "recommend"
+        st.launches = 0
+        rec_out, _ = _tools(["recommend", *common, "--users", ",".join(map(str, PROD_USERS)),
+                             "--k", str(PROD_REC_K)])
+        launches["recommend"] = st.launches
     launches["scatter_add_rows"] = sc.launches
     assert sc.launches == 0, f"the production tier launched the scatter kernel {sc.launches} times"
     mem = MetricLogger(jsonl_path=os.path.join(root, "memory.jsonl"), quiet=True)
@@ -2406,9 +2591,7 @@ def production_20k(ds, fs, dev, ckpt, root, smi) -> dict:
     assert launches["evaluate"] == n_tiles, f"evaluate: {launches['evaluate']} launches for {n_tiles} tiles"
     results_tr, shown_tr = tr.evaluator(tr.eval_data)
     kmax = max(tr.config.topks)
-    with torch.no_grad():
-        U, I = tr.model.propagate(tr.graph)
-    U, I = U.float().contiguous(), I.float().contiguous()
+    U, I = kept["evaluate"]
     mask = (tr.graph.user_pos.indptr, tr.graph.user_pos.indices)
     valid = tr.eval_data.valid.reshape(-1)
     users = tr.eval_data.users.reshape(-1)[valid]
@@ -2453,8 +2636,9 @@ def production_20k(ds, fs, dev, ckpt, root, smi) -> dict:
             ids = _csv_ids(_csv_rows(p))
             assert ids.shape == (PROD_BATCH, k), ids.shape
             ki = torch.from_numpy(ids).to(dev)
-            rv, ri = st.masked_topk_reference(U_inf, I_inf, bu, k, *mask)
-            max_err = max(max_err, compare(masked_values(U_inf, I_inf, bu, ki, mask), ki, rv, ri, exact=False))
+            tU, tI = kept[f"infer_{tag}"]
+            rv, ri = st.masked_topk_reference(tU, tI, bu, k, *mask)
+            max_err = max(max_err, compare(masked_values(tU, tI, bu, ki, mask), ki, rv, ri, exact=False))
             for u, row in zip(bu.tolist(), ids):
                 assert not set(row.tolist()) & set(pos[u].tolist()), f"user {u}: a train positive predicted"
             if tag == "k20" and b == 0:
@@ -2477,7 +2661,7 @@ def production_20k(ds, fs, dev, ckpt, root, smi) -> dict:
     # recommend: each answer against the plain top-k for that user
     assert launches["recommend"] == 1, launches
     ru = torch.tensor(PROD_USERS, device=dev)
-    rv, ri = st.masked_topk_reference(U_inf, I_inf, ru, PROD_REC_K, *mask)
+    rv, ri = st.masked_topk_reference(*kept["recommend"], ru, PROD_REC_K, *mask)
     max_err = max(max_err, compare(torch.from_numpy(rec_out["scores"]), torch.from_numpy(rec_out["ids"]),
                                    rv, ri, exact=False))
     for line, u, row in zip(rec_out["lines"], PROD_USERS, rec_out["ids"]):
@@ -2660,10 +2844,11 @@ def rank_20k(ds, fs, dev, root, ckpt, smi) -> dict:
     t_phase = time.perf_counter()
     r20 = _rank20k_module()
     data_dir = os.path.join(root, "data")  # phase 16's, in the reference's layout
-    launches = {}
+    launches, part = {}, {"name": None}
 
     @contextlib.contextmanager
     def counted(name):
+        part["name"] = name
         st.launches = sc.launches = 0
         yield
         launches[name] = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
@@ -2678,8 +2863,9 @@ def rank_20k(ds, fs, dev, root, ckpt, smi) -> dict:
     log(f"rank-20k split: {reduced.train_size} reduced and {len(held[0])} held edges, as the JAX record "
         f"({split_s:.1f} s to read)")
     rows = []
-    out = r20.run(reduced, full, held, fs, RANK_RETRIEVER_EPOCHS, RANK_RANKER_EPOCHS, dev, seed=SEED,
-                  emit=lambda **row: rows.append(row), part=counted)
+    with record_propagations(part, LightGCN, sage.SAGE) as kept:
+        out = r20.run(reduced, full, held, fs, RANK_RETRIEVER_EPOCHS, RANK_RANKER_EPOCHS, dev, seed=SEED,
+                      emit=lambda **row: rows.append(row), part=counted)
     tool_dir = os.path.join(root, "rank")
     os.makedirs(tool_dir, exist_ok=True)
     cand_path, ranker_path = os.path.join(tool_dir, "candidates_textsage.npy"), os.path.join(tool_dir, "ranker.ckpt")
@@ -2719,11 +2905,9 @@ def rank_20k(ds, fs, dev, root, ckpt, smi) -> dict:
         f"epochs), {tool_steps} (tools train-ranker)")
 
     # checks: every dump against the plain top-k, first 10 columns against the evaluation
-    max_err, moved = 0.0, {}
+    max_err, moved, repeat = 0.0, {}, {}
     for (name, stage), tr in out["trainers"].items():
-        with torch.no_grad():
-            U, I = tr.model.propagate(tr.graph)
-        U, I = U.float().contiguous(), I.float().contiguous()
+        U, I = kept[f"dump_{name}_{stage}"]
         mask = (tr.graph.user_pos.indptr, tr.graph.user_pos.indices)
         cand = out["dumps"][(name, stage)]
         assert cand.shape == (full.n_users, RANK_K) and cand.dtype == np.int32
@@ -2734,8 +2918,11 @@ def rank_20k(ds, fs, dev, root, ckpt, smi) -> dict:
             users = tr.eval_data.users.reshape(-1)[valid]
             ids = torch.from_numpy(cand[users.cpu().numpy(), :10]).to(dev).long()
             shown = torch.from_numpy(np.asarray(topk)[:, :10]).to(dev).long()
-            rv, ri = st.masked_topk_reference(U, I, users, 11, *mask)
-            compare_prefix(masked_values(U, I, users, shown, mask), shown, rv, ri)
+            eU, eI = kept[f"evaluate_{name}"]
+            repeat[name] = {"elements_differ": int((eU != U).sum() + (eI != I).sum()),
+                            "max_abs_diff": float(max((eU - U).abs().max(), (eI - I).abs().max()))}
+            rv, ri = st.masked_topk_reference(eU, eI, users, 11, *mask)
+            compare_prefix(masked_values(eU, eI, users, shown, mask), shown, rv, ri)
             moved[name] = int((shown != ids).sum())
             alone = out["alone"][name]["recall@10"]
             if moved[name] == 0:
@@ -2752,7 +2939,8 @@ def rank_20k(ds, fs, dev, root, ckpt, smi) -> dict:
     log(f"rank-20k dumps: 5 dumps of {full.n_users} x {RANK_K} equal to the plain top-k under rule 3(b) (max abs "
         f"err {max_err:.3g}), rows unique, no train positive; the first 10 columns equal to the trainer's "
         f"evaluation but {moved} ids in near-ties (recall@10 lgn {out['alone']['lgn']['recall@10']:.5f}, "
-        f"textsage {out['alone']['textsage']['recall@10']:.5f})")
+        f"textsage {out['alone']['textsage']['recall@10']:.5f}); one model's propagation twice (the dump's, the "
+        f"evaluation's): {repeat}")
 
     # checks: the parity fit lowers the loss; the card against the CPU; tiles
     sub = out["groups"].select(torch.arange(min(2048, len(out["groups"])))).to(dev)
@@ -2827,7 +3015,7 @@ def rank_20k(ds, fs, dev, root, ckpt, smi) -> dict:
         "rerank": rr, "calibration": {"beta": beta, "gamma": gamma, "val_recall": val_r},
         "wa": [float(x) for x in out["ranker_aux"].wa.detach().cpu()],
         "loss_init_fit": [loss_init, loss_fit], "card_vs_cpu": vs_cpu, "tiles": tiles,
-        "dump_max_abs_err": max_err, "ids_moved_in_ties": moved,
+        "dump_max_abs_err": max_err, "ids_moved_in_ties": moved, "propagation_twice": repeat,
         "tools": {k: {"seconds": v["seconds"]} for k, v in tools.items()},
         "tool_rerank_eval": tools["tool_rerank_eval"]["results"],
         "dump_topk": dump_topk, "ranker_scatter": scatter, "rank": rank_numbers,
@@ -2964,6 +3152,462 @@ def preprocess_20k(dev, smi, lgn_edges) -> dict:
     return facts
 
 
+# ---- phase 19: mesh-20k ----
+
+def mesh_config(kind: str, data_dir: str, mesh=(1, 1)) -> Config:
+    """Phase 19's two configs on phase 16's data directory: the DDP flagship
+    (textsage, d 32) and lgn at d 64, both with the ddp recipe and float32
+    SpMM operands (bfloat16 rounds each data rank's cotangent apart: see
+    MESH_DTYPE)."""
+    over = {} if kind == "textsage" else {"model": "lgn", "latent_dim": MESH_LGN_D}
+    return a20_config(data_path=data_dir, compute_dtype=MESH_DTYPE, mesh=MeshConfig(*mesh), **over)
+
+
+def mesh_trainer(kind: str, data_dir: str, dev, mesh=(1, 1)) -> Trainer:
+    """The Trainer of one of phase 19's configs, as a user builds it from the
+    data directory (one process, or one rank of a mesh)."""
+    cfg = mesh_config(kind, data_dir, mesh)
+    ds = load_text_dataset(cfg)
+    kw = {"features": load_reference_features(cfg, data_dir, dataset=ds)} if kind == "textsage" else {}
+    model = build_model(cfg.model, cfg, ds.graph, generator=torch.Generator().manual_seed(SEED), **kw)
+    return Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=True, device=dev)
+
+
+def mesh_first_steps(trainer: Trainer) -> dict:
+    """MESH_FIRST_STEPS steps from fresh parameters on batches drawn from a
+    seeded generator (the trees and dropout from the trainer's): the losses,
+    the whole gradients the first step took (averaged over the mesh) and
+    the whole parameters after the last."""
+    trainer.init_state()
+    cfg = trainer.config
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 20)
+    bs = cfg.bpr_batch_size
+    allb = sample_bpr(gen, trainer.graph, MESH_FIRST_STEPS * bs, cfg.neg_candidates,
+                      edge_alias=trainer.edge_alias, neg_alias=trainer.neg_alias)
+    losses, grads = [], None
+    for i in range(MESH_FIRST_STEPS):
+        losses += trainer.train_epoch([allb.slice(i * bs, (i + 1) * bs)]).cpu().tolist()
+        if grads is None:
+            grads = {f"grad/{k}": v for k, v in whole_params(trainer, grads=True).items()}
+    return {"losses": losses, "params": {**whole_params(trainer), **grads}}
+
+
+def mesh_path(trainer: Trainer, ckpt=None) -> dict:
+    """Phase 19's path on one trainer: an evaluation, MESH_EPOCHS epochs, an
+    evaluation, and ``save`` when ``ckpt``; the launch counts set to 0 just
+    before and read just after."""
+    trainer.init_state()
+    st.launches = sc.launches = 0
+    first = trainer.test()
+    losses, seconds = [], []
+    for _ in range(MESH_EPOCHS):
+        dt, mean, _ = _timed_epoch(trainer)
+        losses.append(mean)
+        seconds.append(dt)
+    last = trainer.test()
+    if ckpt is not None:
+        trainer.save(ckpt)
+    launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
+    steps = MESH_EPOCHS * trainer.num_batches
+    return {"first": first, "last": last, "losses": losses, "epoch_s": seconds, "launches": launches,
+            "steps": steps, "samples_per_s": trainer.samples_per_epoch / float(np.median(seconds))}
+
+
+def _mib(tensors) -> float:
+    return sum(t.numel() * t.element_size() for t in tensors) / 2**20
+
+
+def sharded_state_mib(trainer: Trainer) -> dict:
+    """MiB of the row-sharded parameters and their Adam moments on this
+    rank, and of the same parameters whole."""
+    names = trainer.shards.names if trainer.shards is not None else []
+    params = dict(trainer.model.named_parameters())
+    mine = [params[k] for k in names]
+    moments = [trainer.optimizer.state[p][m] for p in mine for m in ("exp_avg", "exp_avg_sq")
+               if p in trainer.optimizer.state]
+    whole = sum(trainer.shards.rows[k] * params[k][0].numel() * params[k].element_size() for k in names) / 2**20
+    return {"names": names, "rank_params_mib": _mib(mine), "rank_moments_mib": _mib(moments),
+            "whole_params_mib": whole, "whole_moments_mib": 2 * whole}
+
+
+def whole_params(trainer: Trainer, grads: bool = False) -> dict:
+    """The trainer's parameters (or their gradients), the row-sharded ones
+    gathered whole, as numpy arrays."""
+    shards = trainer.shards
+    out = {}
+    for k, p in trainer.model.named_parameters():
+        t = p.grad if grads else p.detach()
+        out[k] = (shards.gather(t) if shards is not None and k in shards.names else t).cpu().numpy().copy()
+    return out
+
+
+def _grads_rule(got: dict, want: dict) -> float:
+    """Each gradient within 1e-6 + MESH_GRAD_RTOL x its tensor's largest
+    magnitude; returns the worst share of that bound."""
+    worst = 0.0
+    for k, w in want.items():
+        if k.startswith("grad/"):
+            bound = 1e-6 + MESH_GRAD_RTOL * float(np.abs(w).max())
+            err = float(np.abs(got[k] - w).max())
+            assert err <= bound, f"{k}: off by {err} (bound {bound})"
+            worst = max(worst, err / bound)
+    return worst
+
+
+def mesh_ops_on_card(mesh, dev) -> dict:
+    """sharded_masked_topk at (M, d) = (10000, 32) and (10000, 64), this data
+    rank's share of a tile of MESH_TOPK_B users (the path's), k in
+    MESH_TOPK_KS against the plain top-k over the whole catalog (rule 3(b));
+    sharded_embedding_lookup's rows (equal) and gradient (within 1e-5 + 1e-5
+    x the magnitudes summed into the element) against the plain gather and
+    scatter over the whole table. Their launches are not the path's."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    n, m = A20_USERS, A20_ITEMS
+    rng = np.random.default_rng(SEED + 19)
+    rows = [np.unique(rng.integers(0, m, rng.integers(1, 40))) for _ in range(n)]
+    indptr = torch.from_numpy(np.concatenate([[0], np.cumsum([len(r) for r in rows])]).astype(np.int32)).to(dev)
+    indices = torch.from_numpy(np.concatenate(rows).astype(np.int32)).to(dev)
+    users = torch.from_numpy(rng.choice(n, MESH_TOPK_B, replace=False).astype(np.int32)).to(dev)
+    per = MESH_TOPK_B // mesh.data
+    mine = users[mesh.index(DATA_AXIS) * per : (mesh.index(DATA_AXIS) + 1) * per]
+    mask = local_mask(CSR(indptr, indices), m, mesh, m)
+    out = {"topk": {}, "shapes": {"M": m, "d": [TS_D, MESH_LGN_D], "M_block": -(-m // mesh.model), "B_rank": per}}
+    for d in (TS_D, MESH_LGN_D):
+        U = torch.randn((n, d), generator=gen, device=dev)
+        I = torch.randn((m, d), generator=gen, device=dev)
+        block = item_block(I, mesh)
+        for k in MESH_TOPK_KS:
+            sv, si = sharded_masked_topk(U, block, mine, k, mask, mesh)
+            wv, wi = st.masked_topk_reference(U, I, mine, k, indptr, indices)
+            err = compare(sv, si, wv, wi, exact=False)
+            out["topk"][f"d{d}_k{k}"] = {"max_abs_err": err, "ids_equal": bool(torch.equal(si, wi.to(si.dtype)))}
+    # the lookup: a table of the item catalog's shape, ids of a step's tree level
+    table = torch.randn((m, TS_D), generator=gen, device=dev)
+    ids = torch.randint(0, m, (MESH_LOOKUP_R,), generator=gen, device=dev, dtype=torch.int32)
+    rows_per = m // mesh.model
+    lo = mesh.index(MODEL_AXIS) * rows_per
+    local = table[lo : lo + rows_per].clone().requires_grad_(True)
+    per_ids = MESH_LOOKUP_R // mesh.data
+    my_ids = ids[mesh.index(DATA_AXIS) * per_ids : (mesh.index(DATA_AXIS) + 1) * per_ids]
+    vals = sharded_embedding_lookup(local, my_ids, mesh)
+    torch.sum(vals**2).backward()
+    want = table.index_select(0, ids.long())
+    assert torch.equal(vals, want[mesh.index(DATA_AXIS) * per_ids : (mesh.index(DATA_AXIS) + 1) * per_ids]), \
+        "sharded_embedding_lookup's rows differ from the plain gather's"
+    g_want = sc.scatter_add_rows_reference(ids, 2 * want, m)[lo : lo + rows_per]
+    mag = sc.scatter_add_rows_reference(ids, 2 * want.abs(), m)[lo : lo + rows_per]
+    g_err = (local.grad - g_want).abs()
+    assert bool((g_err <= 1e-5 + 1e-5 * mag).all()), f"lookup gradient off by {float(g_err.max())}"
+    out["lookup"] = {"V": m, "d": TS_D, "R": MESH_LOOKUP_R, "V_block": rows_per, "R_rank": per_ids,
+                     "grad_max_abs_err": float(g_err.max())}
+    return out
+
+
+def record_launch_shapes() -> dict:
+    """Wrap both kernels' launch functions so that each launch records its
+    shape: {"scatter_add_rows": {(N, R, D)}, "masked_topk": {(B, M, d, k)}};
+    the launches themselves and their counts are unchanged."""
+    shapes = {"scatter_add_rows": set(), "masked_topk": set()}
+    sc_launch, st_launch = sc._launch, st._launch
+
+    def scatter(ids, rows, num_rows, *a, **kw):
+        shapes["scatter_add_rows"].add((num_rows, ids.numel(), rows.shape[1]))
+        return sc_launch(ids, rows, num_rows, *a, **kw)
+
+    def topk(user_emb, item_emb, users, k, *a, **kw):
+        shapes["masked_topk"].add((users.numel(), item_emb.shape[0], item_emb.shape[1], k))
+        return st_launch(user_emb, item_emb, users, k, *a, **kw)
+
+    sc._launch, st._launch = scatter, topk
+    return shapes
+
+
+def whole_moments(trainer: Trainer) -> dict:
+    """Every Adam moment under its checkpoint key (as Trainer.save names it),
+    the row-sharded ones gathered whole, and the generator's state."""
+    shards, named = trainer.shards, dict(trainer.model.named_parameters())
+    out = {"generator": trainer.generator.get_state().numpy()}
+    for prefix, opt in trainer._optimizers().items():
+        for name, p in named.items():
+            for key, moment in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                if p in opt.state:
+                    t = opt.state[p][moment]
+                    whole = shards.gather(t) if shards is not None and name in shards.names else t
+                    out[f"{prefix}_{key}/{name}"] = whole.cpu().numpy()
+    return out
+
+
+def mesh_rank() -> None:
+    """One rank of phase 19's mesh, in its own process (argv: rank, then a
+    JSON object of the phase's arguments; its device may name the rank, as
+    cuda:{rank}); writes its results as JSON."""
+    rank, args = int(sys.argv[1]), json.loads(sys.argv[2])
+    dev = torch.device(args["device"].format(rank=rank))
+    initialize_multihost(world_size=args["world"], rank=rank, init_method=args["init"],
+                         backend=args["backend"], device=dev, timeout_s=300)
+    try:
+        out = {"rank": rank}
+        shapes = record_launch_shapes()
+        for kind in ("textsage", "lgn"):
+            t0 = time.perf_counter()
+            trainer = mesh_trainer(kind, args["data_dir"], dev, tuple(args["mesh"]))
+            setup_s = time.perf_counter() - t0
+            first = mesh_first_steps(trainer)
+            np.savez(os.path.join(args["out"], f"{kind}_first_{rank}.npz"), **first.pop("params"))
+            for part in shapes.values():
+                part.clear()
+            res = mesh_path(trainer, args["ckpt"].format(rank=rank) if kind == "textsage" else None)
+            res["launch_shapes"] = {kernel: sorted(part) for kernel, part in shapes.items()}
+            np.savez(os.path.join(args["out"], f"{kind}_moments_{rank}.npz"), **whole_moments(trainer))
+            res["first_steps_losses"] = first["losses"]
+            res.update(setup_s=setup_s, memory=sharded_state_mib(trainer),
+                       eval_tiles=int(trainer.eval_data.users.shape[0]))
+            np.savez(os.path.join(args["out"], f"{kind}_params_{rank}.npz"), **whole_params(trainer))
+            out[kind] = res
+            del trainer
+        out["ops"] = mesh_ops_on_card(make_mesh(*args["mesh"], device=dev), dev)
+        with open(os.path.join(args["out"], f"rank_{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        shutdown()
+
+
+def nccl_one_rank() -> None:
+    """Phase 19's NCCL pass: a world of one rank on card 0 runs every
+    collective helper once; prints one JSON line."""
+    dev = torch.device("cuda", 0)
+    initialize_multihost(world_size=1, rank=0, init_method=sys.argv[1], backend="nccl", device=dev, timeout_s=120)
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+        x = torch.arange(6.0, device=dev).reshape(2, 3)
+        checks = {
+            "all_reduce": torch.equal(mesh.all_reduce(x.clone(), DATA_AXIS), x),
+            "all_gather": torch.equal(mesh.all_gather(x, MODEL_AXIS)[0], x),
+            "broadcast": torch.equal(mesh.broadcast_from_primary(x.clone()), x),
+        }
+        g = x.clone()
+        mesh.average([g])
+        mesh.barrier()
+        checks["average"] = torch.equal(g, x)
+        ops = mesh_ops_on_card(mesh, dev)  # raises where a result differs
+        print(json.dumps({"backend": torch.distributed.get_backend(), "checks": checks, "ops": ops}))
+    finally:
+        shutdown()
+
+
+def nccl_pass(boot: str, init: str, here: str) -> dict:
+    """``nccl_one_rank`` in its own process; its JSON line, checked."""
+    r = subprocess.run([sys.executable, "-c", boot, init], capture_output=True, text=True, timeout=300, cwd=here)
+    assert r.returncode == 0, f"the one-rank NCCL pass failed:\n{r.stderr[-4000:]}"
+    nccl = json.loads(r.stdout.strip().splitlines()[-1])
+    assert nccl["backend"] == "nccl" and all(nccl["checks"].values()), nccl
+    return nccl
+
+
+def _params_rule(got: dict, want: dict, max_abs: float, share: float = 1e-3) -> dict:
+    """Phase 7's rule: every parameter within ``max_abs``, all but ``share``
+    of them within 1e-6 + 1e-5 |p|."""
+    off = total = 0
+    worst = 0.0
+    for k, w in want.items():
+        assert np.isfinite(got[k]).all(), k
+        diff = np.abs(got[k] - w)
+        off += int((diff > 1e-6 + 1e-5 * np.abs(w)).sum())
+        total += diff.size
+        worst = max(worst, float(diff.max()))
+    assert worst <= max_abs, f"a parameter off by {worst} (> {max_abs})"
+    assert off <= share * total, f"{off} of {total} parameters off"
+    return {"off": off, "total": total, "max_abs_diff": worst}
+
+
+def _metrics_off(got: dict, want: dict, atol: float = MESH_METRIC_ATOL) -> float:
+    assert set(got) == set(want)
+    worst = max(abs(got[k] - want[k]) for k in want)
+    assert worst <= atol, f"metrics off by {worst} (> {atol})"
+    return float(worst)
+
+
+def mesh_single(data_dir: str, dev, root: str) -> dict:
+    """Phase 19's one-process runs of both configs on ``dev``: the first
+    steps, then the path (textsage saved under ``root``)."""
+    single = {}
+    for kind in ("textsage", "lgn"):
+        trainer = mesh_trainer(kind, data_dir, dev)
+        first = mesh_first_steps(trainer)
+        single[kind] = mesh_path(trainer, os.path.join(root, "single.ckpt") if kind == "textsage" else None)
+        single[kind]["memory"] = {"params_mib": _mib(trainer.model.parameters())}
+        single[kind]["params"] = whole_params(trainer)
+        single[kind]["first_steps"] = first
+        del trainer
+    return single
+
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_BOOT = f"import sys; sys.path.insert(0, {_HERE!r}); import chip_smoke; chip_smoke.{{}}()"
+
+
+def launch_mesh(mesh, data_dir: str, out: str, backend: str, device: str) -> tuple:
+    """``mesh_rank`` in data x model processes, joined through a file
+    rendezvous under ``out``; ``device`` may name the rank (cuda:{rank}).
+    Returns (each rank's results, wall seconds); raises if a rank fails."""
+    os.makedirs(out, exist_ok=True)
+    args = {"world": mesh[0] * mesh[1], "mesh": list(mesh), "backend": backend, "device": device,
+            "init": f"file://{out}/rendezvous", "data_dir": data_dir, "out": out,
+            "ckpt": os.path.join(out, "ckpt_{rank}.npz")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _BOOT.format("mesh_rank"), str(r), json.dumps(args)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=_HERE)
+             for r in range(args["world"])]
+    try:
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=MESH_TIMEOUT_S)
+            assert p.returncode == 0, f"mesh rank {r} failed ({p.returncode}):\n{err[-6000:]}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    return [json.load(open(os.path.join(out, f"rank_{r}.json"))) for r in range(args["world"])], wall
+
+
+def check_mesh(single: dict, ranks: list, out: str, data_dir: str, label: str) -> dict:
+    """Every rank's runs against the one-process runs (module docstring,
+    phase 19); logs a line a rank and config; {kind: facts}."""
+    facts = {}
+    for kind in ("textsage", "lgn"):
+        want = single[kind]
+        per_rank = []
+        # the replicas: every rank holds rank 0's losses, metrics, gradients
+        # and whole parameters bit for bit (world-averaged gradients)
+        head = ranks[0][kind]
+        for rank in ranks[1:]:
+            for key in ("first_steps_losses", "losses", "first", "last"):
+                assert rank[kind][key] == head[key], f"{kind} rank {rank['rank']}: {key} differs from rank 0's"
+            for part in ("first", "params", "moments"):
+                a, b = (dict(np.load(os.path.join(out, f"{kind}_{part}_{r}.npz"))) for r in (0, rank["rank"]))
+                assert set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a), \
+                    f"{kind} rank {rank['rank']}: {part} differ from rank 0's"
+        for rank in ranks:
+            got = rank[kind]
+            # the first steps from the same state: phase 7's rule
+            lr = mesh_config(kind, data_dir).lr
+            np.testing.assert_allclose(got["first_steps_losses"][0], want["first_steps"]["losses"][0], rtol=1e-5)
+            np.testing.assert_allclose(got["first_steps_losses"], want["first_steps"]["losses"], rtol=1e-4)
+            got_first = dict(np.load(os.path.join(out, f"{kind}_first_{rank['rank']}.npz")))
+            grads = _grads_rule(got_first, want["first_steps"]["params"])
+            first = _params_rule({k: v for k, v in got_first.items() if not k.startswith("grad/")},
+                                 {k: v for k, v in want["first_steps"]["params"].items()
+                                  if not k.startswith("grad/")}, max_abs=4 * lr)
+            first["grads_worst_share_of_bound"] = grads
+            np.testing.assert_allclose(got["losses"], want["losses"], rtol=MESH_LOSS_RTOL)
+            off = {"first": _metrics_off(got["first"], want["first"]), "last": _metrics_off(got["last"], want["last"])}
+            params = dict(np.load(os.path.join(out, f"{kind}_params_{rank['rank']}.npz")))
+            rule = _params_rule(params, want["params"], max_abs=MESH_PARAM_LRS * lr, share=1.0)
+            tiles = got["eval_tiles"]
+            steps = got["steps"]
+            per_step = 2 if kind == "textsage" else 4
+            assert got["launches"]["scatter_add_rows"] == per_step * steps, (kind, got["launches"], steps)
+            assert got["launches"]["masked_topk"] == 2 * tiles, (kind, got["launches"], tiles)
+            per_rank.append({"rank": rank["rank"], "launches": got["launches"], "metrics_max_abs_diff": off,
+                             "first_steps": {"losses": got["first_steps_losses"], "params": first},
+                             "params": rule, "samples_per_s": got["samples_per_s"], "epoch_s": got["epoch_s"],
+                             "setup_s": got["setup_s"], "memory": got["memory"],
+                             "loss_max_rel_diff": float(np.max(np.abs(np.asarray(got["losses"]) - want["losses"])
+                                                               / np.abs(want["losses"])))})
+            log(f"{label} {kind} rank {rank['rank']}: {MESH_FIRST_STEPS} steps from the same state, the first "
+                f"step's gradients within {grads:.3g} of their bound, parameters within 1e-6 + 1e-5 |p| but "
+                f"{first['off']} of {first['total']} (max abs diff {first['max_abs_diff']:.3g}); losses {got['losses']} (one process {want['losses']}); "
+                f"recall@10 {got['first']['recall@10']:.4f} -> {got['last']['recall@10']:.4f}, metrics off by "
+                f"at most {max(off.values()):.3g}; after them parameters within 1e-6 + 1e-5 |p| but {rule['off']} "
+                f"of {rule['total']} (max abs diff {rule['max_abs_diff']:.3g}); launches {got['launches']} over "
+                f"{steps} steps and 2 x {tiles} tiles; row-sharded {got['memory']['names']}: "
+                f"{got['memory']['rank_params_mib']:.2f} MiB of parameters and "
+                f"{got['memory']['rank_moments_mib']:.2f} MiB of moments on this rank, "
+                f"{got['memory']['whole_params_mib']:.2f} + {got['memory']['whole_moments_mib']:.2f} MiB whole")
+        facts[kind] = {"single": {k: want[k] for k in ("losses", "first", "last", "launches", "steps",
+                                                        "samples_per_s", "epoch_s", "memory")},
+                       "ranks": per_rank}
+    return facts
+
+
+def mesh_20k(data_dir: str, dev, root: str, smi: str) -> dict:
+    """Phase 19: the mesh on one card (module docstring)."""
+    t_phase = time.perf_counter()
+    facts = {"mesh": list(MESH), "world": MESH[0] * MESH[1], "backend": "gloo", "device": "cuda:0",
+             "compute_dtype": MESH_DTYPE, "epochs": MESH_EPOCHS, "card": smi}
+    single = mesh_single(data_dir, dev, root)
+    # one process twice: the card's own spread over the same 168 steps
+    again = mesh_trainer("textsage", data_dir, dev)
+    twice = mesh_path(again)
+    spread = {"loss_max_rel_diff": float(np.max(np.abs(np.asarray(twice["losses"]) - single["textsage"]["losses"])
+                                                / np.abs(single["textsage"]["losses"]))),
+              "metrics_max_abs_diff": float(max(abs(twice["last"][k] - single["textsage"]["last"][k])
+                                                for k in twice["last"])),
+              "params_max_abs_diff": float(max(np.abs(v - single["textsage"]["params"][k]).max()
+                                               for k, v in whole_params(again).items()))}
+    del again
+    facts["textsage_one_process_twice"] = spread
+    log(f"mesh-20k textsage, one process twice: losses within {spread['loss_max_rel_diff']:.3g} relative, "
+        f"metrics within {spread['metrics_max_abs_diff']:.3g}, parameters within {spread['params_max_abs_diff']:.3g}")
+    out = os.path.join(root, "mesh")
+    ranks, facts["mesh_wall_s"] = launch_mesh(MESH, data_dir, out, "gloo",
+                                              "cuda:0" if dev.type == "cuda" else "cpu")
+    nccl = nccl_pass(_BOOT.format("nccl_one_rank"), f"file://{out}/nccl", _HERE)
+    facts["nccl_one_rank"] = nccl
+    facts.update(check_mesh(single, ranks, out, data_dir, "mesh-20k"))
+    for kind in ("textsage", "lgn"):
+        log(f"mesh-20k {kind}: {facts[kind]['ranks'][0]['samples_per_s']:.0f} samples/s on each of 4 processes "
+            f"sharing one card through host-memory collectives (one process alone: "
+            f"{single[kind]['samples_per_s']:.0f}); no scaling claim")
+
+    # the kernels launched at the shapes phase 3 held against their plain versions
+    for rank in ranks:
+        for kind in ("textsage", "lgn"):
+            shapes = rank[kind]["launch_shapes"]
+            assert {tuple(x) for x in shapes["scatter_add_rows"]} <= set(MESH_SCATTER_SHAPES), (kind, shapes)
+            assert {tuple(x) for x in shapes["masked_topk"]} <= set(MESH_TOPK_SHAPES), (kind, shapes)
+    facts["launch_shapes"] = {kind: ranks[0][kind]["launch_shapes"] for kind in ("textsage", "lgn")}
+    log(f"mesh-20k launch shapes, each checked in phase 3: {facts['launch_shapes']}")
+
+    # the primary's checkpoint: the ranks' whole tables and moments and one
+    # process's generator state; restored into one process, it evaluates as
+    # the mesh did
+    assert sorted(f for f in os.listdir(out) if f.startswith("ckpt_")) == ["ckpt_0.npz"], os.listdir(out)
+    ref = load_checkpoint(os.path.join(root, "single.ckpt"))
+    got = load_checkpoint(os.path.join(out, "ckpt_0.npz"))
+    for part in ("params", "state"):
+        assert sorted(got[part]) == sorted(ref[part]), part
+        for key, v in ref[part].items():
+            assert np.shape(got[part][key]) == np.shape(v), key
+    moments = dict(np.load(os.path.join(out, "textsage_moments_0.npz")))
+    generator = got["state"].pop("generator")
+    assert np.array_equal(generator, moments.pop("generator")), "the checkpoint's generator is not the ranks'"
+    assert np.array_equal(generator, ref["state"]["generator"]), "the mesh drew otherwise than one process"
+    for key, v in moments.items():
+        assert np.array_equal(got["state"][key], v), f"the checkpoint's {key} differs from the ranks'"
+    for key, v in dict(np.load(os.path.join(out, "textsage_params_0.npz"))).items():
+        assert np.array_equal(got["params"][key], v), f"the checkpoint's {key} differs from the ranks'"
+    back = mesh_trainer("textsage", data_dir, dev)
+    back.restore(os.path.join(out, "ckpt_0.npz"))
+    restored_off = _metrics_off(back.test(), ranks[0]["textsage"]["last"], MESH_RESTORE_ATOL)
+    log(f"mesh-20k checkpoint: written by rank 0 alone; its tables and {len(moments)} moments bit-equal to the "
+        f"ranks', its generator state one process's; restored into one process, its evaluation within "
+        f"{restored_off:.3g} of the mesh's (bound {MESH_RESTORE_ATOL})")
+    facts["restore"] = {"metrics_max_abs_diff": restored_off}
+    facts["ops"] = ranks[0]["ops"]
+    for rank in ranks:
+        for k, t in rank["ops"]["topk"].items():
+            log(f"mesh-20k rank {rank['rank']} sharded_masked_topk {k}: equal to the plain top-k over the whole "
+                f"catalog (max abs err {t['max_abs_err']:.3g}, ids equal: {t['ids_equal']}); lookup gradient "
+                f"within {rank['ops']['lookup']['grad_max_abs_err']:.3g}")
+    log(f"mesh-20k NCCL, one rank: {nccl['checks']}")
+    facts["launches"] = {kernel: sum(rank[kind]["launches"][kernel] for rank in ranks for kind in ("textsage", "lgn"))
+                         for kernel in ("masked_topk", "scatter_add_rows")}
+    facts["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh-20k: {facts['seconds']:.0f} s (the mesh's 4 processes {facts['mesh_wall_s']:.0f} s)")
+    return facts
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -2993,7 +3637,7 @@ def main() -> int:
     log(f"masked_topk pass 1, blocks per SM (occupancy API): {occupancy}")
 
     # 3. kernels against their plain versions
-    max_err = kernel_cases(dev)
+    max_err = max(kernel_cases(dev), mesh_topk_cases(dev))
     sc_max_err = scatter_cases(dev)
 
     # 4. the serve path at full width
@@ -3204,7 +3848,6 @@ def main() -> int:
     # 17. rank-20k: the two-stage ranker on the anchor20k graph from phase
     # 16's data directory; the tools from phase 12's checkpoint
     rank = rank_20k(a20_ds, a20_fs, dev, prod_dir.name, prod_ckpt, smi)
-    prod_dir.cleanup()
     rank_launches = {kernel: sum(part[kernel] for part in rank["launches"].values())
                      for kernel in ("masked_topk", "scatter_add_rows")}
     prod_launches = prod["launches"]["evaluate"] + prod["launches"]["infer_k20"] + prod["launches"][
@@ -3213,6 +3856,12 @@ def main() -> int:
     # 18. preprocess-20k: raw tables -> tools preprocess -> the flagship
     # trained and evaluated on the artifact directory
     pre = preprocess_20k(dev, smi, (ds.train_user, ds.train_item))
+
+    # 19. mesh-20k: the DDP flagship and lgn on a (2, 2) mesh of 4 processes on
+    # the card, from phase 16's data directory, against one process
+    with tempfile.TemporaryDirectory() as mesh_root:
+        mesh = mesh_20k(os.path.join(prod_dir.name, "data"), dev, mesh_root, smi)
+    prod_dir.cleanup()
 
     ts_serve_launches = ts_serve["launches"]["masked_topk"]
     ts_train_launches = ts_train["launches"]
@@ -3225,7 +3874,7 @@ def main() -> int:
                      + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]
                      + att["launches"]["masked_topk"] + edge["launches"]["masked_topk"]
                      + seq["launches"]["masked_topk"] + prod_launches + rank_launches["masked_topk"]
-                     + pre["launches"]["masked_topk"]),
+                     + pre["launches"]["masked_topk"] + mesh["launches"]["masked_topk"]),
         "launches_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"],
                              "serve_textsage": ts_serve_launches,
                              "train_textsage": ts_train_launches["masked_topk"],
@@ -3235,8 +3884,12 @@ def main() -> int:
                              "sequence_attr_20k": seq["launches"]["masked_topk"],
                              "production_20k": prod_launches,
                              "rank_20k": rank_launches["masked_topk"],
-                             "preprocess_20k": pre["launches"]["masked_topk"]},
+                             "preprocess_20k": pre["launches"]["masked_topk"],
+                             "mesh_20k": mesh["launches"]["masked_topk"]},
         "launches_per_call": f"ceil(k / {st.MAX_K}): one a round",
+        "mesh_shapes": {"evaluation": [dict(zip(("B_rank", "M_block", "d", "k"), x)) for x in MESH_TOPK_SHAPES],
+                        "launched": {kind: mesh["launch_shapes"][kind]["masked_topk"] for kind in ("textsage", "lgn")},
+                        "sharded_masked_topk": mesh["ops"]["shapes"]},
         "rank_dump": {key: rank["dump_topk"][key] for key in (
             "B", "k", "M", "d", "ms", "plain_ms", "library_ms", "topk_only_ms", "bound_ms", "bound_by",
             "kernel_profile")},
@@ -3266,7 +3919,8 @@ def main() -> int:
         "launches": (train["launches"]["scatter_add_rows"] + ts_train_launches["scatter_add_rows"]
                      + a20["launches"]["scatter_add_rows"] + att["launches"]["scatter_add_rows"]
                      + edge["launches"]["scatter_add_rows"] + seq["launches"]["scatter_add_rows"]
-                     + rank_launches["scatter_add_rows"] + pre["launches"]["scatter_add_rows"]),
+                     + rank_launches["scatter_add_rows"] + pre["launches"]["scatter_add_rows"]
+                     + mesh["launches"]["scatter_add_rows"]),
         "launches_by_path": {"serve": 0, "train": train["launches"]["scatter_add_rows"],
                              "serve_textsage": ts_serve["launches"]["scatter_add_rows"],
                              "train_textsage": ts_train_launches["scatter_add_rows"],
@@ -3276,9 +3930,14 @@ def main() -> int:
                              "sequence_attr_20k": seq["launches"]["scatter_add_rows"],
                              "production_20k": prod["launches"]["scatter_add_rows"],
                              "rank_20k": rank_launches["scatter_add_rows"],
-                             "preprocess_20k": pre["launches"]["scatter_add_rows"]},
+                             "preprocess_20k": pre["launches"]["scatter_add_rows"],
+                             "mesh_20k": mesh["launches"]["scatter_add_rows"]},
         "launches_per_step": train["scatter_launches_per_step"],
         "launches_per_step_textsage": ts_train["scatter_launches_per_step"],
+        "mesh_shapes": {"steps": [dict(zip(("N", "R_rank", "D"), x)) for x in MESH_SCATTER_SHAPES],
+                        "launched": {kind: mesh["launch_shapes"][kind]["scatter_add_rows"]
+                                     for kind in ("textsage", "lgn")},
+                        "sharded_embedding_lookup": mesh["ops"]["lookup"]},
         "textsage_shapes": ts_sc_shapes,
         "relation_shapes": [{key: t[key] for key in ("N", "R", "D", "plan", "ms", "row_mode_ms", "plain_ms",
                                                      "library_ms", "device_ms", "row_mode_device_ms",
@@ -3344,6 +4003,9 @@ def main() -> int:
         "features": "informative", **rank}}))
     log(json.dumps({"preprocess": {
         "model": "textsage", "d": TS_D, **PRE_FEATURES, "epochs": PRE_EPOCHS, **pre}}))
+    log(json.dumps({"mesh": {
+        "users": A20_USERS, "items": A20_ITEMS, "train_edges": A20_EDGES, "features": "informative",
+        "d": {"textsage": TS_D, "lgn": MESH_LGN_D}, **mesh}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

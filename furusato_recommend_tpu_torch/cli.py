@@ -21,8 +21,23 @@ the reference's feature artifacts under
 ``--pipeline_dispatch`` concern the TPU layout and XLA: each prints a notice
 and is ignored. ``--wandb NAME`` logs to a wandb run and ``--tensorboard 1``
 to ``{path}/{model}/tb``, each falling back to the JSONL file and stdout when
-its package is missing (``obs/log.py``); ``--ckpt_backend orbax`` and a mesh
-raise.
+its package is missing (``obs/log.py``); ``--ckpt_backend orbax`` raises.
+
+``--mesh_data D --mesh_model M`` (D x M > 1) trains on a (data, model) mesh of
+D x M processes, one a rank, launched by torchrun, which sets the world's
+environment::
+
+    torchrun --nproc_per_node 4 -m furusato_recommend_tpu_torch.cli --model lgn \
+        --mesh_data 2 --mesh_model 2 --data_path ./data [--device cpu]
+
+The mesh raises when there is no such world (no ``WORLD_SIZE``) or when
+``WORLD_SIZE`` is not D x M. ``--device cuda`` puts rank r on card
+``LOCAL_RANK``; ``--device cuda:0`` puts every rank on card 0.
+The collectives' backend follows from the device
+(``core/distributed.py::default_backend``): NCCL for ``cuda`` (one card a
+rank), gloo on the CPU and for a named card that the host's ranks share
+(staging CUDA tensors through host memory). Only rank 0 prints metrics and
+writes files.
 """
 
 from __future__ import annotations
@@ -214,25 +229,65 @@ def main(argv=None):
             print(f"[cli] --{attr} is ignored: {why}")
 
     from .core.device import resolve_device
+    from .core.distributed import shutdown
+
+    if config.mesh.num_devices == 1:
+        _train(args, config, resolve_device(args.device))
+        return
+    device = join_mesh_world(config.mesh, args.device)
+    try:
+        _train(args, config, device)
+    finally:
+        shutdown()
+
+
+def join_mesh_world(mesh, device: str):
+    """Join the world of a (data, model) mesh from torchrun's environment,
+    over ``default_backend(device)``; returns this rank's device. Raises
+    when there is no such world or it has another size."""
+    import os
+
+    from .core.distributed import default_backend, initialize_multihost, rank_device
+
+    need = mesh.num_devices
+    if "WORLD_SIZE" not in os.environ:
+        raise RuntimeError(
+            f"--mesh_data {mesh.data} --mesh_model {mesh.model} needs {need} processes: launch with "
+            f"torchrun --nproc_per_node {need} -m furusato_recommend_tpu_torch.cli ... (no WORLD_SIZE is set)"
+        )
+    if int(os.environ["WORLD_SIZE"]) != need:
+        raise RuntimeError(
+            f"--mesh_data {mesh.data} --mesh_model {mesh.model} needs {need} processes, but WORLD_SIZE is "
+            f"{os.environ['WORLD_SIZE']}"
+        )
+    dev = rank_device(device)
+    initialize_multihost(world_size=need, backend=default_backend(device), device=dev)
+    return dev
+
+
+def _train(args, config: Config, device) -> None:
+    from .core.distributed import is_primary_host
     from .data import load_text_dataset
     from .models.registry import build_model
     from .obs.log import MetricLogger, cprint
     from .train.trainer import Trainer
 
-    device = resolve_device(args.device)
-    cprint(f"[furusato_recommend_tpu_torch] model={config.model} dim={config.latent_dim} device={device}")
+    primary = is_primary_host()
+    if primary:
+        cprint(f"[furusato_recommend_tpu_torch] model={config.model} dim={config.latent_dim} device={device}")
     dataset = load_text_dataset(config)
-    print(
-        f"{dataset.train_size} train / {dataset.test_size} test interactions; "
-        f"sparsity {dataset.sparsity():.6f}"
-    )
+    if primary:
+        print(
+            f"{dataset.train_size} train / {dataset.test_size} test interactions; "
+            f"sparsity {dataset.sparsity():.6f}"
+        )
     graph, model_kw = build_model_inputs(config, dataset)
     model = build_model(config.model, config, graph, **model_kw)
     logger = MetricLogger(
         jsonl_path=f"{config.path}/{config.model}/metrics.jsonl",
         wandb_run=(None if config.test_mode else config.wandb or None),
         tensorboard_dir=(f"{config.path}/{config.model}/tb" if config.tensorboard else None),
-    )
+    ) if primary else MetricLogger(quiet=True)
     try:
         trainer = Trainer(config, dataset, model, logger=logger, ddp_recipe=args.ddp_recipe, device=device)
         resume = False
@@ -243,8 +298,9 @@ def main(argv=None):
             if ckpt.exists():
                 trainer.restore(ckpt)
                 resume = True
-                cprint(f"[load] warm-started from {ckpt} @ step {trainer.step}")
-            else:
+                if primary:
+                    cprint(f"[load] warm-started from {ckpt} @ step {trainer.step}")
+            elif primary:
                 cprint(f"[load] no checkpoint at {ckpt}; training from scratch")
         trainer.fit(resume=resume)
     finally:

@@ -13,8 +13,16 @@ Metrics are divided by the number of test users; coverage is corpus-level;
 ``torch.matmul`` (off the main path, as the JAX package leaves it to XLA).
 ``--inference sample`` encodes every entity through its sampled fanout tree
 (``propagate_sampled``, drawn from a generator seeded with config.seed) for
-the models that have it, the SAGE family; the others propagate as usual. The
-multi-device evaluation is not ported yet.
+the models that have it, the SAGE family; the others propagate as usual.
+
+Under a (data, model) mesh every rank propagates (``--inference sample``
+splits its seeds over ``data``), then each tile's users are split over
+``data`` and scored through ``eval/sharded.py::sharded_masked_topk`` against
+the rank's block of the catalog (one ``masked_topk`` launch a tile on every
+rank); every rank runs every tile, so the collectives line up. The metric
+sums and the coverage are summed over the data group only (the model ranks
+hold the same numbers), then every rank takes rank 0's, so that every rank
+decides alike on them; the top-K ids are gathered over ``data``.
 """
 
 from __future__ import annotations
@@ -26,12 +34,14 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core.mesh import DATA_AXIS
 from ..data.dataset import Dataset
 from ..data.graph import BipartiteGraph
 from ..models.base import PairwiseModel
 from ..ops.csr_search import csr_gather_padded
 from ..ops.streaming_topk import masked_topk
 from .metrics import batch_auc_sum, batch_metric_sums, unexpectedness_from_pmi
+from .sharded import item_block, local_mask, sharded_masked_topk
 
 __all__ = ["EvalData", "build_eval_data", "Evaluator", "MASK_SENTINEL", "COLD_START_UID"]
 
@@ -87,8 +97,15 @@ class Evaluator:
         max_train_degree: int,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("multi-device evaluation is not ported yet")
+        if mesh is not None and config.compute_auc:
+            raise ValueError("compute_auc needs full [B, M] scores; unsupported under a mesh")
+        if mesh is not None and config.inference == "sample" and config.sample_infer_chunk % mesh.data:
+            raise ValueError(
+                f"--inference sample under a mesh needs sample_infer_chunk ({config.sample_infer_chunk}) "
+                f"divisible by the mesh data axis ({mesh.data})"
+            )
+        self.mesh = mesh
+        self._local_mask = None  # the rank's block of the train mask (mesh), built once
         self.model = model
         self.config = config
         self.topks = tuple(config.topks)
@@ -102,6 +119,8 @@ class Evaluator:
         if self.config.inference == "sample" and hasattr(self.model, "propagate_sampled"):
             gen = torch.Generator(device=self.graph.user_pos.indptr.device)
             gen.manual_seed(self.config.seed)
+            if self.mesh is not None:
+                return self.model.propagate_sampled(self.graph, gen, mesh=self.mesh)
             return self.model.propagate_sampled(self.graph, gen)
         return self.model.propagate(self.graph)
 
@@ -141,11 +160,21 @@ class Evaluator:
             sums = cold_sums = None
             cov = torch.zeros((nk, m + 1), dtype=torch.bool, device=user_emb.device)
             topks = []
-            for users, valid in zip(data.users, data.valid):
-                _, topk = masked_topk(
-                    user_emb, item_emb, users, self.kmax, g.user_pos.indptr, g.user_pos.indices,
-                    sigmoid=self.model.score_sigmoid,
-                )
+            tiles = zip(data.users, data.valid)
+            if self.mesh is not None:
+                tiles = self._data_share(data)
+                block = item_block(item_emb, self.mesh)
+                if self._local_mask is None:
+                    self._local_mask = local_mask(g.user_pos, m, self.mesh, m)
+            for users, valid in tiles:
+                if self.mesh is not None:
+                    _, topk = sharded_masked_topk(user_emb, block, users, self.kmax, self._local_mask, self.mesh,
+                                                  sigmoid=self.model.score_sigmoid)
+                else:
+                    _, topk = masked_topk(
+                        user_emb, item_emb, users, self.kmax, g.user_pos.indptr, g.user_pos.indices,
+                        sigmoid=self.model.score_sigmoid,
+                    )
                 topks.append(topk)
                 scores = (
                     self._scores(user_emb, item_emb, users) if self.config.compute_auc else None
@@ -161,8 +190,40 @@ class Evaluator:
                     # padding rows write to the extra column m, dropped below
                     ids = torch.where(valid[:, None], topk[:, :k], m)
                     cov[i, ids.reshape(-1)] = True
+            topks = torch.stack(topks)
+            if self.mesh is not None:
+                return self._reduce(sums, cold_sums, cov, topks)
             cov_counts = cov[:, :m].sum(dim=1)
-            return sums, cold_sums, cov_counts, torch.stack(topks)
+            return sums, cold_sums, cov_counts, topks
+
+    def _data_share(self, data: EvalData):
+        """This data rank's rows of each tile (the same number of tiles on
+        every rank)."""
+        b = data.users.shape[1]
+        if b % self.mesh.data:
+            raise ValueError(f"evaluation tiles of {b} users do not split over the mesh data axis {self.mesh.data}")
+        per = b // self.mesh.data
+        lo = self.mesh.index(DATA_AXIS) * per
+        return zip(data.users[:, lo : lo + per], data.valid[:, lo : lo + per])
+
+    def _reduce(self, sums, cold_sums, cov, topks):
+        """The data ranks' sums, coverage and top-K ids put together (sums
+        over ``data``, then rank 0's on every rank)."""
+        mesh, m = self.mesh, self.graph.m_items
+        parts = [sums] + ([cold_sums] if cold_sums is not None else [])
+        keys = [(i, k) for i, part in enumerate(parts) for k in sorted(part)]
+        flat = torch.cat([parts[i][k].reshape(-1).float() for i, k in keys]
+                         + [cov[:, :m].to(torch.float32).reshape(-1)])
+        flat = mesh.broadcast_from_primary(mesh.all_reduce(flat, DATA_AXIS))
+        sizes = [parts[i][k].numel() for i, k in keys] + [cov[:, :m].numel()]
+        chunks = torch.split(flat, sizes)
+        out = [{} for _ in parts]
+        for (i, k), c in zip(keys, chunks):
+            out[i][k] = c.reshape(parts[i][k].shape)
+        cov_counts = (chunks[-1].reshape(cov.shape[0], m) > 0).sum(dim=1)
+        nb, per, kmax = topks.shape
+        topks = mesh.all_gather(topks, DATA_AXIS).permute(1, 0, 2, 3).reshape(nb, mesh.data * per, kmax)
+        return out[0], (out[1] if cold_sums is not None else None), cov_counts, topks
 
     def __call__(
         self,

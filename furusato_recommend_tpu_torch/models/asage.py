@@ -36,8 +36,9 @@ from ..config import Config
 from ..data.features import FeatureStore
 from ..data.graph import CSR, BipartiteGraph
 from ..ops.scatter import table_gather
+from ..sampling.bpr import BatchShard
 from ..sampling.neighbor import SampledNeighbors, sample_neighbors
-from .base import bpr_loss_from_scores
+from .base import bpr_loss_from_scores, param_norm, row_norm
 from .sage import DROPOUT_RATE, SAGE, dropout
 from .sage_convs import xavier
 
@@ -114,14 +115,16 @@ class ASAGE(SAGE):
         return self
 
     # ---- the attribute view ----
-    def sample_attr_tree(self, seeds: torch.Tensor, side: str, generator: torch.Generator) -> List[SampledNeighbors]:
+    def sample_attr_tree(self, seeds: torch.Tensor, side: str, generator: torch.Generator,
+                         shard: Optional[BatchShard] = None) -> List[SampledNeighbors]:
         """The attribute tree of one seed batch: L levels, the even ones'
-        nodes sampled over the entity -> attribute CSR, the odd ones' back."""
+        nodes sampled over the entity -> attribute CSR, the odd ones' back.
+        ``shard``: the seeds are that share of a batch."""
         fwd, bwd = self._attr_csr[side]
         out: List[SampledNeighbors] = []
         frontier = seeds
         for l in range(self.n_layers):
-            s = sample_neighbors(generator, fwd if l % 2 == 0 else bwd, frontier, self.fanout)
+            s = sample_neighbors(generator, fwd if l % 2 == 0 else bwd, frontier, self.fanout, shard)
             out.append(s)
             frontier = s.ids
         return out
@@ -151,17 +154,19 @@ class ASAGE(SAGE):
                         for l, lvl in enumerate(levels)])
         return out
 
-    def _combine_attr(self, xs: list, tree: List[SampledNeighbors], generator, train: bool) -> torch.Tensor:
+    def _combine_attr(self, xs: list, tree: List[SampledNeighbors], generator, train: bool,
+                      shard: Optional[BatchShard] = None) -> torch.Tensor:
         """Bottom-up combine of one attribute tree's level rows with the main
         conv layers."""
         has_nbr = [None] + [s.has_neighbors for s in tree]
+        drop = (generator, DROPOUT_RATE) if shard is None else (generator, DROPOUT_RATE, shard)
         big_l = self.n_layers
         for i, lp in enumerate(self.layers):
             new_xs = []
             for lvl in range(big_l - i):
                 target, nbrs = xs[lvl], xs[lvl + 1]
                 if train:
-                    nbrs = dropout(nbrs, generator, DROPOUT_RATE)
+                    nbrs = dropout(nbrs, *drop)
                 aggr = torch.where(has_nbr[lvl + 1][..., None], nbrs.mean(dim=-2), 0.0)
                 h = self.conv.sampled(lp, target, aggr, {"neighbors": nbrs})
                 if i != big_l - 1:
@@ -170,10 +175,11 @@ class ASAGE(SAGE):
             xs = new_xs
         return xs[0]
 
-    def encode_attr_trees(self, specs, generator: Optional[torch.Generator] = None, train: bool = False) -> list:
+    def encode_attr_trees(self, specs, generator: Optional[torch.Generator] = None, train: bool = False,
+                          shard: Optional[BatchShard] = None) -> list:
         """[B, node_dim] attribute-view encodings of each (seeds, side,
-        attribute tree)."""
-        return [self._combine_attr(xs, tree, generator, train)
+        attribute tree); ``shard``: the seeds' share of a batch."""
+        return [self._combine_attr(xs, tree, generator, train, shard)
                 for xs, (_, _, tree) in zip(self._attr_levels(specs), specs)]
 
     # ---- training ----
@@ -195,16 +201,21 @@ class ASAGE(SAGE):
         seeds = ((batch.user, "user"), (batch.pos, "item"), (batch.neg, "item"))
         u, p, n = self._encode_batch(graph, batch, generator, trees, tables)
         if attr_trees is None:
-            attr_trees = [self.sample_attr_tree(s, side, generator) for s, side in seeds]
+            attr_trees = [self.sample_attr_tree(s, side, generator, batch.shard) for s, side in seeds]
         ua, pa, na = self.encode_attr_trees(
-            [(s, side, tree) for (s, side), tree in zip(seeds, attr_trees)], generator, train=True)
-        bpr = bpr_loss_from_scores((u * p).sum(-1), (u * n).sum(-1), batch.valid)
-        attr_bpr = bpr_loss_from_scores((ua * pa).sum(-1), (ua * na).sum(-1), batch.valid)
+            [(s, side, tree) for (s, side), tree in zip(seeds, attr_trees)], generator, train=True,
+            shard=batch.shard)
+        norm = row_norm(batch)
+        bpr = bpr_loss_from_scores((u * p).sum(-1), (u * n).sum(-1), batch.valid, norm)
+        attr_bpr = bpr_loss_from_scores((ua * pa).sum(-1), (ua * na).sum(-1), batch.valid, norm)
         reg = 0.5 * sum(torch.sum(torch.square(v)) for k, v in self.named_parameters() if "attr_emb" not in k)
-        reg = reg / batch.valid.sum().clamp_min(1)
+        reg = reg / param_norm(batch)
         total = bpr + self.attr_loss_weight * attr_bpr + self.config.decay * reg
         aux = {"bpr": bpr, "attr_bpr": attr_bpr, "reg": reg}
         if self.ssl_weight > 0:
+            if batch.shard is not None:
+                raise ValueError("the views' in-batch InfoNCE (ssl_weight > 0) takes its negatives from the "
+                                 "whole batch; it does not split over a data axis")
             un, uan, pn, pan = (x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-8)
                                 for x in (u, ua, p, pa))
             temp = 0.1

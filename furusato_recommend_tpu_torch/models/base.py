@@ -12,6 +12,12 @@ A model is an ``nn.Module`` that holds its parameters and exposes
 Every batch row reaches a table through ``ops/scatter.py::table_gather``, so the
 table gradients run the scatter-add kernel on the card. The optimizer lives in
 the trainer.
+
+A loss is a mean over the batch's valid rows, plus terms over the parameters
+divided by the same count (``row_norm``, ``param_norm``). On a data rank's share of a batch
+(``BPRBatch.shard``) both divide by the whole batch's count, the rows' mean
+scaled by the share, so that the mean of the data ranks' losses (and
+gradients) is the whole batch's.
 """
 
 from __future__ import annotations
@@ -33,17 +39,37 @@ __all__ = [
     "infonce_in_batch",
     "l2_ego",
     "l2_params",
+    "row_norm",
+    "param_norm",
 ]
 
 
-def _weighted_mean(per: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def row_norm(batch) -> Optional[torch.Tensor]:
+    """What a data shard's losses divide their sums over its rows by: the
+    whole batch's valid rows (at least 1) times the shard's share of the
+    rows; None for a whole batch, whose losses divide by its own valid rows."""
+    shard = batch.shard
+    if shard is None:
+        return None
+    return torch.clamp_min(shard.count.to(torch.float32), 1.0) * ((shard.stop - shard.start) / shard.total)
+
+
+def param_norm(batch) -> torch.Tensor:
+    """What a loss divides a term over the parameters by: the valid rows of
+    the whole batch (at least 1)."""
+    count = batch.valid.sum() if batch.shard is None else batch.shard.count
+    return count.clamp_min(1)
+
+
+def _weighted_mean(per: torch.Tensor, valid: torch.Tensor, norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     w = valid.to(per.dtype)
-    return torch.sum(per * w) / torch.clamp_min(torch.sum(w), 1.0)
+    return torch.sum(per * w) / (torch.clamp_min(torch.sum(w), 1.0) if norm is None else norm)
 
 
-def bpr_loss_from_scores(pos_scores, neg_scores, valid) -> torch.Tensor:
-    """mean softplus(neg - pos) over valid rows."""
-    return _weighted_mean(F.softplus(neg_scores - pos_scores), valid)
+def bpr_loss_from_scores(pos_scores, neg_scores, valid, norm=None) -> torch.Tensor:
+    """mean softplus(neg - pos) over valid rows (a sum over ``norm`` when
+    given)."""
+    return _weighted_mean(F.softplus(neg_scores - pos_scores), valid, norm)
 
 
 def infonce_in_batch(u_emb, p_emb, valid, temperature: float) -> torch.Tensor:
@@ -56,15 +82,16 @@ def infonce_in_batch(u_emb, p_emb, valid, temperature: float) -> torch.Tensor:
     return _weighted_mean(torch.diagonal(per), valid)
 
 
-def l2_ego(u_emb, p_emb, n_emb, valid) -> torch.Tensor:
-    """(1/2)(|u|^2 + |p|^2 + |n|^2) / B over valid rows."""
+def l2_ego(u_emb, p_emb, n_emb, valid, norm=None) -> torch.Tensor:
+    """(1/2)(|u|^2 + |p|^2 + |n|^2) / B over valid rows (B: ``norm`` when
+    given)."""
     w = valid.to(u_emb.dtype)[:, None]
     sq = (
         torch.sum((u_emb * w) * u_emb)
         + torch.sum((p_emb * w) * p_emb)
         + torch.sum((n_emb * w) * n_emb)
     )
-    return 0.5 * sq / torch.clamp_min(torch.sum(w), 1.0)
+    return 0.5 * sq / (torch.clamp_min(torch.sum(w), 1.0) if norm is None else norm)
 
 
 def l2_params(params: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -136,22 +163,28 @@ class PairwiseModel(nn.Module):
         s = user_emb[users] @ item_emb.T
         return torch.sigmoid(s) if self.score_sigmoid else s
 
-    def main_loss(self, u, p, n, valid) -> torch.Tensor:
-        """BPR or in-batch InfoNCE, per config.loss_fn."""
+    def main_loss(self, u, p, n, valid, norm=None) -> torch.Tensor:
+        """BPR or in-batch InfoNCE, per config.loss_fn; ``norm``: the rows'
+        divisor (``row_norm``), which the in-batch InfoNCE cannot take:
+        its negatives are the whole batch's rows."""
         if self.config.loss_fn == "infonce":
+            if norm is not None:
+                raise ValueError("in-batch InfoNCE takes its negatives from the whole batch; "
+                                 "it does not split over a data axis")
             return infonce_in_batch(u, p, valid, self.config.infonce_temperature)
         pos_s = torch.sum(u * p, dim=-1)
         neg_s = torch.sum(u * n, dim=-1)
-        return bpr_loss_from_scores(pos_s, neg_s, valid)
+        return bpr_loss_from_scores(pos_s, neg_s, valid, norm)
 
-    def reg_loss(self, u_emb, p_emb, n_emb, valid) -> torch.Tensor:
-        return l2_ego(u_emb, p_emb, n_emb, valid)
+    def reg_loss(self, u_emb, p_emb, n_emb, valid, norm=None) -> torch.Tensor:
+        return l2_ego(u_emb, p_emb, n_emb, valid, norm)
 
     def loss(
         self, graph: BipartiteGraph, batch, generator: Optional[torch.Generator] = None
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         user_emb, item_emb = self.propagate(graph, generator)
         u, p, n = gather_batch_rows(user_emb, item_emb, batch)
-        bpr = self.main_loss(u, p, n, batch.valid)
-        reg = self.reg_loss(u, p, n, batch.valid)
+        norm = row_norm(batch)
+        bpr = self.main_loss(u, p, n, batch.valid, norm)
+        reg = self.reg_loss(u, p, n, batch.valid, norm)
         return bpr + self.config.decay * reg, {"bpr": bpr, "reg": reg}

@@ -23,7 +23,7 @@ import torch
 from ..config import Config
 from ..data.graph import BipartiteGraph
 from ..ops.segment import Adjacency, spmm
-from .base import PairwiseModel, _weighted_mean, gather_batch_rows, l2_ego
+from .base import PairwiseModel, _weighted_mean, gather_batch_rows, l2_ego, row_norm
 
 __all__ = ["LightGCN"]
 
@@ -94,12 +94,13 @@ class LightGCN(PairwiseModel):
         u, p, n = gather_batch_rows(user_emb, item_emb, batch)
         # ego-embedding regularisation on the pre-propagation tables
         u0, p0, n0 = gather_batch_rows(self.user_emb, self.item_emb, batch)
-        reg = l2_ego(u0, p0, n0, batch.valid)
+        norm = row_norm(batch)
+        reg = l2_ego(u0, p0, n0, batch.valid, norm)
         if self.loss_mode == "softmax":
             pos_s = torch.sum(u * p, dim=-1)
             neg_s = torch.sum(u * n, dim=-1)
             logits = torch.stack([pos_s, neg_s], dim=-1)
-            main = _weighted_mean(-torch.log_softmax(logits, dim=-1)[:, 0], batch.valid)
+            main = _weighted_mean(-torch.log_softmax(logits, dim=-1)[:, 0], batch.valid, norm)
         else:
-            main = self.main_loss(u, p, n, batch.valid)
+            main = self.main_loss(u, p, n, batch.valid, norm)
         return main + self.config.decay * reg, {"bpr": main, "reg": reg}

@@ -63,13 +63,15 @@ from torch import nn
 
 from ..config import Config
 from ..convert import flatten_params
+from ..core.mesh import DATA_AXIS
 from ..data.features import FeatureStore
 from ..data.graph import BipartiteGraph
 from ..data.ooc import CHUNK, stream_project
 from ..ops.scatter import table_gather
 from ..ops.segment import SparsePair, spmm
+from ..sampling.bpr import BatchShard, draw_rows
 from ..sampling.neighbor import SampledNeighbors, sample_neighbors
-from .base import PairwiseModel, gather_batch_rows, l2_params
+from .base import PairwiseModel, gather_batch_rows, l2_params, param_norm, row_norm
 from .sage_convs import edge_feature, get_conv, xavier
 
 __all__ = ["SAGE", "COLD_START_UID", "DROPOUT_RATE", "dropout"]
@@ -84,16 +86,20 @@ def _other(side: str) -> str:
     return "item" if side == "user" else "user"
 
 
-def dropout(x: torch.Tensor, generator: Optional[torch.Generator], rate: Optional[float] = None) -> torch.Tensor:
+def dropout(x: torch.Tensor, generator: Optional[torch.Generator], rate: Optional[float] = None,
+            shard: Optional[BatchShard] = None) -> torch.Tensor:
     """Each element kept with probability 1 - rate (default DROPOUT_RATE) and
     scaled by 1 / (1 - rate), else 0; the mask drawn from ``generator`` on
-    x's device (the JAX package draws it from its threefry key)."""
+    x's device (the JAX package draws it from its threefry key). ``shard``:
+    x's leading axis is that share of a batch's rows, and takes the whole
+    batch's mask cut to its rows."""
     rate = DROPOUT_RATE if rate is None else rate
     if rate <= 0:
         return x
     if generator is None:
         raise ValueError("training dropout needs a generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = draw_rows(lambda shape: torch.rand(shape, generator=generator, device=x.device), x.shape, shard)
+    keep = keep < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -469,15 +475,17 @@ class SAGE(PairwiseModel):
         return sides
 
     def sample_seed_tree(
-        self, graph: BipartiteGraph, seeds: torch.Tensor, seed_side: str, generator: torch.Generator
+        self, graph: BipartiteGraph, seeds: torch.Tensor, seed_side: str, generator: torch.Generator,
+        shard: Optional[BatchShard] = None,
     ) -> List[SampledNeighbors]:
         """The fanout tree of one seed batch: L levels, level l + 1 sampled
-        from level l's nodes over the CSR of their side."""
+        from level l's nodes over the CSR of their side. ``shard``: the
+        seeds are that share of a batch."""
         out: List[SampledNeighbors] = []
         frontier = seeds
         for side in self._sides(seed_side)[:-1]:
             csr = graph.prop_user_pos if side == "user" else graph.prop_item_pos
-            s = sample_neighbors(generator, csr, frontier, self.fanout)
+            s = sample_neighbors(generator, csr, frontier, self.fanout, shard)
             out.append(s)
             frontier = s.ids
         return out
@@ -529,9 +537,11 @@ class SAGE(PairwiseModel):
                 out[t].append([next(rows).reshape(lab.shape + (-1,)) for lab in tree_labels[: self.n_layers - i]])
         return out
 
-    def _combine(self, graph, xs, has_nbr, edge_pos, sides, rel, generator, train: bool) -> torch.Tensor:
+    def _combine(self, graph, xs, has_nbr, edge_pos, sides, rel, generator, train: bool,
+                 shard: Optional[BatchShard] = None) -> torch.Tensor:
         """Bottom-up SAGE combine of one tree's level rows ``xs``; ``rel``:
-        the tree's relation rows (``_gather_relations``), or None."""
+        the tree's relation rows (``_gather_relations``), or None; ``shard``:
+        the seeds' share of a batch, for the dropout's draws."""
         big_l = self.n_layers
         layer_outputs = [xs[0]]
         for i, lp in enumerate(self.layers):
@@ -539,7 +549,7 @@ class SAGE(PairwiseModel):
             for lvl in range(big_l - i):
                 target, nbrs = xs[lvl], xs[lvl + 1]  # [...], [..., F, node_dim]
                 if train:
-                    nbrs = dropout(nbrs, generator)
+                    nbrs = dropout(nbrs, generator, shard=shard)
                 aggr = torch.where(has_nbr[lvl + 1][..., None], nbrs.mean(dim=-2), 0.0)
                 ctx = {"neighbors": nbrs, "side": sides[lvl], "graph": graph, "edge_pos": edge_pos[lvl + 1],
                        "edge_time": self.features.edge_time}
@@ -585,20 +595,38 @@ class SAGE(PairwiseModel):
         return self._combine(graph, xs, has_nbr, edge_pos, sides, rel, generator, train)
 
     @torch.no_grad()
-    def propagate_sampled(self, graph: BipartiteGraph, generator: torch.Generator):
+    def propagate_sampled(self, graph: BipartiteGraph, generator: torch.Generator, mesh=None):
         """``--inference sample``: every item, then every user, encoded through
         its own sampled tree (no dropout) in chunks of
-        config.sample_infer_chunk seeds."""
+        config.sample_infer_chunk seeds.
+
+        mesh: a (data, model) mesh whose data ranks split each chunk's
+        seeds: every rank draws the whole chunk's tree, as one process does,
+        encodes its share of the seeds and the shares are gathered over
+        ``data``, so the result is the single-process one on every rank."""
         chunk = self.config.sample_infer_chunk
+        if mesh is not None and chunk % mesh.data:
+            raise ValueError(f"sample_infer_chunk {chunk} not divisible by mesh data axis {mesh.data}")
         tables = self.initial_tables()
         dev = tables[0].device
 
+        def encode(seeds, side):
+            if mesh is None:
+                return self.encode_seeds(graph, seeds, side, generator, train=False, tables=tables)
+            tree = self.sample_seed_tree(graph, seeds, side, generator)
+            per = -(-seeds.shape[0] // mesh.data)
+            lo = mesh.index(DATA_AXIS) * per
+            mine = slice(lo, min(lo + per, seeds.shape[0]))
+            out = torch.zeros((per, self.node_dim), device=dev)
+            if mine.stop > mine.start:
+                share = [SampledNeighbors(*(x[mine] for x in lvl)) for lvl in tree]
+                out[: mine.stop - mine.start] = self.encode_seeds(
+                    graph, seeds[mine], side, train=False, tables=tables, tree=share)
+            return mesh.all_gather(out, DATA_AXIS).reshape(-1, self.node_dim)[: seeds.shape[0]]
+
         def encode_all(n, side):
             ids = torch.arange(n, dtype=torch.int32, device=dev)
-            return torch.cat([
-                self.encode_seeds(graph, ids[s : s + chunk], side, generator, train=False, tables=tables)
-                for s in range(0, n, chunk)
-            ])
+            return torch.cat([encode(ids[s : s + chunk], side) for s in range(0, n, chunk)])
 
         item_emb = encode_all(self.m_items, "item")
         user_emb = encode_all(self.n_users, "user")
@@ -613,7 +641,7 @@ class SAGE(PairwiseModel):
             return gather_batch_rows(user_emb, item_emb, batch)
         seeds = ((batch.user, "user"), (batch.pos, "item"), (batch.neg, "item"))
         if trees is None:
-            trees = [self.sample_seed_tree(graph, s, side, generator) for s, side in seeds]
+            trees = [self.sample_seed_tree(graph, s, side, generator, batch.shard) for s, side in seeds]
         specs = [
             (self._sides(side), [s] + [lvl.ids for lvl in tree], [None] + [lvl.has_neighbors for lvl in tree],
              [None] + [lvl.edge_pos for lvl in tree])
@@ -624,7 +652,7 @@ class SAGE(PairwiseModel):
         xs_all = self._gather_levels(tables, [(sides, lv) for sides, lv, _, _ in specs])
         rel_all = self._gather_relations(graph, [(sides, pos) for sides, _, _, pos in specs])
         return tuple(
-            self._combine(graph, xs, has_nbr, pos, sides, rel, generator, train=True)
+            self._combine(graph, xs, has_nbr, pos, sides, rel, generator, train=True, shard=batch.shard)
             for xs, rel, (sides, _, has_nbr, pos) in zip(xs_all, rel_all, specs)
         )
 
@@ -644,6 +672,6 @@ class SAGE(PairwiseModel):
         runs the full propagation and gathers the batch rows from it
         instead."""
         u, p, n = self._encode_batch(graph, batch, generator, trees, tables)
-        bpr = self.main_loss(u, p, n, batch.valid)
-        reg = l2_params(self.parameters()) / batch.valid.sum().clamp_min(1)
+        bpr = self.main_loss(u, p, n, batch.valid, row_norm(batch))
+        reg = l2_params(self.parameters()) / param_norm(batch)
         return bpr + self.config.decay * reg, {"bpr": bpr, "reg": reg}

@@ -35,6 +35,8 @@ from ..data.features import FeatureStore
 from ..data.graph import BipartiteGraph
 from ..data.sequence import UserSequences
 from ..ops.scatter import table_gather
+from ..sampling.bpr import BatchShard
+from .base import param_norm, row_norm
 from .sage import SAGE, dropout
 from .sage_convs import xavier
 
@@ -81,30 +83,34 @@ class SASRec(SAGE):
         """Over the last axis, biased variance, eps 1e-5."""
         return F.layer_norm(x, x.shape[-1:], scale, bias, eps=1e-5)
 
-    def _block(self, bp, x: torch.Tensor, generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
-        """One pre-norm block on x [B, T, d]."""
+    def _block(self, bp, x: torch.Tensor, generator: Optional[torch.Generator], train: bool,
+               shard: Optional[BatchShard] = None) -> torch.Tensor:
+        """One pre-norm block on x [B, T, d]; ``shard``: the users' share of
+        a batch, for the dropout's draws."""
         b, t, d = x.shape
+        drop = (generator, DROPOUT) if shard is None else (generator, DROPOUT, shard)
         h = self._layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
         q, k, v = ((h @ bp[w]).reshape(b, t, N_HEADS, d // N_HEADS).transpose(1, 2) for w in ("wq", "wk", "wv"))
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True)  # [B, H, T, dh]
         out = out.transpose(1, 2).reshape(b, t, d) @ bp["wo"]
         if train:
-            out = dropout(out, generator, DROPOUT)
+            out = dropout(out, *drop)
         x = torch.relu(x + out)
         h = self._layer_norm(x, bp["ln2_scale"], bp["ln2_bias"]) @ bp["ffn_w"] + bp["ffn_b"]
         if train:
-            h = dropout(h, generator, DROPOUT)
+            h = dropout(h, *drop)
         return x + h
 
     def _encode_sequences(self, rows: torch.Tensor, lengths: torch.Tensor,
-                          generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
+                          generator: Optional[torch.Generator], train: bool,
+                          shard: Optional[BatchShard] = None) -> torch.Tensor:
         """[B, T, d] initial rows of the users' sequences -> [B, d]: the rows
         beyond each length zeroed, the blocks, the mean of the valid
         positions."""
         valid = (torch.arange(rows.shape[1], device=rows.device)[None, :] < lengths[:, None])[..., None]
         x = torch.where(valid, rows, 0.0)
         for bp in self.blocks:
-            x = self._block(bp, x, generator, train)
+            x = self._block(bp, x, generator, train, shard)
         m = valid.to(x.dtype)
         return (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
 
@@ -147,10 +153,10 @@ class SASRec(SAGE):
         b, t = seq.shape
         rows = table_gather(item_initial, torch.cat([seq.reshape(-1), batch.pos.long(), batch.neg.long()]))
         u = self._encode_sequences(rows[: b * t].reshape(b, t, -1), self.sequences.lengths[users], generator,
-                                   train=True)
+                                   train=True, shard=batch.shard)
         p = self.forward_item(rows[b * t : b * t + b])
         n = self.forward_item(rows[b * t + b :])
-        bpr = self.main_loss(u, p, n, batch.valid)
+        bpr = self.main_loss(u, p, n, batch.valid, row_norm(batch))
         reg = 0.5 * sum(torch.sum(torch.square(v)) for k, v in self.named_parameters() if "emb" in k and "." not in k)
-        reg = reg / batch.valid.sum().clamp_min(1)
+        reg = reg / param_norm(batch)
         return bpr + self.config.decay * reg, {"bpr": bpr, "reg": reg}

@@ -18,8 +18,8 @@ from a ``torch.Generator`` on the graph's device:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, replace
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -28,7 +28,33 @@ from ..ops.alias import AliasTable
 from ..ops.csr_search import csr_contains
 from ..ops.cuckoo import cuckoo_contains
 
-__all__ = ["BPRBatch", "sample_bpr"]
+__all__ = ["BPRBatch", "BatchShard", "draw_rows", "sample_bpr"]
+
+
+@dataclass(frozen=True)
+class BatchShard:
+    """A batch that is rows [start, stop) of a whole batch of ``total`` rows
+    (a data rank's share under a mesh), ``count`` of the whole batch's rows
+    valid (a 0-d tensor on the device)."""
+
+    start: int
+    stop: int
+    total: int
+    count: torch.Tensor
+
+
+def draw_rows(draw: Callable[[tuple], torch.Tensor], shape: Sequence[int],
+              shard: Optional[BatchShard]) -> torch.Tensor:
+    """``draw(shape)`` for a tensor whose leading axis runs over a batch's
+    rows (each row ``shape[0] / rows`` entries of it); for a shard, what
+    ``draw`` gives the whole batch, cut to the shard's rows, so that a mesh
+    takes the draws of one process."""
+    shape = tuple(shape)
+    if shard is None:
+        return draw(shape)
+    per = shape[0] // (shard.stop - shard.start)
+    whole = draw((shard.total * per,) + shape[1:])
+    return whole[shard.start * per : shard.stop * per]
 
 
 @dataclass(frozen=True)
@@ -37,6 +63,8 @@ class BPRBatch:
     pos: torch.Tensor  # [N] int32 item ids in [0, m_items)
     neg: torch.Tensor  # [N] int32
     valid: torch.Tensor  # [N] bool; False rows contribute zero loss
+    #: set when this batch is a data rank's rows of a whole batch
+    shard: Optional[BatchShard] = None
 
     def slice(self, start: int, stop: int) -> "BPRBatch":
         return BPRBatch(
@@ -44,10 +72,21 @@ class BPRBatch:
             self.valid[start:stop],
         )
 
+    def data_shard(self, index: int, shards: int) -> "BPRBatch":
+        """Rows [index x n / shards, (index + 1) x n / shards) of this batch,
+        which knows the whole batch (``shard``)."""
+        n = self.user.shape[0]
+        if n % shards:
+            raise ValueError(f"a batch of {n} rows does not split into {shards} equal shards")
+        per = n // shards
+        start, stop = index * per, (index + 1) * per
+        return replace(self.slice(start, stop), shard=BatchShard(start, stop, n, self.valid.sum()))
+
     def to(self, device) -> "BPRBatch":
+        shard = self.shard and replace(self.shard, count=self.shard.count.to(device))
         return BPRBatch(
             self.user.to(device), self.pos.to(device), self.neg.to(device),
-            self.valid.to(device),
+            self.valid.to(device), shard,
         )
 
 

@@ -5,16 +5,18 @@ gather: r ~ randint(0, 2^30) % deg, neighbour = indices[start + r], all from a
 ``torch.Generator`` on the CSR's device. A zero-degree node draws position
 ``start`` (clipped into the CSR) and is flagged in ``has_neighbors``, so its
 aggregate counts as 0. The flat CSR positions of the draws come back too, for
-per-edge features.
+per-edge features. A data rank's share of a batch (``shard``) takes the draws
+the whole batch's nodes would take, cut to its own rows (``draw_rows``).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
 from ..data.graph import CSR
+from .bpr import BatchShard, draw_rows
 
 __all__ = ["SampledNeighbors", "sample_neighbors", "sample_tree"]
 
@@ -29,21 +31,24 @@ class SampledNeighbors(NamedTuple):
 
 
 def sample_neighbors(
-    generator: torch.Generator, csr: CSR, nodes: torch.Tensor, fanout: int
+    generator: torch.Generator, csr: CSR, nodes: torch.Tensor, fanout: int,
+    shard: Optional[BatchShard] = None,
 ) -> SampledNeighbors:
     """``fanout`` neighbours of every node of ``nodes`` (any shape), drawn with
-    replacement; ``generator`` lives on the CSR's device."""
+    replacement; ``generator`` lives on the CSR's device. ``shard``: nodes'
+    leading axis is that share of a batch's rows."""
     with torch.profiler.record_function("sample_neighbors"):  # names it in a trace
-        return _sample(generator, csr, nodes, fanout)
+        return _sample(generator, csr, nodes, fanout, shard)
 
 
-def _sample(generator, csr, nodes, fanout) -> SampledNeighbors:
+def _sample(generator, csr, nodes, fanout, shard=None) -> SampledNeighbors:
     nnz = csr.nnz
     nodes_f = nodes.reshape(-1).long()
     start = csr.indptr[nodes_f]
     deg = csr.indptr[nodes_f + 1] - start
-    r = torch.randint(
-        0, 1 << 30, (nodes_f.shape[0], fanout), generator=generator, device=csr.indptr.device
+    r = draw_rows(
+        lambda shape: torch.randint(0, 1 << 30, shape, generator=generator, device=csr.indptr.device),
+        (nodes_f.shape[0], fanout), shard,
     )
     r = r % deg.clamp_min(1)[:, None]
     pos = (start[:, None] + r).clamp(0, max(nnz - 1, 0))

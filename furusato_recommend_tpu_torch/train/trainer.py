@@ -41,13 +41,28 @@ their epochs not rounded to blocks):
   on the device over the epoch; after it, a streamed X^T G takes an SGD step at
   lr / num_batches (``data/ooc.py``).
 
+Under a (data, model) mesh (``config.mesh``, over an initialised
+``torch.distributed`` world of data x model processes; ``train/sharding.py``)
+every rank draws the same epoch and the same randomness from the shared
+generator and computes each step on its data rank's rows, the large tables
+row-sharded over ``model`` (gathered for the forward); before every Adam
+step (the cadences' pullbacks and both Adams under T > 1 included) a
+block's gradient is averaged over ``data`` and a replicated parameter's over
+the world, so the mesh trains as one process does.
+``save`` gathers the blocks on every rank and the primary writes whole
+tables and moments, which a single-process ``restore`` reads; ``restore``
+and ``init_state`` shard again. (Deviation: the JAX package raises where a
+model axis spans processes; every rank of the port is a process.) Only the
+primary prints and logs.
+
 The JAX package's XLA machinery (the compile cache, the epoch program split,
-``pipeline_dispatch``'s prefetch, the device mesh) has no counterpart here:
-PyTorch runs eagerly and its device queue already overlaps the host.
+``pipeline_dispatch``'s prefetch) has no counterpart here: PyTorch runs
+eagerly and its device queue already overlaps the host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import time
 from typing import Dict, Optional, Sequence
@@ -59,6 +74,8 @@ from ..config import Config
 from ..convert import adam_state_from_jax, adam_state_to_numpy, flatten_params, params_from_jax
 from ..core.checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
 from ..core.device import resolve_device
+from ..core.distributed import is_primary_host
+from ..core.mesh import make_mesh, shard_params
 from ..data.dataset import Dataset
 from ..data.ooc import stream_project_grad
 from ..eval.evaluate import EvalData, Evaluator, build_eval_data
@@ -74,6 +91,7 @@ from ..sampling.weights import (
     popularity_positive_edge_weights,
     sample_prob_edge_weights,
 )
+from .sharding import adam, adam_step, build_kernels_once, loss_backward
 
 __all__ = ["OPTIMIZER_PREFIXES", "Trainer"]
 
@@ -121,8 +139,6 @@ class Trainer:
         ddp_recipe: bool = False,
         device=None,
     ):
-        if config.mesh.num_devices > 1:
-            raise NotImplementedError("multi-device training is not ported yet")
         self.feat_every = max(1, int(config.feature_update_every))
         self.relin_every = int(config.relin_every)
         #: side -> MemmapNumeric of the out-of-core numeric features (dask)
@@ -162,9 +178,23 @@ class Trainer:
         self.config = config
         self.dataset = dataset
         self.device = resolve_device(device)
+        self.mesh = None
+        if config.mesh.num_devices > 1:
+            for name, size in (("bpr_batch_size", config.bpr_batch_size), ("eval_user_batch", config.eval_user_batch)):
+                if size % config.mesh.data:
+                    raise ValueError(f"{name} {size} not divisible by mesh data axis {config.mesh.data}")
+            if config.loss_fn == "infonce" and config.mesh.data > 1:
+                raise ValueError("in-batch InfoNCE takes its negatives from the whole batch; it does not "
+                                 "split over a data axis")
+            self.mesh = make_mesh(config.mesh.data, config.mesh.model, self.device)
+            build_kernels_once(self.mesh)
         self.graph = dataset.graph.to(self.device)
         self.model = model.to(self.device)
-        self.logger = logger or MetricLogger(quiet=config.test_mode)
+        #: the row-sharded parameters under a mesh
+        self.shards = shard_params(self.model, self.mesh) if self.mesh is not None else None
+        if logger is None or not is_primary_host():
+            logger = MetricLogger(quiet=config.test_mode or not is_primary_host())
+        self.logger = logger
         self.max_recall = -1.0
         self.step = 0
         #: the last epoch's per-step losses, on the device
@@ -204,14 +234,26 @@ class Trainer:
         self.generator.manual_seed(config.seed)
 
         max_deg = int(np.max(np.bincount(dataset.train_user, minlength=dataset.n_users)))
-        self.evaluator = Evaluator(model, self.graph, config, max_train_degree=max_deg)
+        self.evaluator = Evaluator(model, self.graph, config, max_train_degree=max_deg, mesh=self.mesh)
         self.eval_data: EvalData = build_eval_data(
             dataset, config.eval_user_batch, item_categories=item_categories,
             max_batches=config.test_count if ddp_recipe else None, device=self.device,
         )
 
-    def _adam(self, params) -> torch.optim.Adam:
-        return torch.optim.Adam(params, lr=self.config.lr, betas=(0.9, 0.999), eps=1e-8)
+    def _whole(self):
+        """Inside, the model reads its row-sharded tables whole (a mesh)."""
+        return self.shards.whole() if self.shards is not None else contextlib.nullcontext()
+
+    def _own(self, name: str, grad):
+        """This rank's rows of a whole-table gradient (or moment) of
+        parameter ``name``."""
+        return self.shards.own(name, grad) if self.shards is not None and name in self.shards.names else grad
+
+    def _average(self, tensors) -> None:
+        """Average ``tensors`` (whole, replicated) in place over the mesh's
+        world, whose model ranks hold the same ones."""
+        if self.mesh is not None:
+            self.mesh.average(list(tensors), None)
 
     def _new_optimizers(self) -> None:
         """``optimizer`` over the parameters that step every step, and under
@@ -220,14 +262,18 @@ class Trainer:
         named = dict(self.model.named_parameters())
         frozen = {f"{side}_numeric_{sfx}" for side in self.ooc for sfx in ("w", "b")}
         apart = set(self.feature_names) if self.cadence == "super" else set()
-        self.optimizer = self._adam([p for k, p in named.items() if k not in frozen | apart])
-        self.opt_feat = self._adam([named[k] for k in self.feature_names]) if apart else None
+        self.optimizer = adam([p for k, p in named.items() if k not in frozen | apart], self.config)
+        self.opt_feat = adam([named[k] for k in self.feature_names], self.config) if apart else None
 
     def init_state(self, seed: Optional[int] = None) -> None:
         """Fresh parameters (drawn from ``seed``, default config.seed), fresh
         Adam moments, the sampler's stream from ``seed``, step 0."""
         seed = self.config.seed if seed is None else seed
+        if self.shards is not None:
+            self.shards.release()
         self.model.init_parameters(torch.Generator().manual_seed(seed))
+        if self.shards is not None:
+            self.shards = shard_params(self.model, self.mesh)
         self._new_optimizers()
         self.generator.manual_seed(seed)
         self.step = 0
@@ -237,25 +283,22 @@ class Trainer:
         computed inside the loss (R = 1); the loss stays on the device. The
         trainer's generator draws the step's randomness (edge dropout under
         config.dropout; the SAGE family's trees, unless ``draws`` gives them,
-        and dropout)."""
-        self.model.zero_grad(set_to_none=True)
-        loss, _ = self.model.loss(self.graph, batch, generator=self.generator, **(draws or {}))
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
+        and dropout). Under a mesh, this data rank's share of the loss."""
+        loss = loss_backward(self.model, self.graph, batch, self.generator, draws, self.shards)
+        adam_step(self.optimizer, self.shards)
+        return loss
 
     def _direct_step(self, batch: BPRBatch, draws: Optional[dict], lin: _Linearization):
         """Zero the gradients, then forward and backward of the loss on the
         linearization's tables as leaves: (loss, the tables' gradients); the
         parameters hold their direct gradients."""
-        self.model.zero_grad(set_to_none=True)
         leaves = tuple(t.detach().requires_grad_(True) for t in lin.leaves)
-        loss, _ = self.model.loss(self.graph, batch, generator=self.generator, tables=leaves, **(draws or {}))
-        loss.backward()
-        return loss.detach(), tuple(torch.zeros_like(t) if t.grad is None else t.grad for t in leaves)
+        loss = loss_backward(self.model, self.graph, batch, self.generator, draws, self.shards, tables=leaves)
+        return loss, tuple(torch.zeros_like(t) if t.grad is None else t.grad for t in leaves)
 
     def _linearize(self) -> _Linearization:
-        return _Linearization(self.model, self.feature_names, with_proj=bool(self.ooc))
+        with self._whole():
+            return _Linearization(self.model, self.feature_names, with_proj=bool(self.ooc))
 
     def train_epoch(self, batches: Sequence[BPRBatch], draws: Optional[Sequence[dict]] = None) -> torch.Tensor:
         """The steps of one epoch over ``batches`` under the configured
@@ -263,6 +306,11 @@ class Trainer:
         presampled keyword arguments (the (user, pos, neg) fanout trees as
         ``trees``, ASAGE's attribute trees as ``attr_trees``), else drawn from
         the generator. Returns the per-step losses, on the device."""
+        losses = self._train_epoch(batches, draws)
+        self._average([losses])  # the ranks' shares: the whole batches' losses
+        return losses
+
+    def _train_epoch(self, batches: Sequence[BPRBatch], draws: Optional[Sequence[dict]]) -> torch.Tensor:
         n = len(batches)
         draw = (lambda b: None) if draws is None else (lambda b: draws[b])
         losses = torch.empty(n, device=self.device)
@@ -280,7 +328,8 @@ class Trainer:
                 )
             return losses
         if self.ooc:
-            self.model.refresh_ooc_proj()
+            with self._whole():
+                self.model.refresh_ooc_proj()
         # one linearization a block of R steps, or an epoch (R = 0, dask)
         span = self.relin_every if self.cadence == "relin" and self.relin_every > 0 else n
         named = dict(self.model.named_parameters())
@@ -291,12 +340,13 @@ class Trainer:
             losses[b], g_t = self._direct_step(batches[b], draw(b), lin)
             g_feat, g_proj = lin.pullback(g_t)
             for k, g in g_feat.items():  # the direct gradient plus the pullback
-                p = named[k]
+                p, g = named[k], self._own(k, g)
                 p.grad = g if p.grad is None else p.grad + g
             for side, g in g_proj.items():
                 acc[side] = g if side not in acc else acc[side] + g
-            self.optimizer.step()
+            adam_step(self.optimizer, self.shards)
         if self.ooc:
+            self._average(acc[side] for side in sorted(acc))
             self._apply_ooc_update(acc, n)
         return losses
 
@@ -316,12 +366,12 @@ class Trainer:
             for k, a in acc_p.items():
                 if named[k].grad is not None:
                     a += named[k].grad
-            self.optimizer.step()
+            adam_step(self.optimizer, self.shards)
         self.model.zero_grad(set_to_none=True)
         g_feat, _ = lin.pullback(tuple(a / t for a in acc_t))
         for k, g in g_feat.items():
-            named[k].grad = g + acc_p[k] / t
-        self.opt_feat.step()
+            named[k].grad = self._own(k, g) + acc_p[k] / t
+        adam_step(self.opt_feat, self.shards)
         return losses
 
     @torch.no_grad()
@@ -333,7 +383,7 @@ class Trainer:
         scale = self.config.lr / n_steps
         for side, mm in self.ooc.items():
             gw, gb = stream_project_grad(mm, acc[side])
-            getattr(self.model, f"{side}_numeric_w").sub_(scale * gw)
+            getattr(self.model, f"{side}_numeric_w").sub_(scale * self._own(f"{side}_numeric_w", gw))
             getattr(self.model, f"{side}_numeric_b").sub_(scale * gb)
 
     def sample_epoch(self):
@@ -353,9 +403,10 @@ class Trainer:
         return float(losses.mean())
 
     def test(self) -> Dict[str, float]:
-        if self.ooc:
-            self.model.refresh_ooc_proj()
-        results, _ = self.evaluator(self.eval_data, with_topk=False)
+        with self._whole():
+            if self.ooc:
+                self.model.refresh_ooc_proj()
+            results, _ = self.evaluator(self.eval_data, with_topk=False)
         return results
 
     def fit(self, epochs: Optional[int] = None, resume: bool = False) -> Dict[str, float]:
@@ -388,7 +439,8 @@ class Trainer:
                 if results.get(f"recall@{k0}", -1.0) > self.max_recall:
                     self.max_recall = results[f"recall@{k0}"]
                     self.save()
-                    cprint(f"[best] recall@{k0}={self.max_recall:.5f} @ epoch {self.step}")
+                    if is_primary_host():
+                        cprint(f"[best] recall@{k0}={self.max_recall:.5f} @ epoch {self.step}")
         return results
 
     def _optimizers(self) -> Dict[str, torch.optim.Adam]:
@@ -400,28 +452,40 @@ class Trainer:
 
     def save(self, path=None) -> None:
         """Write parameters, each Adam's moments and step count, the
-        sampler's generator state, the epoch count and the best recall."""
+        sampler's generator state, the epoch count and the best recall.
+        Under a mesh every rank gathers the row-sharded tables and moments
+        (in the same order), and the primary writes them whole."""
+        params = dict(self.model.named_parameters())
         state = {}
         for prefix, opt in self._optimizers().items():
             count, mu, nu = adam_state_to_numpy(opt, self.model)
             state[f"{prefix}_count"] = np.int64(count)
             state.update({f"{prefix}_mu/{k}": v for k, v in flatten_params(mu).items()})
             state.update({f"{prefix}_nu/{k}": v for k, v in flatten_params(nu).items()})
+        for name in self.shards.names if self.shards is not None else ():
+            params[name] = self.shards.gather(params[name])
+            for key in [f"{prefix}_{m}/{name}" for prefix in self._optimizers() for m in ("mu", "nu")]:
+                state[key] = self.shards.gather(torch.from_numpy(state[key]).to(self.device)).cpu().numpy()
+        if not is_primary_host():
+            return
         state["generator"] = self.generator.get_state()
         state["step"] = np.int64(self.step)
         state["max_recall"] = np.float64(self.max_recall)
-        save_checkpoint(
-            path or checkpoint_path(self.config), dict(self.model.named_parameters()), self.config, state
-        )
+        save_checkpoint(path or checkpoint_path(self.config), params, self.config, state)
 
     def restore(self, path=None) -> None:
         """Load the full training state written by ``save``, or by
         ``tools/export_jax_checkpoint.py``: its file has no generator state
         (JAX's key has no torch counterpart), and the sampler's stream then
-        starts from config.seed."""
+        starts from config.seed. Under a mesh each rank reads the whole file
+        and keeps its blocks of the row-sharded tables and moments."""
         ckpt = load_checkpoint(path or checkpoint_path(self.config))
         st = ckpt["state"]
+        if self.shards is not None:
+            self.shards.release()
         params_from_jax(ckpt["params"], self.model)
+        if self.shards is not None:
+            self.shards = shard_params(self.model, self.mesh)
         self._new_optimizers()
         names = [n for n, _ in self.model.named_parameters()]
         for prefix, opt in self._optimizers().items():
@@ -429,8 +493,8 @@ class Trainer:
             if count:
                 adam_state_from_jax(
                     count,
-                    {n: st[f"{prefix}_mu/{n}"] for n in names},
-                    {n: st[f"{prefix}_nu/{n}"] for n in names},
+                    {n: self._own(n, st[f"{prefix}_mu/{n}"]) for n in names},
+                    {n: self._own(n, st[f"{prefix}_nu/{n}"]) for n in names},
                     opt,
                     self.model,
                 )

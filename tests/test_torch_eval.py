@@ -26,6 +26,7 @@ from furusato_recommend_tpu.eval import metrics as jmet
 from furusato_recommend_tpu.models.registry import build_model as jbuild_model
 from furusato_recommend_tpu_torch.config import Config
 from furusato_recommend_tpu_torch.convert import params_from_jax
+from furusato_recommend_tpu_torch.core.mesh import Mesh
 from furusato_recommend_tpu_torch.data import dataset as tds
 from furusato_recommend_tpu_torch.data.graph import CSR
 from furusato_recommend_tpu_torch.eval import evaluate as tev
@@ -162,8 +163,11 @@ def test_unported_evaluation_modes_raise():
     td = tds.synthetic_dataset(n_users=N_USERS, m_items=M_ITEMS, avg_degree=9, seed=4)
     cfg = Config(latent_dim=DIM, inference="sample")
     model = build_model("lgn", cfg, td.graph)
-    with pytest.raises(NotImplementedError):
-        tev.Evaluator(model, td.graph, cfg, 10, mesh=object())
+    # the mesh is ported (tests/test_torch_distributed.py); as in the JAX
+    # package, it takes no AUC (which needs the full [B, M] scores)
+    mesh = Mesh(2, 1, 0, torch.device("cpu"), {})
+    with pytest.raises(ValueError, match="compute_auc"):
+        tev.Evaluator(model, td.graph, cfg.replace(compute_auc=True), 10, mesh=mesh)
     # --inference sample is ported for the SAGE family (tests/test_torch_sage.py);
     # a model without sampled inference propagates, as in the JAX package
     ev = tev.Evaluator(model, td.graph, cfg, 10)

@@ -270,7 +270,8 @@ def test_trainer_raises_on_what_is_not_ported(tmp_path):
     td = tds.synthetic_dataset(n_users=N_USERS, m_items=M_ITEMS, avg_degree=8, seed=2)
     cfg = Config(latent_dim=DIM)
     m = build_model("lgn", cfg, td.graph)
-    with pytest.raises(NotImplementedError):
+    # a mesh is ported, and needs its world of processes (tests/test_torch_distributed.py)
+    with pytest.raises(RuntimeError, match="needs a world of 2 processes"):
         Trainer(cfg.replace(mesh=dataclasses.replace(cfg.mesh, data=2)), td, m, device="cpu")
     with pytest.raises(ValueError, match="SAGE-family"):  # as the JAX trainer
         Trainer(cfg.replace(feature_update_every=2), td, m, device="cpu")

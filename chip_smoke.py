@@ -315,16 +315,23 @@ Phases (any failure raises and exits non-zero):
  19. mesh-20k  the (data, model) mesh of torch.distributed at (2, 2): 4 rank
                processes, all on cuda:0, collectives over gloo (NCCL refuses
                two ranks on one card), each building its Trainer from phase
-               16's data directory as a user does. The DDP flagship (textsage,
-               ddp_flagship_config, d 32) and lgn (d 64), both with the ddp
-               recipe and float32 SpMM operands (MESH_DTYPE says why), each
-               against the same config, seed and draws in one process on the
-               card: 2 steps from fresh parameters on the same batches under
+               16's data directory as a user does. The cases of MESH_CASES:
+               the DDP flagship (textsage, ddp_flagship_config, d 32), lgn (d
+               64), lgn under the in-batch InfoNCE (loss_fn infonce) and
+               asage with its views' InfoNCE (ssl_weight 0.1), all with the
+               ddp recipe and float32 SpMM operands (MESH_DTYPE says why); the
+               two InfoNCE cases score each data rank's rows against the whole
+               batch's, gathered over the data axis, whose backward sums the
+               rows' gradients over it. Each case against the same config,
+               seed and draws in one process on the card: 2 steps from fresh
+               parameters on the same batches under
                phase 7's rule (losses within rtol 1e-5 and 1e-4, every
                parameter within 4 x lr, all but 1e-3 of them within 1e-6 +
                1e-5 |p|), the first step's gradients within 1e-6 + 1e-4 x
-               their tensor's largest magnitude; then an evaluation, 2
-               epochs and an evaluation: losses within rtol MESH_LOSS_RTOL,
+               their tensor's largest magnitude, their launches counted from
+               0 (asage-ssl runs these steps alone); then an evaluation, 2
+               epochs (lgn-infonce 1) and an evaluation: losses within rtol
+               MESH_LOSS_RTOL,
                metrics within MESH_METRIC_ATOL, every parameter within
                MESH_PARAM_LRS x lr (the scatter's atomic adds and the GEMMs
                over a data rank's rows round otherwise, and Adam turns a
@@ -339,11 +346,11 @@ Phases (any failure raises and exits non-zero):
                draws what one process draws), and a one-process Trainer
                restores it and evaluates within MESH_RESTORE_ATOL of the
                mesh; on every rank scatter_add_rows launched 2 times a
-               textsage step and 4 times an lgn step, masked_topk once a
-               tile of each evaluation (the rank's half of each tile of 2048
-               users against its half of the catalog), counted from 0 over
-               each path, every launch at a shape of MESH_SCATTER_SHAPES /
-               MESH_TOPK_SHAPES, which phase 3 holds against the plain
+               textsage step, 4 times an lgn step and 6 times an asage step,
+               masked_topk once a tile of each evaluation (the rank's half of
+               each tile of 2048 users against its half of the catalog),
+               counted from 0 over each path, every launch at one of its
+               case's shapes, which phase 3 holds against the plain
                versions; each rank's MiB of row-sharded parameters and Adam
                moments against the whole tables'; sharded_masked_topk at (M,
                d) = (10000, 32) and (10000, 64), the rank's 1024 of 2048
@@ -376,7 +383,9 @@ M, d) = (1024, 5000, 32) and (1024, 5000, 64), k in {10, 20}, each model
 rank's block under the local CSR that local_mask builds from a whole train
 mask, and scatter_add_rows at (20000, 90000, 32), (10000, 142500, 32),
 (20000, 2500, 64) and (10000, 5000, 64), the rank's half of textsage's tree
-gathers and of lgn's batch rows.
+gathers and of lgn's batch rows, and at (32, 12500, 32), (32, 25000, 32),
+(500, 12480000, 16) and (500, 24960000, 16), the rank's half of asage's
+attribute rows and of its word rows (the text read back 64 words wide).
 
 A device profile (torch.profiler) counts the kernels of a range of n calls,
 after 512 one-element kernels that take the records a session drops at its
@@ -538,6 +547,7 @@ SEQ_RECALL10_FLOOR, SEQ_RECORD_EPOCH3 = 0.013, 0.0263
 SEQ_STEPS_VS_CPU = 4
 SEQ_B, SEQ_D = 2048, 64
 SEQ_ROWS = SEQ_B * 52
+SEQ_ATTRS, SEQ_WORDS = 32, 500  # attributes a side, words of the text vocabulary
 ATTR_ROWS = (25_000, 50_000)
 WORD_ROWS = (360_000, 4_680_000, 9_360_000)
 # the scatter launches a step of each key makes with the features n / w / t:
@@ -613,12 +623,46 @@ MESH_TIMEOUT_S = 600
 # the catalog, in local ids under its local_mask CSR
 MESH_B = ddp_flagship_config().bpr_batch_size
 MESH_EVAL_K = 20
-MESH_SCATTER_SHAPES = (
-    (A20_USERS, TS_SCATTER[0][1] // MESH[0], TS_D), (A20_ITEMS, TS_SCATTER[1][1] // MESH[0], TS_D),
-    (A20_USERS, MESH_B // MESH[0], MESH_LGN_D), (A20_ITEMS, 2 * MESH_B // MESH[0], MESH_LGN_D),
-)
-MESH_TOPK_SHAPES = tuple((A20_EVAL_TILE // MESH[0], -(-A20_ITEMS // MESH[1]), d, MESH_EVAL_K)
-                         for d in (TS_D, MESH_LGN_D))
+MESH_SSL_WEIGHT = 0.1
+_MESH_TREES = ((A20_USERS, TS_SCATTER[0][1] // MESH[0], TS_D), (A20_ITEMS, TS_SCATTER[1][1] // MESH[0], TS_D))
+_MESH_LGN = ((A20_USERS, MESH_B // MESH[0], MESH_LGN_D), (A20_ITEMS, 2 * MESH_B // MESH[0], MESH_LGN_D))
+# asage's attribute rows (the first level of a rank's B / 2 user and B
+# positive and negative seeds' attribute trees, F = 5 a seed) and the word
+# rows of its entity levels (the seeds and the second level: B / 2 (1 + F^2)
+# users, twice as many items), each entity 3 text fields of the width a data
+# directory's text is read at (phase 15's features are 12 wide)
+MESH_F, MESH_TEXT_WIDTH = ddp_flagship_config().num_neighbors, 64
+_MESH_ENTITIES = MESH_B // MESH[0] * (1 + MESH_F**2)
+_MESH_ATTR = ((SEQ_ATTRS, MESH_B // MESH[0] * MESH_F, TS_D), (SEQ_ATTRS, 2 * MESH_B // MESH[0] * MESH_F, TS_D),
+              (SEQ_WORDS, _MESH_ENTITIES * 3 * MESH_TEXT_WIDTH, TS_D // 2),
+              (SEQ_WORDS, 2 * _MESH_ENTITIES * 3 * MESH_TEXT_WIDTH, TS_D // 2))
+
+
+def _mesh_topk_shape(d: int) -> tuple:
+    return A20_EVAL_TILE // MESH[0], -(-A20_ITEMS // MESH[1]), d, MESH_EVAL_K
+
+
+# phase 19's cases, each a config on phase 16's data directory beside the
+# others' (over a20_config, float32 SpMM operands) held against one process:
+# its config fields and model keyword arguments, the epochs of its path
+# between two evaluations (0: no path; its first steps are what it launches),
+# the scatter launches a step, and the (N, R, D) / (B, M, d, k) of every
+# launch on a rank. lgn-infonce scores each data rank's rows against the whole
+# batch's positives, asage-ssl its views' rows against the whole batch's
+# other view: both gather rows over the data axis, whose backward sums over it
+MESH_CASES = {
+    "textsage": {"over": {}, "model_kw": {}, "epochs": MESH_EPOCHS, "scatter_per_step": 2,
+                 "scatter_shapes": _MESH_TREES, "topk_shapes": (_mesh_topk_shape(TS_D),)},
+    "lgn": {"over": {"model": "lgn", "latent_dim": MESH_LGN_D}, "model_kw": {}, "epochs": MESH_EPOCHS,
+            "scatter_per_step": 4, "scatter_shapes": _MESH_LGN, "topk_shapes": (_mesh_topk_shape(MESH_LGN_D),)},
+    "lgn_infonce": {"over": {"model": "lgn", "latent_dim": MESH_LGN_D, "loss_fn": "infonce"}, "model_kw": {},
+                    "epochs": 1, "scatter_per_step": 4, "scatter_shapes": _MESH_LGN,
+                    "topk_shapes": (_mesh_topk_shape(MESH_LGN_D),)},
+    "asage_ssl": {"over": {"model": "asage"}, "model_kw": {"ssl_weight": MESH_SSL_WEIGHT}, "epochs": 0,
+                  "scatter_per_step": 6, "scatter_shapes": _MESH_TREES + _MESH_ATTR, "topk_shapes": ()},
+}
+MESH_SCATTER_SHAPES = tuple(sorted({x for case in MESH_CASES.values() for x in case["scatter_shapes"]}))
+MESH_TOPK_SHAPES = tuple(sorted({x for case in MESH_CASES.values() for x in case["topk_shapes"]}))
 # profiler ranges (ops/segment.py, ops/scatter.py, sampling/bpr.py,
 # sampling/neighbor.py, eval/evaluate.py, torch.optim's own) and the step part
 # each one names
@@ -974,14 +1018,22 @@ def scatter_cases(dev) -> float:
     # shape) and asage's attribute rows (32 attributes a side)
     seq_ids = np.where(rng.random(SEQ_ROWS) < 0.86, 0, rng.integers(0, A20_ITEMS, SEQ_ROWS))
     cases += [(A20_ITEMS, seq_ids, SEQ_D, None)]
-    cases += [(32, rng.integers(0, 32, r), TS_D, None) for r in ATTR_ROWS]
+    cases += [(SEQ_ATTRS, rng.integers(0, SEQ_ATTRS, r), TS_D, None) for r in ATTR_ROWS]
     # and the word rows of their per-id text bags (half of them pads on word 0)
-    cases += [(500, np.where(rng.random(r) < 0.5, 0, rng.integers(0, 500, r)), d, None)
+    cases += [(SEQ_WORDS, np.where(rng.random(r) < 0.5, 0, rng.integers(0, SEQ_WORDS, r)), d, None)
               for r, d in zip(WORD_ROWS[:2], (SEQ_D // 2, TS_D // 2))]
-    # a (2, 2) mesh rank's half of phase 19's step gathers (MESH_SCATTER_SHAPES)
+    # a (2, 2) mesh rank's half of phase 19's step gathers (MESH_SCATTER_SHAPES):
+    # Zipf items as in a tree, word rows half pads on word 0
     rng19 = np.random.default_rng(SEED + 19)
-    cases += [(n, np.minimum(rng19.zipf(1.2, r) - 1, n - 1) if n == A20_ITEMS else rng19.integers(0, n, r), d, None)
-              for n, r, d in MESH_SCATTER_SHAPES]
+
+    def mesh_ids(n, r):
+        if n == A20_ITEMS:
+            return np.minimum(rng19.zipf(1.2, r) - 1, n - 1)
+        if n == SEQ_WORDS:
+            return np.where(rng19.random(r) < 0.5, 0, rng19.integers(0, n, r))
+        return rng19.integers(0, n, r)
+
+    cases += [(n, mesh_ids(n, r), d, None) for n, r, d in MESH_SCATTER_SHAPES]
     # the ranker's categorical rows (phase 17): 9 columns of 256 groups x 111
     # candidates into the 32-row table at emb 16, about 8,000 rows an id
     cases.append((RANK_VOCAB, np.random.default_rng(SEED + 17).integers(0, RANK_VOCAB, RANK_ROWS), RANK_EMB, None))
@@ -1458,7 +1510,8 @@ def scatter_numbers_at(cases, dev, d, rows_seed) -> list:
                "row_mode": lambda n=n, ids=ids, rows=rows, p=row_plan: sc._launch(ids, rows, n, p),
                "library": library}
         alt = alternating_ms(fns)
-        profiles = {name: device_profile(fn) for name, fn in fns.items()}
+        # a profile that recorded no device activity is taken once more
+        profiles = {name: device_profile(fn) or device_profile(fn) for name, fn in fns.items()}
         adds = implied_global_adds(plan, ids, n, d)
         row_adds = implied_global_adds(row_plan, ids, n, d)
         dev_ms = {name: (p or {}).get("device_ms") for name, p in profiles.items()}
@@ -3155,20 +3208,25 @@ def preprocess_20k(dev, smi, lgn_edges) -> dict:
 # ---- phase 19: mesh-20k ----
 
 def mesh_config(kind: str, data_dir: str, mesh=(1, 1)) -> Config:
-    """Phase 19's two configs on phase 16's data directory: the DDP flagship
-    (textsage, d 32) and lgn at d 64, both with the ddp recipe and float32
-    SpMM operands (bfloat16 rounds each data rank's cotangent apart: see
-    MESH_DTYPE)."""
-    over = {} if kind == "textsage" else {"model": "lgn", "latent_dim": MESH_LGN_D}
-    return a20_config(data_path=data_dir, compute_dtype=MESH_DTYPE, mesh=MeshConfig(*mesh), **over)
+    """A config of phase 19 (MESH_CASES) on phase 16's data directory: the
+    flagship recipe with the case's fields and float32 SpMM operands
+    (bfloat16 rounds each data rank's cotangent apart: see MESH_DTYPE)."""
+    return a20_config(data_path=data_dir, compute_dtype=MESH_DTYPE, mesh=MeshConfig(*mesh),
+                      **MESH_CASES[kind]["over"])
 
 
 def mesh_trainer(kind: str, data_dir: str, dev, mesh=(1, 1)) -> Trainer:
     """The Trainer of one of phase 19's configs, as a user builds it from the
-    data directory (one process, or one rank of a mesh)."""
+    data directory (one process, or one rank of a mesh). asage derives its
+    attribute graphs from the categorical columns, read beside its flags."""
     cfg = mesh_config(kind, data_dir, mesh)
     ds = load_text_dataset(cfg)
-    kw = {"features": load_reference_features(cfg, data_dir, dataset=ds)} if kind == "textsage" else {}
+    kw = dict(MESH_CASES[kind]["model_kw"])
+    if cfg.model != "lgn":
+        read = cfg
+        if cfg.model == "asage":
+            read = cfg.replace(user_feature=cfg.user_feature + "c", item_feature=cfg.item_feature + "c")
+        kw["features"] = load_reference_features(read, data_dir, dataset=ds)
     model = build_model(cfg.model, cfg, ds.graph, generator=torch.Generator().manual_seed(SEED), **kw)
     return Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=True, device=dev)
 
@@ -3176,8 +3234,9 @@ def mesh_trainer(kind: str, data_dir: str, dev, mesh=(1, 1)) -> Trainer:
 def mesh_first_steps(trainer: Trainer) -> dict:
     """MESH_FIRST_STEPS steps from fresh parameters on batches drawn from a
     seeded generator (the trees and dropout from the trainer's): the losses,
-    the whole gradients the first step took (averaged over the mesh) and
-    the whole parameters after the last."""
+    the whole gradients the first step took (averaged over the mesh), the
+    whole parameters after the last, and the steps' launches (the counts set
+    to 0 just before them and read just after)."""
     trainer.init_state()
     cfg = trainer.config
     gen = torch.Generator(device=trainer.device).manual_seed(SEED + 20)
@@ -3185,22 +3244,24 @@ def mesh_first_steps(trainer: Trainer) -> dict:
     allb = sample_bpr(gen, trainer.graph, MESH_FIRST_STEPS * bs, cfg.neg_candidates,
                       edge_alias=trainer.edge_alias, neg_alias=trainer.neg_alias)
     losses, grads = [], None
+    st.launches = sc.launches = 0
     for i in range(MESH_FIRST_STEPS):
         losses += trainer.train_epoch([allb.slice(i * bs, (i + 1) * bs)]).cpu().tolist()
         if grads is None:
             grads = {f"grad/{k}": v for k, v in whole_params(trainer, grads=True).items()}
-    return {"losses": losses, "params": {**whole_params(trainer), **grads}}
+    launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
+    return {"losses": losses, "params": {**whole_params(trainer), **grads}, "launches": launches}
 
 
-def mesh_path(trainer: Trainer, ckpt=None) -> dict:
-    """Phase 19's path on one trainer: an evaluation, MESH_EPOCHS epochs, an
+def mesh_path(trainer: Trainer, epochs: int, ckpt=None) -> dict:
+    """Phase 19's path on one trainer: an evaluation, ``epochs`` epochs, an
     evaluation, and ``save`` when ``ckpt``; the launch counts set to 0 just
     before and read just after."""
     trainer.init_state()
     st.launches = sc.launches = 0
     first = trainer.test()
     losses, seconds = [], []
-    for _ in range(MESH_EPOCHS):
+    for _ in range(epochs):
         dt, mean, _ = _timed_epoch(trainer)
         losses.append(mean)
         seconds.append(dt)
@@ -3208,7 +3269,7 @@ def mesh_path(trainer: Trainer, ckpt=None) -> dict:
     if ckpt is not None:
         trainer.save(ckpt)
     launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
-    steps = MESH_EPOCHS * trainer.num_batches
+    steps = epochs * trainer.num_batches
     return {"first": first, "last": last, "losses": losses, "epoch_s": seconds, "launches": launches,
             "steps": steps, "samples_per_s": trainer.samples_per_epoch / float(np.median(seconds))}
 
@@ -3348,18 +3409,20 @@ def mesh_rank() -> None:
     try:
         out = {"rank": rank}
         shapes = record_launch_shapes()
-        for kind in ("textsage", "lgn"):
+        for kind, case in MESH_CASES.items():
             t0 = time.perf_counter()
             trainer = mesh_trainer(kind, args["data_dir"], dev, tuple(args["mesh"]))
             setup_s = time.perf_counter() - t0
-            first = mesh_first_steps(trainer)
-            np.savez(os.path.join(args["out"], f"{kind}_first_{rank}.npz"), **first.pop("params"))
             for part in shapes.values():
                 part.clear()
-            res = mesh_path(trainer, args["ckpt"].format(rank=rank) if kind == "textsage" else None)
+            first = mesh_first_steps(trainer)
+            np.savez(os.path.join(args["out"], f"{kind}_first_{rank}.npz"), **first.pop("params"))
+            res = (mesh_path(trainer, case["epochs"], args["ckpt"].format(rank=rank) if kind == "textsage" else None)
+                   if case["epochs"] else {})
             res["launch_shapes"] = {kernel: sorted(part) for kernel, part in shapes.items()}
             np.savez(os.path.join(args["out"], f"{kind}_moments_{rank}.npz"), **whole_moments(trainer))
             res["first_steps_losses"] = first["losses"]
+            res["first_steps_launches"] = first["launches"]
             res.update(setup_s=setup_s, memory=sharded_state_mib(trainer),
                        eval_tiles=int(trainer.eval_data.users.shape[0]))
             np.savez(os.path.join(args["out"], f"{kind}_params_{rank}.npz"), **whole_params(trainer))
@@ -3428,13 +3491,15 @@ def _metrics_off(got: dict, want: dict, atol: float = MESH_METRIC_ATOL) -> float
 
 
 def mesh_single(data_dir: str, dev, root: str) -> dict:
-    """Phase 19's one-process runs of both configs on ``dev``: the first
-    steps, then the path (textsage saved under ``root``)."""
+    """Phase 19's one-process runs of every case on ``dev``: the first
+    steps, then the path where the case has one (textsage saved under
+    ``root``)."""
     single = {}
-    for kind in ("textsage", "lgn"):
+    for kind, case in MESH_CASES.items():
         trainer = mesh_trainer(kind, data_dir, dev)
         first = mesh_first_steps(trainer)
-        single[kind] = mesh_path(trainer, os.path.join(root, "single.ckpt") if kind == "textsage" else None)
+        single[kind] = (mesh_path(trainer, case["epochs"], os.path.join(root, "single.ckpt")
+                                  if kind == "textsage" else None) if case["epochs"] else {})
         single[kind]["memory"] = {"params_mib": _mib(trainer.model.parameters())}
         single[kind]["params"] = whole_params(trainer)
         single[kind]["first_steps"] = first
@@ -3473,25 +3538,27 @@ def launch_mesh(mesh, data_dir: str, out: str, backend: str, device: str) -> tup
 
 def check_mesh(single: dict, ranks: list, out: str, data_dir: str, label: str) -> dict:
     """Every rank's runs against the one-process runs (module docstring,
-    phase 19); logs a line a rank and config; {kind: facts}."""
+    phase 19); logs a line a rank and case; {kind: facts}."""
     facts = {}
-    for kind in ("textsage", "lgn"):
+    for kind, case in MESH_CASES.items():
         want = single[kind]
+        path = case["epochs"] > 0
         per_rank = []
         # the replicas: every rank holds rank 0's losses, metrics, gradients
         # and whole parameters bit for bit (world-averaged gradients)
         head = ranks[0][kind]
         for rank in ranks[1:]:
-            for key in ("first_steps_losses", "losses", "first", "last"):
+            for key in ("first_steps_losses",) + (("losses", "first", "last") if path else ()):
                 assert rank[kind][key] == head[key], f"{kind} rank {rank['rank']}: {key} differs from rank 0's"
-            for part in ("first", "params", "moments"):
+            for part in ("first", "moments") + (("params",) if path else ()):
                 a, b = (dict(np.load(os.path.join(out, f"{kind}_{part}_{r}.npz"))) for r in (0, rank["rank"]))
                 assert set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a), \
                     f"{kind} rank {rank['rank']}: {part} differ from rank 0's"
+        lr = mesh_config(kind, data_dir).lr
+        per_step = case["scatter_per_step"]
         for rank in ranks:
             got = rank[kind]
             # the first steps from the same state: phase 7's rule
-            lr = mesh_config(kind, data_dir).lr
             np.testing.assert_allclose(got["first_steps_losses"][0], want["first_steps"]["losses"][0], rtol=1e-5)
             np.testing.assert_allclose(got["first_steps_losses"], want["first_steps"]["losses"], rtol=1e-4)
             got_first = dict(np.load(os.path.join(out, f"{kind}_first_{rank['rank']}.npz")))
@@ -3500,33 +3567,41 @@ def check_mesh(single: dict, ranks: list, out: str, data_dir: str, label: str) -
                                  {k: v for k, v in want["first_steps"]["params"].items()
                                   if not k.startswith("grad/")}, max_abs=4 * lr)
             first["grads_worst_share_of_bound"] = grads
-            np.testing.assert_allclose(got["losses"], want["losses"], rtol=MESH_LOSS_RTOL)
-            off = {"first": _metrics_off(got["first"], want["first"]), "last": _metrics_off(got["last"], want["last"])}
-            params = dict(np.load(os.path.join(out, f"{kind}_params_{rank['rank']}.npz")))
-            rule = _params_rule(params, want["params"], max_abs=MESH_PARAM_LRS * lr, share=1.0)
-            tiles = got["eval_tiles"]
-            steps = got["steps"]
-            per_step = 2 if kind == "textsage" else 4
-            assert got["launches"]["scatter_add_rows"] == per_step * steps, (kind, got["launches"], steps)
-            assert got["launches"]["masked_topk"] == 2 * tiles, (kind, got["launches"], tiles)
-            per_rank.append({"rank": rank["rank"], "launches": got["launches"], "metrics_max_abs_diff": off,
-                             "first_steps": {"losses": got["first_steps_losses"], "params": first},
-                             "params": rule, "samples_per_s": got["samples_per_s"], "epoch_s": got["epoch_s"],
-                             "setup_s": got["setup_s"], "memory": got["memory"],
-                             "loss_max_rel_diff": float(np.max(np.abs(np.asarray(got["losses"]) - want["losses"])
-                                                               / np.abs(want["losses"])))})
-            log(f"{label} {kind} rank {rank['rank']}: {MESH_FIRST_STEPS} steps from the same state, the first "
-                f"step's gradients within {grads:.3g} of their bound, parameters within 1e-6 + 1e-5 |p| but "
-                f"{first['off']} of {first['total']} (max abs diff {first['max_abs_diff']:.3g}); losses {got['losses']} (one process {want['losses']}); "
-                f"recall@10 {got['first']['recall@10']:.4f} -> {got['last']['recall@10']:.4f}, metrics off by "
-                f"at most {max(off.values()):.3g}; after them parameters within 1e-6 + 1e-5 |p| but {rule['off']} "
-                f"of {rule['total']} (max abs diff {rule['max_abs_diff']:.3g}); launches {got['launches']} over "
-                f"{steps} steps and 2 x {tiles} tiles; row-sharded {got['memory']['names']}: "
-                f"{got['memory']['rank_params_mib']:.2f} MiB of parameters and "
-                f"{got['memory']['rank_moments_mib']:.2f} MiB of moments on this rank, "
+            assert got["first_steps_launches"] == {"masked_topk": 0, "scatter_add_rows": per_step * MESH_FIRST_STEPS}, \
+                (kind, got["first_steps_launches"])
+            row = {"rank": rank["rank"], "first_steps": {"losses": got["first_steps_losses"], "params": first,
+                                                          "launches": got["first_steps_launches"]},
+                   "setup_s": got["setup_s"], "memory": got["memory"]}
+            line = (f"{label} {kind} rank {rank['rank']}: {MESH_FIRST_STEPS} steps from the same state, the first "
+                    f"step's gradients within {grads:.3g} of their bound, parameters within 1e-6 + 1e-5 |p| but "
+                    f"{first['off']} of {first['total']} (max abs diff {first['max_abs_diff']:.3g}), launches "
+                    f"{got['first_steps_launches']}")
+            if path:
+                np.testing.assert_allclose(got["losses"], want["losses"], rtol=MESH_LOSS_RTOL)
+                off = {"first": _metrics_off(got["first"], want["first"]),
+                       "last": _metrics_off(got["last"], want["last"])}
+                params = dict(np.load(os.path.join(out, f"{kind}_params_{rank['rank']}.npz")))
+                rule = _params_rule(params, want["params"], max_abs=MESH_PARAM_LRS * lr, share=1.0)
+                tiles, steps = got["eval_tiles"], got["steps"]
+                assert got["launches"]["scatter_add_rows"] == per_step * steps, (kind, got["launches"], steps)
+                assert got["launches"]["masked_topk"] == 2 * tiles, (kind, got["launches"], tiles)
+                row.update(launches=got["launches"], metrics_max_abs_diff=off, params=rule,
+                           samples_per_s=got["samples_per_s"], epoch_s=got["epoch_s"],
+                           loss_max_rel_diff=float(np.max(np.abs(np.asarray(got["losses"]) - want["losses"])
+                                                          / np.abs(want["losses"]))))
+                line += (f"; losses {got['losses']} (one process {want['losses']}); recall@10 "
+                         f"{got['first']['recall@10']:.4f} -> {got['last']['recall@10']:.4f}, metrics off by at most "
+                         f"{max(off.values()):.3g}; after them parameters within 1e-6 + 1e-5 |p| but {rule['off']} "
+                         f"of {rule['total']} (max abs diff {rule['max_abs_diff']:.3g}); launches {got['launches']} "
+                         f"over {steps} steps and 2 x {tiles} tiles")
+            else:
+                row["launches"] = got["first_steps_launches"]
+            per_rank.append(row)
+            log(line + f"; row-sharded {got['memory']['names']}: {got['memory']['rank_params_mib']:.2f} MiB of "
+                f"parameters and {got['memory']['rank_moments_mib']:.2f} MiB of moments on this rank, "
                 f"{got['memory']['whole_params_mib']:.2f} + {got['memory']['whole_moments_mib']:.2f} MiB whole")
         facts[kind] = {"single": {k: want[k] for k in ("losses", "first", "last", "launches", "steps",
-                                                        "samples_per_s", "epoch_s", "memory")},
+                                                        "samples_per_s", "epoch_s", "memory") if k in want},
                        "ranks": per_rank}
     return facts
 
@@ -3539,7 +3614,7 @@ def mesh_20k(data_dir: str, dev, root: str, smi: str) -> dict:
     single = mesh_single(data_dir, dev, root)
     # one process twice: the card's own spread over the same 168 steps
     again = mesh_trainer("textsage", data_dir, dev)
-    twice = mesh_path(again)
+    twice = mesh_path(again, MESH_EPOCHS)
     spread = {"loss_max_rel_diff": float(np.max(np.abs(np.asarray(twice["losses"]) - single["textsage"]["losses"])
                                                 / np.abs(single["textsage"]["losses"]))),
               "metrics_max_abs_diff": float(max(abs(twice["last"][k] - single["textsage"]["last"][k])
@@ -3556,18 +3631,20 @@ def mesh_20k(data_dir: str, dev, root: str, smi: str) -> dict:
     nccl = nccl_pass(_BOOT.format("nccl_one_rank"), f"file://{out}/nccl", _HERE)
     facts["nccl_one_rank"] = nccl
     facts.update(check_mesh(single, ranks, out, data_dir, "mesh-20k"))
-    for kind in ("textsage", "lgn"):
-        log(f"mesh-20k {kind}: {facts[kind]['ranks'][0]['samples_per_s']:.0f} samples/s on each of 4 processes "
-            f"sharing one card through host-memory collectives (one process alone: "
-            f"{single[kind]['samples_per_s']:.0f}); no scaling claim")
+    for kind, case in MESH_CASES.items():
+        if case["epochs"]:
+            log(f"mesh-20k {kind}: {facts[kind]['ranks'][0]['samples_per_s']:.0f} samples/s on each of 4 "
+                f"processes sharing one card through host-memory collectives (one process alone: "
+                f"{single[kind]['samples_per_s']:.0f}); no scaling claim")
 
-    # the kernels launched at the shapes phase 3 held against their plain versions
+    # the kernels launched at the case's shapes, which phase 3 held against
+    # their plain versions
     for rank in ranks:
-        for kind in ("textsage", "lgn"):
+        for kind, case in MESH_CASES.items():
             shapes = rank[kind]["launch_shapes"]
-            assert {tuple(x) for x in shapes["scatter_add_rows"]} <= set(MESH_SCATTER_SHAPES), (kind, shapes)
-            assert {tuple(x) for x in shapes["masked_topk"]} <= set(MESH_TOPK_SHAPES), (kind, shapes)
-    facts["launch_shapes"] = {kind: ranks[0][kind]["launch_shapes"] for kind in ("textsage", "lgn")}
+            assert {tuple(x) for x in shapes["scatter_add_rows"]} <= set(case["scatter_shapes"]), (kind, shapes)
+            assert {tuple(x) for x in shapes["masked_topk"]} <= set(case["topk_shapes"]), (kind, shapes)
+    facts["launch_shapes"] = {kind: ranks[0][kind]["launch_shapes"] for kind in MESH_CASES}
     log(f"mesh-20k launch shapes, each checked in phase 3: {facts['launch_shapes']}")
 
     # the primary's checkpoint: the ranks' whole tables and moments and one
@@ -3602,7 +3679,7 @@ def mesh_20k(data_dir: str, dev, root: str, smi: str) -> dict:
                 f"catalog (max abs err {t['max_abs_err']:.3g}, ids equal: {t['ids_equal']}); lookup gradient "
                 f"within {rank['ops']['lookup']['grad_max_abs_err']:.3g}")
     log(f"mesh-20k NCCL, one rank: {nccl['checks']}")
-    facts["launches"] = {kernel: sum(rank[kind]["launches"][kernel] for rank in ranks for kind in ("textsage", "lgn"))
+    facts["launches"] = {kernel: sum(row["launches"][kernel] for kind in MESH_CASES for row in facts[kind]["ranks"])
                          for kernel in ("masked_topk", "scatter_add_rows")}
     facts["seconds"] = time.perf_counter() - t_phase
     log(f"mesh-20k: {facts['seconds']:.0f} s (the mesh's 4 processes {facts['mesh_wall_s']:.0f} s)")
@@ -3888,7 +3965,7 @@ def main() -> int:
                              "mesh_20k": mesh["launches"]["masked_topk"]},
         "launches_per_call": f"ceil(k / {st.MAX_K}): one a round",
         "mesh_shapes": {"evaluation": [dict(zip(("B_rank", "M_block", "d", "k"), x)) for x in MESH_TOPK_SHAPES],
-                        "launched": {kind: mesh["launch_shapes"][kind]["masked_topk"] for kind in ("textsage", "lgn")},
+                        "launched": {kind: mesh["launch_shapes"][kind]["masked_topk"] for kind in MESH_CASES},
                         "sharded_masked_topk": mesh["ops"]["shapes"]},
         "rank_dump": {key: rank["dump_topk"][key] for key in (
             "B", "k", "M", "d", "ms", "plain_ms", "library_ms", "topk_only_ms", "bound_ms", "bound_by",
@@ -3936,7 +4013,7 @@ def main() -> int:
         "launches_per_step_textsage": ts_train["scatter_launches_per_step"],
         "mesh_shapes": {"steps": [dict(zip(("N", "R_rank", "D"), x)) for x in MESH_SCATTER_SHAPES],
                         "launched": {kind: mesh["launch_shapes"][kind]["scatter_add_rows"]
-                                     for kind in ("textsage", "lgn")},
+                                     for kind in MESH_CASES},
                         "sharded_embedding_lookup": mesh["ops"]["lookup"]},
         "textsage_shapes": ts_sc_shapes,
         "relation_shapes": [{key: t[key] for key in ("N", "R", "D", "plan", "ms", "row_mode_ms", "plain_ms",
@@ -4005,7 +4082,9 @@ def main() -> int:
         "model": "textsage", "d": TS_D, **PRE_FEATURES, "epochs": PRE_EPOCHS, **pre}}))
     log(json.dumps({"mesh": {
         "users": A20_USERS, "items": A20_ITEMS, "train_edges": A20_EDGES, "features": "informative",
-        "d": {"textsage": TS_D, "lgn": MESH_LGN_D}, **mesh}}))
+        "d": {kind: case["over"].get("latent_dim", TS_D) for kind, case in MESH_CASES.items()},
+        "cases": {kind: {**case["over"], **case["model_kw"], "epochs": case["epochs"]}
+                  for kind, case in MESH_CASES.items()}, **mesh}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -18,6 +18,11 @@ parameter and its Adam moments live as the rank's 1/model block of rows
 (``RowShards``); a step that needs the whole table gathers it for its
 forward (``RowShards.whole``), and the gather's backward hands the rank the
 gradient of its own rows.
+
+``gather_data_rows`` is the batch's counterpart over ``data``: a loss that
+scores a data rank's rows against the whole batch's (in-batch InfoNCE)
+gathers the other ranks' rows, and its backward sums the gradient of each
+row over the data ranks before the rank keeps its own rows.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from torch import nn
 
 __all__ = [
     "DATA_AXIS", "MODEL_AXIS", "Mesh", "make_mesh", "sharded_names", "shard_params", "RowShards",
+    "gather_data_rows",
 ]
 
 DATA_AXIS = "data"
@@ -149,6 +155,34 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         return g[ctx.lo : ctx.lo + ctx.rows], None
+
+
+class _GatherData(torch.autograd.Function):
+    """The whole batch's rows from each data rank's share of them. Unlike
+    ``_GatherRows``, the backward sums the cotangent over ``data`` before it
+    keeps the rank's rows: data rank r's loss scores its own rows against
+    every rank's, so the gradient that r's loss sends to rank s's rows
+    exists on r alone, and keeping only the rank's own slice would drop
+    every cross-rank term (the world average of the gradients that follows
+    cannot bring them back)."""
+
+    @staticmethod
+    def forward(ctx, rows: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+        ctx.rows, ctx.mesh = rows.shape[0], mesh
+        ctx.lo = mesh.index(DATA_AXIS) * rows.shape[0]
+        return mesh.all_gather(rows.detach(), DATA_AXIS).reshape((-1,) + tuple(rows.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        g = ctx.mesh.all_reduce(g.clone(memory_format=torch.contiguous_format), DATA_AXIS)
+        return g[ctx.lo : ctx.lo + ctx.rows], None
+
+
+def gather_data_rows(rows: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """[data x n, ...]: every data rank's [n, ...] ``rows`` in rank order (a
+    collective over ``data``), differentiable with respect to this rank's;
+    its backward sums the gradient over ``data`` (``_GatherData``)."""
+    return _GatherData.apply(rows, mesh)
 
 
 def _owner(model: nn.Module, name: str) -> Tuple[nn.Module, str]:

@@ -21,8 +21,10 @@ Loss: BPR of the main view + ``attr_loss_weight`` x BPR of the attribute
 view + decay x 0.5 sum of squares of every parameter but the attribute
 tables, over the number of valid rows; with ``ssl_weight`` > 0, plus that
 weight x an InfoNCE between the two views of the users and of the
-positives. The attribute view's dropout is this module's ``DROPOUT_RATE``
-(bound at import from ``sage``, as in the JAX package).
+positives, each row against every row of the whole batch (on a data shard,
+the other shares' rows gathered through ``BatchShard.whole``). The
+attribute view's dropout is this module's ``DROPOUT_RATE`` (bound at import
+from ``sage``, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -213,14 +215,16 @@ class ASAGE(SAGE):
         total = bpr + self.attr_loss_weight * attr_bpr + self.config.decay * reg
         aux = {"bpr": bpr, "attr_bpr": attr_bpr, "reg": reg}
         if self.ssl_weight > 0:
-            if batch.shard is not None:
-                raise ValueError("the views' in-batch InfoNCE (ssl_weight > 0) takes its negatives from the "
-                                 "whole batch; it does not split over a data axis")
+            # each row against every row of the whole batch's other view (a
+            # data shard's rows against the gathered ones), padded rows
+            # included; the mean over the rows is the whole batch's once the
+            # data ranks' losses are averaged
             un, uan, pn, pan = (x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-8)
                                 for x in (u, ua, p, pa))
+            cols_u, cols_i = (uan, pan) if batch.shard is None else (batch.shard.whole(uan), batch.shard.whole(pan))
             temp = 0.1
-            logits_u = un @ uan.T - (un * uan).sum(-1)[:, None]
-            logits_i = pn @ pan.T - (pn * pan).sum(-1)[:, None]
+            logits_u = un @ cols_u.T - (un * uan).sum(-1)[:, None]
+            logits_i = pn @ cols_i.T - (pn * pan).sum(-1)[:, None]
             infonce = torch.mean(torch.logsumexp(logits_u / temp, dim=1) + torch.logsumexp(logits_i / temp, dim=1))
             total = total + self.ssl_weight * infonce
             aux["infonce"] = infonce

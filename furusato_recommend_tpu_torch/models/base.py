@@ -17,7 +17,9 @@ A loss is a mean over the batch's valid rows, plus terms over the parameters
 divided by the same count (``row_norm``, ``param_norm``). On a data rank's share of a batch
 (``BPRBatch.shard``) both divide by the whole batch's count, the rows' mean
 scaled by the share, so that the mean of the data ranks' losses (and
-gradients) is the whole batch's.
+gradients) is the whole batch's. The in-batch InfoNCE scores a shard's rows
+against the whole batch's positives, gathered through the shard
+(``BatchShard.whole``).
 """
 
 from __future__ import annotations
@@ -72,14 +74,20 @@ def bpr_loss_from_scores(pos_scores, neg_scores, valid, norm=None) -> torch.Tens
     return _weighted_mean(F.softplus(neg_scores - pos_scores), valid, norm)
 
 
-def infonce_in_batch(u_emb, p_emb, valid, temperature: float) -> torch.Tensor:
+def infonce_in_batch(u_emb, p_emb, valid, temperature: float, shard=None, norm=None) -> torch.Tensor:
     """In-batch sampled softmax: every other row's positive is a negative,
-    -log softmax(u_i . p_i / tau | {u_i . p_j}_j); invalid columns dropped."""
-    logits = (u_emb @ p_emb.T) / temperature
-    mask = valid.to(logits.dtype)
+    -log softmax(u_i . p_i / tau | {u_i . p_j}_j); invalid columns dropped.
+    For a data shard (``shard``) the rows are scored against the whole
+    batch's positives and its ``valid``, row i's own positive at column
+    ``shard.start + i``, and the sum over the rows divides by ``norm``."""
+    cols, col_valid, first = p_emb, valid, 0
+    if shard is not None:
+        cols, col_valid, first = shard.whole(p_emb), shard.valid, shard.start
+    logits = (u_emb @ cols.T) / temperature
+    mask = col_valid.to(logits.dtype)
     logits = logits + torch.log(torch.clamp_min(mask, 1e-30))[None, :]
     per = -torch.log_softmax(logits, dim=1)
-    return _weighted_mean(torch.diagonal(per), valid)
+    return _weighted_mean(torch.diagonal(per, offset=first), valid, norm)
 
 
 def l2_ego(u_emb, p_emb, n_emb, valid, norm=None) -> torch.Tensor:
@@ -163,15 +171,12 @@ class PairwiseModel(nn.Module):
         s = user_emb[users] @ item_emb.T
         return torch.sigmoid(s) if self.score_sigmoid else s
 
-    def main_loss(self, u, p, n, valid, norm=None) -> torch.Tensor:
+    def main_loss(self, u, p, n, valid, norm=None, shard=None) -> torch.Tensor:
         """BPR or in-batch InfoNCE, per config.loss_fn; ``norm``: the rows'
-        divisor (``row_norm``), which the in-batch InfoNCE cannot take:
-        its negatives are the whole batch's rows."""
+        divisor (``row_norm``); ``shard``: the batch's ``BatchShard``, whose
+        whole batch gives the in-batch InfoNCE its negatives."""
         if self.config.loss_fn == "infonce":
-            if norm is not None:
-                raise ValueError("in-batch InfoNCE takes its negatives from the whole batch; "
-                                 "it does not split over a data axis")
-            return infonce_in_batch(u, p, valid, self.config.infonce_temperature)
+            return infonce_in_batch(u, p, valid, self.config.infonce_temperature, shard, norm)
         pos_s = torch.sum(u * p, dim=-1)
         neg_s = torch.sum(u * n, dim=-1)
         return bpr_loss_from_scores(pos_s, neg_s, valid, norm)
@@ -185,6 +190,6 @@ class PairwiseModel(nn.Module):
         user_emb, item_emb = self.propagate(graph, generator)
         u, p, n = gather_batch_rows(user_emb, item_emb, batch)
         norm = row_norm(batch)
-        bpr = self.main_loss(u, p, n, batch.valid, norm)
+        bpr = self.main_loss(u, p, n, batch.valid, norm, batch.shard)
         reg = self.reg_loss(u, p, n, batch.valid, norm)
         return bpr + self.config.decay * reg, {"bpr": bpr, "reg": reg}

@@ -102,5 +102,5 @@ class LightGCN(PairwiseModel):
             logits = torch.stack([pos_s, neg_s], dim=-1)
             main = _weighted_mean(-torch.log_softmax(logits, dim=-1)[:, 0], batch.valid, norm)
         else:
-            main = self.main_loss(u, p, n, batch.valid, norm)
+            main = self.main_loss(u, p, n, batch.valid, norm, batch.shard)
         return main + self.config.decay * reg, {"bpr": main, "reg": reg}

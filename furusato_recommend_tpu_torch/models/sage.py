@@ -672,6 +672,6 @@ class SAGE(PairwiseModel):
         runs the full propagation and gathers the batch rows from it
         instead."""
         u, p, n = self._encode_batch(graph, batch, generator, trees, tables)
-        bpr = self.main_loss(u, p, n, batch.valid, row_norm(batch))
+        bpr = self.main_loss(u, p, n, batch.valid, row_norm(batch), batch.shard)
         reg = l2_params(self.parameters()) / param_norm(batch)
         return bpr + self.config.decay * reg, {"bpr": bpr, "reg": reg}

@@ -156,7 +156,7 @@ class SASRec(SAGE):
                                    train=True, shard=batch.shard)
         p = self.forward_item(rows[b * t : b * t + b])
         n = self.forward_item(rows[b * t + b :])
-        bpr = self.main_loss(u, p, n, batch.valid, row_norm(batch))
+        bpr = self.main_loss(u, p, n, batch.valid, row_norm(batch), batch.shard)
         reg = 0.5 * sum(torch.sum(torch.square(v)) for k, v in self.named_parameters() if "emb" in k and "." not in k)
         reg = reg / param_norm(batch)
         return bpr + self.config.decay * reg, {"bpr": bpr, "reg": reg}

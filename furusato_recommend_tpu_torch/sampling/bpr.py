@@ -35,12 +35,27 @@ __all__ = ["BPRBatch", "BatchShard", "draw_rows", "sample_bpr"]
 class BatchShard:
     """A batch that is rows [start, stop) of a whole batch of ``total`` rows
     (a data rank's share under a mesh), ``count`` of the whole batch's rows
-    valid (a 0-d tensor on the device)."""
+    valid (a 0-d tensor on the device). A loss that scores each row against
+    every row of the whole batch (in-batch InfoNCE) reads the whole batch's
+    ``valid`` and gathers the other shares' rows through ``gather``: [stop -
+    start, ...] -> [total, ...] in row order, differentiable (a mesh's
+    data-axis gather; None where no other share is reachable)."""
 
     start: int
     stop: int
     total: int
     count: torch.Tensor
+    valid: Optional[torch.Tensor] = None
+    gather: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+    def whole(self, rows: torch.Tensor) -> torch.Tensor:
+        """The whole batch's rows of which ``rows`` are this share's."""
+        if self.stop - self.start == self.total:
+            return rows
+        if self.gather is None:
+            raise ValueError(f"rows [{self.start}, {self.stop}) of a batch of {self.total} have no gather "
+                             "of the other rows (shard the batch with train/sharding.py::shard_batch)")
+        return self.gather(rows)
 
 
 def draw_rows(draw: Callable[[tuple], torch.Tensor], shape: Sequence[int],
@@ -72,18 +87,21 @@ class BPRBatch:
             self.valid[start:stop],
         )
 
-    def data_shard(self, index: int, shards: int) -> "BPRBatch":
+    def data_shard(self, index: int, shards: int, gather=None) -> "BPRBatch":
         """Rows [index x n / shards, (index + 1) x n / shards) of this batch,
-        which knows the whole batch (``shard``)."""
+        which knows the whole batch (``shard``, with ``gather`` as its row
+        gather)."""
         n = self.user.shape[0]
         if n % shards:
             raise ValueError(f"a batch of {n} rows does not split into {shards} equal shards")
         per = n // shards
         start, stop = index * per, (index + 1) * per
-        return replace(self.slice(start, stop), shard=BatchShard(start, stop, n, self.valid.sum()))
+        return replace(self.slice(start, stop),
+                       shard=BatchShard(start, stop, n, self.valid.sum(), self.valid, gather))
 
     def to(self, device) -> "BPRBatch":
-        shard = self.shard and replace(self.shard, count=self.shard.count.to(device))
+        shard = self.shard and replace(self.shard, count=self.shard.count.to(device),
+                                       valid=None if self.shard.valid is None else self.shard.valid.to(device))
         return BPRBatch(
             self.user.to(device), self.pos.to(device), self.neg.to(device),
             self.valid.to(device), shard,

@@ -15,7 +15,11 @@ The port's counterpart of the JAX package's pjit step, written out:
   compute the same, up to the order of atomic adds, and the world's mean
   keeps the replicas equal: ``RowShards.average_grads``);
 - the row-sharded tables (``core/mesh.py::shard_params``) are gathered for
-  the forward, and their blocks take the gradient of their own rows.
+  the forward, and their blocks take the gradient of their own rows;
+- a loss that scores its rows against the whole batch's (in-batch InfoNCE)
+  gathers the other data ranks' rows through the shard
+  (``BatchShard.whole``), whose backward sums each row's gradient over
+  ``data``.
 
 ``loss_backward`` and ``adam_step`` are a step's two halves, with or
 without a mesh; ``Trainer`` runs every step of its cadences through them, and
@@ -26,13 +30,14 @@ model, as JAX's does.
 from __future__ import annotations
 
 import contextlib
+from functools import partial
 from typing import Callable, Optional, Tuple
 
 import torch
 
 from ..config import Config
 from ..core.distributed import local_rank
-from ..core.mesh import DATA_AXIS, Mesh, RowShards, shard_params
+from ..core.mesh import DATA_AXIS, Mesh, RowShards, gather_data_rows, shard_params
 from ..data.graph import BipartiteGraph
 from ..models.base import PairwiseModel
 from ..sampling.bpr import BPRBatch
@@ -44,8 +49,9 @@ __all__ = [
 
 
 def shard_batch(batch: BPRBatch, mesh: Mesh) -> BPRBatch:
-    """This data rank's rows of the whole ``batch`` (``BPRBatch.shard`` set)."""
-    return batch.data_shard(mesh.index(DATA_AXIS), mesh.data)
+    """This data rank's rows of the whole ``batch`` (``BPRBatch.shard`` set,
+    its rows gathered over ``data`` by ``gather_data_rows``)."""
+    return batch.data_shard(mesh.index(DATA_AXIS), mesh.data, gather=partial(gather_data_rows, mesh=mesh))
 
 
 def shard_draws(draws: Optional[dict], batch_size: int, mesh: Mesh) -> Optional[dict]:

@@ -183,9 +183,6 @@ class Trainer:
             for name, size in (("bpr_batch_size", config.bpr_batch_size), ("eval_user_batch", config.eval_user_batch)):
                 if size % config.mesh.data:
                     raise ValueError(f"{name} {size} not divisible by mesh data axis {config.mesh.data}")
-            if config.loss_fn == "infonce" and config.mesh.data > 1:
-                raise ValueError("in-batch InfoNCE takes its negatives from the whole batch; it does not "
-                                 "split over a data axis")
             self.mesh = make_mesh(config.mesh.data, config.mesh.model, self.device)
             build_kernels_once(self.mesh)
         self.graph = dataset.graph.to(self.device)

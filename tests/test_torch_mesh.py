@@ -15,8 +15,18 @@ worlds of 4 gloo processes (``tests/torch_world.py``), the JAX package on its
   it leaves on a rank;
 - one sharded lgn step (float32, 2048 users x 1024 items, both tables
   sharded) at (2, 2) against JAX ``make_sharded_train_step`` on a (4, 2) mesh
-  from the same parameters and batch: loss rtol 1e-5, parameters rtol 1e-4,
-  atol 1e-5 (the JAX package's own mesh test's).
+  from the same parameters and batch, under BPR and under the in-batch
+  InfoNCE (whose rows are scored against the whole batch's, gathered over
+  ``data``; the batch's last 24 rows are padding, in the second data rank's
+  share; at lr 1e-3, where Adam's first step does not scale the rounding of
+  a gradient below its eps past the tolerance): loss rtol 1e-5, the step's
+  gradients within 1e-5 x their largest, parameters rtol 1e-4, atol 1e-5
+  (the JAX package's own mesh test's);
+- the data-axis gather (``gather_data_rows``) in a (2, 1) world: the ranks'
+  in-batch InfoNCE losses, each divided by the whole batch's valid count,
+  sum to one process's loss, and the gradients of their sum, assembled from
+  the ranks, equal one process's gradients of the whole-batch loss within
+  1e-6; a gather whose backward keeps only the rank's own rows misses them.
 """
 
 import dataclasses
@@ -46,6 +56,7 @@ from furusato_recommend_tpu_torch.convert import flatten_params
 from furusato_recommend_tpu_torch.core.mesh import Mesh, shard_params, sharded_names
 from furusato_recommend_tpu_torch.data import dataset as tds
 from furusato_recommend_tpu_torch.data.features import synthetic_features
+from furusato_recommend_tpu_torch.models.base import infonce_in_batch
 from furusato_recommend_tpu_torch.models.registry import build_model
 
 torch.set_num_threads(1)
@@ -223,13 +234,21 @@ init_fn, step_fn = make_sharded_train_step(model, td.graph, cfg, mesh)
 shards, opt = init_fn()
 loss = step_fn(shards, opt, BPRBatch(*(torch.from_numpy(z[k]) for k in ("user", "pos", "neg", "valid"))))
 np.savez(f"{OUT}/step_{RANK}.npz", loss=float(loss), sharded=np.array(shards.names),
-         **{k: shards.gather(p).numpy() for k, p in model.named_parameters()})
+         **{k: shards.gather(p).numpy() for k, p in model.named_parameters()},
+         **{f"grad/{k}": shards.gather(p.grad).numpy() for k, p in model.named_parameters()})
 '''
 
 
-def test_sharded_lgn_step_matches_jax(tmp_path):
+@pytest.mark.parametrize("loss_fn", ["bpr", "infonce"])
+def test_sharded_lgn_step_matches_jax(loss_fn, tmp_path):
     data = dict(n_users=2048, m_items=1024, avg_degree=6, seed=2)
-    config = dict(model="lgn", latent_dim=16, n_layers=2, compute_dtype="float32", decay=1e-2, lr=0.05)
+    # the in-batch InfoNCE leaves gradients below Adam's eps (1e-8), where its
+    # first step lr g / (|g| + eps) scales a float32 rounding of g by lr / eps:
+    # at lr 0.05 one process alone misses JAX's step there past atol 1e-5, so
+    # the InfoNCE step runs at bench.py's lr 1e-3, and the gradients are held
+    # directly
+    config = dict(model="lgn", latent_dim=16, n_layers=2, compute_dtype="float32", decay=1e-2,
+                  lr=0.05 if loss_fn == "bpr" else 1e-3, loss_fn=loss_fn)
     jd = jds.synthetic_dataset(**data)
     g = jbuild_graph(jd.train_user, jd.train_item, jd.test_user, jd.test_item, jd.n_users, jd.m_items,
                      hub_count=0, dst_hub_count=0)
@@ -253,9 +272,72 @@ def test_sharded_lgn_step_matches_jax(tmp_path):
     batch = jshard(JBatch(*(jnp.asarray(arrs[k]) for k in ("user", "pos", "neg", "valid"))), jmesh)
     with jmesh:
         jp, _, jloss = step_fn(jp, opt, batch, jax.random.PRNGKey(2))
+    whole = JBatch(*(jnp.asarray(arrs[k]) for k in ("user", "pos", "neg", "valid")))
+    jgrad = jax.grad(lambda q: jm.loss(q, jd.graph, whole, jax.random.PRNGKey(2))[0])(
+        {k: jnp.asarray(v) for k, v in params.items()})
     for r in range(4):
         got = np.load(tmp_path / f"step_{r}.npz")
         assert sorted(got["sharded"].tolist()) == ["item_emb", "user_emb"]
         np.testing.assert_allclose(float(got["loss"]), float(jloss), rtol=1e-5)
         for k in params:
+            # the step's gradient, averaged over the mesh: the whole batch's
+            want_g = np.asarray(jgrad[k])
+            np.testing.assert_allclose(got[f"grad/{k}"], want_g, rtol=0, atol=1e-5 * np.abs(want_g).max())
             np.testing.assert_allclose(got[k], np.asarray(jp[k]), rtol=1e-4, atol=1e-5)
+
+
+_GATHER_CHILD = '''
+from furusato_recommend_tpu_torch.core.mesh import DATA_AXIS, gather_data_rows, make_mesh
+from furusato_recommend_tpu_torch.models.base import infonce_in_batch
+from furusato_recommend_tpu_torch.sampling.bpr import BPRBatch
+
+
+class KeepOwnRows(torch.autograd.Function):
+    """The gather with the model axis's backward: the rank's own rows only."""
+
+    @staticmethod
+    def forward(ctx, rows, mesh):
+        ctx.lo, ctx.n = mesh.index(DATA_AXIS) * rows.shape[0], rows.shape[0]
+        return mesh.all_gather(rows.detach(), DATA_AXIS).reshape((-1,) + tuple(rows.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.lo : ctx.lo + ctx.n], None
+
+
+z = np.load(f"{OUT}/gather_inputs.npz")
+mesh = make_mesh(2, 1)
+ids = torch.arange(z["valid"].shape[0], dtype=torch.int32)
+whole = BPRBatch(ids, ids, ids, torch.from_numpy(z["valid"]))
+out = {}
+for name, gather in (("sum", lambda x: gather_data_rows(x, mesh)), ("own", lambda x: KeepOwnRows.apply(x, mesh))):
+    batch = whole.data_shard(mesh.index(DATA_AXIS), mesh.data, gather=gather)
+    lo, hi = batch.shard.start, batch.shard.stop
+    u = torch.from_numpy(z["u"][lo:hi]).requires_grad_(True)
+    p = torch.from_numpy(z["p"][lo:hi]).requires_grad_(True)
+    loss = infonce_in_batch(u, p, batch.valid, 0.2, batch.shard, batch.shard.count.to(torch.float32))
+    loss.backward()
+    out[f"{name}_loss"], out[f"{name}_u"], out[f"{name}_p"] = loss.detach().numpy(), u.grad.numpy(), p.grad.numpy()
+np.savez(f"{OUT}/gather_{RANK}.npz", **out)
+'''
+
+
+def test_data_gather_backward_sums_over_data(tmp_path):
+    rng = np.random.default_rng(5)
+    b, d = 64, 8
+    inputs = {"u": rng.standard_normal((b, d)).astype(np.float32),
+              "p": rng.standard_normal((b, d)).astype(np.float32),
+              "valid": ~np.isin(np.arange(b), [3, 40, 62, 63])}  # padded rows in both shares
+    np.savez(tmp_path / "gather_inputs.npz", **inputs)
+    run_world(_GATHER_CHILD, 2, tmp_path)
+    ranks = [np.load(tmp_path / f"gather_{r}.npz") for r in range(2)]
+    u, p = (torch.from_numpy(inputs[k]).requires_grad_(True) for k in ("u", "p"))
+    want = infonce_in_batch(u, p, torch.from_numpy(inputs["valid"]), 0.2)
+    want.backward()
+    np.testing.assert_allclose(sum(float(r["sum_loss"]) for r in ranks), float(want.detach()), rtol=1e-6)
+    for key, leaf in (("u", u), ("p", p)):
+        got = np.concatenate([r[f"sum_{key}"] for r in ranks])
+        np.testing.assert_allclose(got, leaf.grad.numpy(), rtol=0, atol=1e-6)
+    # keeping only the rank's own rows drops the cross-rank terms of p's gradient
+    own = np.concatenate([r["own_p"] for r in ranks])
+    assert np.abs(own - p.grad.numpy()).max() > 1e-3

@@ -364,6 +364,36 @@ Phases (any failure raises and exits non-zero):
                processes sharing one card through host-memory collectives:
                printed and so labelled, no scaling claim (a {"mesh": ...}
                line)
+ 20. registry-20k
+               the registry keys that no other phase drives (REG_KEYS), on
+               phase 12's graph and features (run after phase 15): mf, rgcn,
+               radj (r 0.5, the CLI's default) and lgcnssm at phase 19's lgn
+               recipe (d 64, B 5000, lr 1e-3, decay 1e-6, bfloat16 SpMM
+               operands, the uniform sampler with cuckoo rejection), and
+               textsage_id, sage, fsage, fastsage, lightsage, pinsage, mrec,
+               nssage, gnn --conv gcn (the CLI's default conv) and gnn --conv
+               ggnn at the flagship recipe (Trainer(ddp_recipe=True), features
+               n / w / t: no JAX constructor of these keys needs another
+               flag). Each served (serve_20k: requests of 1 / 8 / 64 / 512
+               users at k = 20 and two over HTTP, each under rule 3(b), no
+               train positive served, one masked_topk launch a request; the
+               refresh against the CPU's propagation, mf and the LightGCN keys
+               under phase 4's rule against a float64 one, the SAGE keys under
+               phase 9's), then trained: mf, rgcn and textsage_id 3 epochs
+               between two evaluations (the last epoch's loss below the
+               first's, recall@10 above its start but mf's: RECALL_FLAT),
+               every other key one epoch and one evaluation (the loss falling
+               from the epoch's first tenth to its last); scatter_add_rows
+               scatter_per_step(key) times a step, masked_topk once a request
+               and per evaluation tile, counted from 0 over the whole path and
+               asserted exactly; every launch's shape recorded and held among
+               those phase 3 checked; every evaluation held against the plain
+               top-k (phase 7's rule); 2 steps of each key on the card and on
+               the CPU (phase 12's step-by-step rule); then each refresh's
+               host and device times, each key's step numbers, and the
+               scatter at the ids of one textsage_id step's tree gathers at
+               node width 64 (a {"registry": ...} line with the card's name
+               and power limit)
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
 30000, B in {1, 64, 512, 1024}, k in {10, 20}, and at phase 12's evaluation
@@ -385,7 +415,12 @@ mask, and scatter_add_rows at (20000, 90000, 32), (10000, 142500, 32),
 (20000, 2500, 64) and (10000, 5000, 64), the rank's half of textsage's tree
 gathers and of lgn's batch rows, and at (32, 12500, 32), (32, 25000, 32),
 (500, 12480000, 16) and (500, 24960000, 16), the rank's half of asage's
-attribute rows and of its word rows (the text read back 64 words wide).
+attribute rows and of its word rows (the text read back 64 words wide); and
+phase 20's: masked_topk at (M, d) = (10000, 64) and (10000, 32), B in {1, 2,
+8, 64, 512, 2048}, k in {10, 20}, and scatter_add_rows at (20000, 180000, 64)
+and (10000, 285000, 64), the id-embedding keys' tree gathers, and at (20000,
+5000, D) and (10000, 10000, D) for D = 64 and 32, the batch rows that mf and
+the LightGCN keys (D = 64) and nssage (D = 32) gather from whole tables.
 
 A device profile (torch.profiler) counts the kernels of a range of n calls,
 after 512 one-element kernels that take the records a session drops at its
@@ -452,7 +487,7 @@ from furusato_recommend_tpu_torch.eval.sharded import item_block, local_mask, sh
 from furusato_recommend_tpu_torch.data.sequence import build_sequences
 from furusato_recommend_tpu_torch.models import asage, sage, sasrec
 from furusato_recommend_tpu_torch.models.lightgcn import LightGCN
-from furusato_recommend_tpu_torch.models.registry import build_model
+from furusato_recommend_tpu_torch.models.registry import SAGE_KEYS, build_model
 from furusato_recommend_tpu_torch.models.sage_convs import N_HEADS, edge_feature, get_conv
 from furusato_recommend_tpu_torch.obs.log import MetricLogger
 from furusato_recommend_tpu_torch.obs.profiler import log_device_memory, trace
@@ -554,8 +589,11 @@ WORD_ROWS = (360_000, 4_680_000, 9_360_000)
 # one a table gather (rsage: two tree gathers and a relation-row gather a
 # layer; sasrec: the item rows and the items' word rows; asage: two tree
 # gathers, two attribute-row gathers and the word rows of each side's entity
-# levels)
-SCATTER_PER_STEP = {"rsage": 4, "sasrec": 2, "asage": 6}
+# levels; the LightGCN keys: the batch rows from the propagated and from the
+# ego tables; every other key 2: mf's batch rows, the other SAGE keys' tree
+# gathers, nssage's batch rows from its full propagation), as
+# tests/test_torch_registry.py counts the table gathers on the CPU
+SCATTER_PER_STEP = {"rsage": 4, "sasrec": 2, "asage": 6, "lgn": 4, "rgcn": 4, "radj": 4, "lgcnssm": 4}
 CADENCE_BLOCK = 8  # R = 8 and T = 8
 # phase 16: the infer calls' batch of users (the reference's USER_BATCH_SIZE)
 # and k, recommend's users and k, and the top-k kernel's names in a trace
@@ -663,6 +701,40 @@ MESH_CASES = {
 }
 MESH_SCATTER_SHAPES = tuple(sorted({x for case in MESH_CASES.values() for x in case["scatter_shapes"]}))
 MESH_TOPK_SHAPES = tuple(sorted({x for case in MESH_CASES.values() for x in case["topk_shapes"]}))
+# phase 20: the registry keys that no other phase drives, on the anchor20k
+# graph and features, in two families: the MF / LightGCN keys at phase 19's
+# lgn recipe (d 64, B 5000, lr 1e-3, decay 1e-6, bfloat16 SpMM operands, the
+# uniform sampler) and the SAGE keys at the flagship recipe; mf, rgcn and
+# textsage_id trained REG_EPOCHS, the others one epoch. Their new scatter shapes
+# (N, R, D): the id-embedding keys' tree gathers at node width 2d, and the
+# batch rows that mf and the LightGCN keys (d 64) and nssage (d 32) gather
+# from whole tables (B users, B positives and B negatives)
+REG_KEYS = (("mf", {}), ("rgcn", {}), ("radj", {}), ("lgcnssm", {}), ("textsage_id", {}), ("sage", {}),
+            ("fsage", {}), ("fastsage", {}), ("lightsage", {}), ("pinsage", {}), ("mrec", {}), ("nssage", {}),
+            ("gnn", {"conv": "gcn"}), ("gnn", {"conv": "ggnn"}))
+# (keys, how many of them train REG_EPOCHS): mf's recall@10 does not rise
+# in 3 epochs (RECALL_FLAT), so the LightGCN family's rise is held on rgcn,
+# which trains as long
+REG_FAMILIES = ((REG_KEYS[:4], 2), (REG_KEYS[4:], 1))
+REG_LGN_D = MESH_LGN_D
+REG_ID_KEYS = ("textsage_id", "sage", "fsage")
+REG_EPOCHS = 3
+REG_STEPS_VS_CPU = 2
+# keys whose recall@10 is printed, not held to rise, after their epochs: mf's
+# N(0, 1) tables (the reference's init) move at most lr = 1e-3 an Adam step,
+# 0.084 in 3 epochs of 28 steps, so its random ranking stands; its loss is
+# held to fall over the epochs
+RECALL_FLAT = ("mf",)
+# keys whose steps against the CPU run at float32 SpMM operands: nssage's step
+# is the whole propagation, its bfloat16 operands rounded forward and
+# backward over every node; the card's and the CPU's float32 sums differ in
+# order, a bfloat16 rounding of a cotangent then lands a step apart, and the
+# feature parameters at the end of that chain part past phase 7's rule (as
+# the mesh's data ranks did: MESH_DTYPE)
+REG_FLOAT32_VS_CPU = ("nssage",)
+_REG_B = ddp_flagship_config().bpr_batch_size
+REG_SCATTER_SHAPES = ((A20_USERS, TS_SCATTER[0][1], 2 * TS_D), (A20_ITEMS, TS_SCATTER[1][1], 2 * TS_D)) + tuple(
+    (n, r, d) for d in (REG_LGN_D, TS_D) for n, r in ((A20_USERS, _REG_B), (A20_ITEMS, 2 * _REG_B)))
 # profiler ranges (ops/segment.py, ops/scatter.py, sampling/bpr.py,
 # sampling/neighbor.py, eval/evaluate.py, torch.optim's own) and the step part
 # each one names
@@ -758,35 +830,50 @@ def _topk_cases(dev, rng, n, m, d, tiles, ks, first_checked) -> tuple:
     return n_cases, max_err
 
 
-def kernel_cases(dev) -> float:
+def kernel_cases(dev) -> tuple:
+    """Phase 3, masked_topk: the kernel against its plain version; returns
+    the max abs error and the (B, M, d, k) held."""
+    held = set()
+
+    def cases(rng, n, m, d, tiles, ks, first_checked):
+        held.update((b, m, d, k) for b in tiles for k in ks if k <= m)
+        return _topk_cases(dev, rng, n, m, d, tiles, ks, first_checked)
+
     rng = np.random.default_rng(SEED)
-    n, max_err = _topk_cases(dev, rng, N_KERNEL, M_KERNEL, D, TILES, (10, 20, 128), False)
+    n, max_err = cases(rng, N_KERNEL, M_KERNEL, D, TILES, (10, 20, 128), False)
     for m, d in TOPK_EDGES:
-        c, e = _topk_cases(dev, rng, 1100, m, d, (1, 33, 65, 1000), (1, 20, 128), True)
+        c, e = cases(rng, 1100, m, d, (1, 33, 65, 1000), (1, 20, 128), True)
         n, max_err = n + c, max(max_err, e)
     # TextSAGE's serving and evaluation shape
-    c, e = _topk_cases(dev, rng, 1100, TS_ITEMS, TS_D, (1, 64, 512, 1024), (10, 20), True)
+    c, e = cases(rng, 1100, TS_ITEMS, TS_D, (1, 64, 512, 1024), (10, 20), True)
     n, max_err = n + c, max(max_err, e)
     # the anchor20k evaluation's tile (phase 12)
-    c, e = _topk_cases(dev, rng, A20_USERS, A20_ITEMS, TS_D, (A20_EVAL_TILE,), (10, 20), True)
+    c, e = cases(rng, A20_USERS, A20_ITEMS, TS_D, (A20_EVAL_TILE,), (10, 20), True)
     n, max_err = n + c, max(max_err, e)
     # k > MAX_K: bounded rounds, the first call under the sync check again;
     # and the whole catalog in three rounds
     wide, wide_err = 0, 0.0
     for i, (m, d) in enumerate(TOPK_WIDE_SHAPES):
-        c, e = _topk_cases(dev, rng, 2100, m, d, TOPK_WIDE_TILES, TOPK_WIDE_KS, i > 0)
+        c, e = cases(rng, 2100, m, d, TOPK_WIDE_TILES, TOPK_WIDE_KS, i > 0)
         wide, wide_err = wide + c, max(wide_err, e)
-    c, e = _topk_cases(dev, rng, 600, 300, TS_D, (1, 65, 512), (300,), True)
+    c, e = cases(rng, 600, 300, TS_D, (1, 65, 512), (300,), True)
     wide, wide_err = wide + c, max(wide_err, e)
     # the ranker's candidate dumps (phase 17): k = 50 over the anchor20k
     # catalog, tiles of 2048 and of tools dump-candidates' 1024 users
-    c, e = _topk_cases(dev, np.random.default_rng(SEED + 17), A20_USERS, A20_ITEMS, TS_D,
-                       (RANK_DUMP_B, RANK_TOOL_B), (RANK_K,), True)
+    c, e = cases(np.random.default_rng(SEED + 17), A20_USERS, A20_ITEMS, TS_D,
+                 (RANK_DUMP_B, RANK_TOOL_B), (RANK_K,), True)
     n, max_err = n + c, max(max_err, e)
+    # the registry keys of phase 20: requests (the HTTP ones of 1 and 2 users
+    # too) and evaluation tiles at d = 64 (mf, the LightGCN keys, the
+    # id-embedding keys) and at d = 32 over the anchor20k catalog
+    for d in (REG_LGN_D, TS_D):
+        c, e = cases(np.random.default_rng(SEED + 20 + d), A20_USERS, A20_ITEMS, d,
+                     (1, 2) + TS_TILES[1:] + (A20_EVAL_TILE,), (10, TS_K), True)
+        n, max_err = n + c, max(max_err, e)
     log(f"kernels: {n + wide} cases equal to the plain version (max abs err {max(max_err, wide_err):.3g}), "
         f"{wide} of them at k > {st.MAX_K} in bounded rounds (max abs err {wide_err:.3g}); "
         f"no host sync in the wrapper")
-    return max(max_err, wide_err)
+    return max(max_err, wide_err), held
 
 
 def mesh_topk_cases(dev) -> float:
@@ -831,12 +918,18 @@ def mesh_topk_cases(dev) -> float:
     return max_err
 
 
-def reference_propagate(graph, params, n_layers, cdt) -> np.ndarray:
+def reference_propagate(graph, params, n_layers, cdt, r=None) -> np.ndarray:
     """LightGCN propagation in float64 on the CPU with x and the weights
-    rounded to ``cdt`` as the port rounds them; [N + M, d]."""
+    rounded to ``cdt`` as the port rounds them; with ``r``, radj's weights
+    deg(src)^-r deg(dst)^-(1 - r) in float64 from the edges' degrees; [N + M,
+    d]."""
     e = graph.norm_edges
     n = graph.num_nodes
-    w = e.weight.to(cdt).double()
+    if r is None:
+        w = e.weight.to(cdt).double()
+    else:
+        deg = torch.bincount(e.src.long(), minlength=n).double().clamp_min(1.0)
+        w = deg[e.src.long()] ** -r * deg[e.dst.long()] ** -(1.0 - r)
     adj = torch.sparse_coo_tensor(
         torch.stack([e.dst.long(), e.src.long()]), w, (n, n)
     ).coalesce().to_sparse_csr()
@@ -973,9 +1066,9 @@ def device_profile(fn, n=20, per_call=None):
     }
 
 
-def scatter_cases(dev) -> float:
+def scatter_cases(dev) -> tuple:
     """Phase 3, scatter_add_rows: the kernel against its plain version;
-    returns the max abs error of the Gaussian cases."""
+    returns the max abs error of the Gaussian cases and the (N, R, D) held."""
     rng = np.random.default_rng(SEED + 1)
     cases = [(n, rng.integers(0, n, r), D, None) for n, r in SCATTER_SHAPES]
     cases += [
@@ -1034,6 +1127,10 @@ def scatter_cases(dev) -> float:
         return rng19.integers(0, n, r)
 
     cases += [(n, mesh_ids(n, r), d, None) for n, r, d in MESH_SCATTER_SHAPES]
+    # phase 20's: the id-embedding keys' tree gathers at node width 64 and the
+    # batch rows gathered from whole tables (Zipf items, as trees and the
+    # popularity-drawn negatives hit them)
+    cases += [(n, mesh_ids(n, r), d, None) for n, r, d in REG_SCATTER_SHAPES]
     # the ranker's categorical rows (phase 17): 9 columns of 256 groups x 111
     # candidates into the 32-row table at emb 16, about 8,000 rows an id
     cases.append((RANK_VOCAB, np.random.default_rng(SEED + 17).integers(0, RANK_VOCAB, RANK_ROWS), RANK_EMB, None))
@@ -1072,7 +1169,7 @@ def scatter_cases(dev) -> float:
             n_cases += 1
     log(f"scatter: {n_cases} cases equal to the plain version (exact cases bit-equal, "
         f"max abs err {max_err:.3g}); no host sync in the wrapper")
-    return max_err
+    return max_err, {(n, len(ids), d) for n, ids, d, _ in cases}
 
 
 def _own_kernel(name: str):
@@ -1274,13 +1371,14 @@ def eval_kernel_vs_plain(trainer) -> dict:
     g, data, cfg = trainer.graph, trainer.eval_data, trainer.config
     with torch.no_grad():
         U, I = trainer.model.propagate(g)
-    U, I = U.float().contiguous(), I.float().contiguous()
+    U, I = U.detach().float().contiguous(), I.detach().float().contiguous()  # mf's are its parameters
     kmax = max(cfg.topks)
     sums = {"kernel": None, "plain": None}
     moved = 0
+    sig = trainer.model.score_sigmoid
     for users, valid in zip(data.users, data.valid):
-        kv, ki = st.masked_topk(U, I, users, kmax, g.user_pos.indptr, g.user_pos.indices)
-        rv, ri = st.masked_topk_reference(U, I, users, kmax, g.user_pos.indptr, g.user_pos.indices)
+        kv, ki = st.masked_topk(U, I, users, kmax, g.user_pos.indptr, g.user_pos.indices, sigmoid=sig)
+        rv, ri = st.masked_topk_reference(U, I, users, kmax, g.user_pos.indptr, g.user_pos.indices, sigmoid=sig)
         compare(kv, ki, rv, ri, exact=False)
         moved += int((ki != ri).sum())
         for name, ids in (("kernel", ki), ("plain", ri)):
@@ -1933,9 +2031,9 @@ def held_steps(ds, fs, cfg, params, batches, draws, dev, align_gates=True) -> tu
     sage.DROPOUT_RATE = asage.DROPOUT_RATE = sasrec.DROPOUT = 0.0
     try:
         for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
-            model = build_model(cfg.model, cfg, ds.graph, features=fs, **model_inputs_20k(cfg.model, ds))
+            model = build_model(cfg.model, cfg, ds.graph, **model_inputs_20k(cfg.model, ds, fs))
             params_from_jax(params, model)
-            tr = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=cfg.model != "sasrec",
+            tr = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=ddp_recipe(cfg.model),
                          device=d)
             named, opts = dict(tr.model.named_parameters()), _optimizers(tr)
 
@@ -2024,13 +2122,15 @@ def card_vs_cpu_cadences(ds, fs, trainer8, dev) -> dict:
                                   ("T8", {"feature_update_every": CADENCE_BLOCK}))}
 
 
-def cadence_numbers(trainer, label, profile_steps=2 * CADENCE_BLOCK) -> dict:
-    """Samples/s and host ms a step from a timed epoch; device ms and
+def cadence_numbers(trainer, label, profile_steps=2 * CADENCE_BLOCK, epoch_s=None) -> dict:
+    """Samples/s and host ms a step from a timed epoch (``epoch_s``: the
+    seconds of one the caller timed, else one timed here); device ms and
     operations a step from ``profile_steps`` profiled steps run through
     ``train_epoch`` (whole blocks of the cadence; the dask epoch's streamed
     passes count only when the whole epoch is profiled); and the idle share of
     an unprofiled step (1 - device / host)."""
-    epoch_s, _, _ = _timed_epoch(trainer)
+    if epoch_s is None:
+        epoch_s, _, _ = _timed_epoch(trainer)
     steps = trainer.num_batches
     bs = trainer.config.bpr_batch_size
     batches = trainer.sample_epoch()
@@ -2052,6 +2152,11 @@ def cadence_numbers(trainer, label, profile_steps=2 * CADENCE_BLOCK) -> dict:
 
 
 
+def scatter_per_step(name: str) -> int:
+    """The scatter launches a training step of key ``name`` makes."""
+    return SCATTER_PER_STEP.get(name, 2)
+
+
 def key_label(name, over) -> str:
     """A registry key and the config field that picks its conv."""
     if "conv" in over:
@@ -2067,15 +2172,36 @@ def sasrec_config(**over) -> Config:
                   item_feature="nwt", eval_user_batch=A20_EVAL_TILE, topks=(10, 20), seed=SEED, **over)
 
 
-def model_inputs_20k(name, ds) -> dict:
-    """A key's inputs beside features=: sasrec's item sequences."""
-    return {"sequences": build_sequences(ds)} if name == "sasrec" else {}
+def key_config(name, **over) -> Config:
+    """A key's config on the anchor20k graph: sasrec's the anchor recipe, mf's
+    and the LightGCN keys' phase 19's lgn recipe (d 64), the others' the
+    flagship recipe."""
+    if name == "sasrec":
+        return sasrec_config(model=name, **over)
+    if name not in SAGE_KEYS:
+        return a20_config(model=name, latent_dim=REG_LGN_D, **over)
+    return a20_config(model=name, **over)
+
+
+def ddp_recipe(name) -> bool:
+    """sasrec, mf and the LightGCN keys train with the uniform sampler, the
+    others with the ddp recipe."""
+    return name in SAGE_KEYS and name != "sasrec"
+
+
+def model_inputs_20k(name, ds, fs) -> dict:
+    """A key's inputs beside the graph: the features (not mf's or the
+    LightGCN keys'), sasrec's item sequences."""
+    out = {"features": fs} if name in SAGE_KEYS else {}
+    if name == "sasrec":
+        out["sequences"] = build_sequences(ds)
+    return out
 
 
 def model_20k(ds, fs, name, seed, **over):
-    cfg = (sasrec_config if name == "sasrec" else a20_config)(model=name, **over)
-    return cfg, build_model(name, cfg, ds.graph, features=fs, generator=torch.Generator().manual_seed(seed),
-                            **model_inputs_20k(name, ds))
+    cfg = key_config(name, **over)
+    return cfg, build_model(name, cfg, ds.graph, generator=torch.Generator().manual_seed(seed),
+                            **model_inputs_20k(name, ds, fs))
 
 
 def propagation_vs_cpu(got, cfg, ds, fs, params) -> tuple:
@@ -2084,14 +2210,25 @@ def propagation_vs_cpu(got, cfg, ds, fs, params) -> tuple:
     the text-bag SpMM operands of the all-entity tables to bfloat16, the
     convs run in float32. sasrec assembles its items per id and runs in
     float32 throughout on both, so it is held at rtol 1e-4, atol 1e-5 of the
-    largest magnitude (a TF32 or bfloat16 product would break that). Returns
-    (max abs err, largest magnitude, the rule)."""
-    cpu_model = build_model(cfg.model, cfg, ds.graph, features=fs, **model_inputs_20k(cfg.model, ds))
+    largest magnitude (a TF32 or bfloat16 product would break that). mf and
+    the LightGCN keys under phase 4's rule, against a float64 propagation
+    on the same rounded inputs (radj's float32 operands are not rounded; mf
+    propagates nothing). Returns (max abs err, largest magnitude, the
+    rule)."""
+    if cfg.model not in SAGE_KEYS:
+        asym = cfg.model == "radj"
+        want = reference_propagate(ds.graph, params, 0 if cfg.model == "mf" else cfg.n_layers,
+                                   torch.float32 if asym else getattr(torch, cfg.compute_dtype),
+                                   r=cfg.r if asym else None)
+        assert got.shape == want.shape and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-5)
+        return float(np.abs(got - want).max()), float(np.abs(want).max()), "rtol 0.002, atol 1e-05 (float64)"
+    cpu_model = build_model(cfg.model, cfg, ds.graph, **model_inputs_20k(cfg.model, ds, fs))
     params_from_jax(params, cpu_model)
     with torch.no_grad():
         cu, ci = cpu_model.propagate(ds.graph)
     want = torch.cat([cu, ci]).numpy()
-    assert got.shape == (ds.n_users + ds.m_items, cfg.latent_dim) and np.isfinite(got).all()
+    assert got.shape == want.shape == (ds.n_users + ds.m_items, cpu_model.node_dim) and np.isfinite(got).all()
     scale = float(np.abs(want).max())
     rtol, atol = (1e-4, 1e-5) if cfg.model == "sasrec" else (2e-2, 2e-3)
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol * scale)
@@ -2148,7 +2285,8 @@ def serve_20k(ds, fs, dev, name, label, wide_k=None, **over) -> tuple:
     max_err = 0.0
     for (u, k), (ids, scores) in zip(requests, answers):
         assert ids.shape == (len(u), k) and np.isfinite(scores).all()
-        rv, ri = st.masked_topk_reference(U, I, torch.from_numpy(u).to(dev), k, *mask)
+        rv, ri = st.masked_topk_reference(U, I, torch.from_numpy(u).to(dev), k, *mask,
+                                          sigmoid=model.score_sigmoid)
         max_err = max(max_err, compare(torch.from_numpy(scores), torch.from_numpy(ids), rv, ri, exact=False))
         for uid, row in zip(u, ids):
             assert not set(row.tolist()) & set(pos[uid].tolist()), "a train positive was served"
@@ -2166,30 +2304,31 @@ def serve_20k(ds, fs, dev, name, label, wide_k=None, **over) -> tuple:
             "first_refresh_s": first_refresh_s, "users_512": users[512]}, rec
 
 
-def train_keys_20k(keys, inputs, dev, phase, first_epochs) -> dict:
-    """The first key for ``first_epochs`` epochs between two evaluations
-    (the last epoch's loss below the first's, recall@10 above its start),
-    then one epoch and one evaluation of each other key (the loss falling
-    from the epoch's first tenth to its last). ``inputs(name)``: the (dataset,
-    features) of a key. Returns facts, the trainers under "trainers" and the
-    scatter launches the steps must make under "scatter_expected" (two a
-    step, or ``SCATTER_PER_STEP``). sasrec trains with the uniform sampler,
-    the others with the ddp recipe."""
+def train_keys_20k(keys, inputs, dev, phase, first_epochs, long=1) -> dict:
+    """The first ``long`` keys for ``first_epochs`` epochs each between two
+    evaluations (the last epoch's loss below the first's, recall@10 above its
+    start but for RECALL_FLAT's keys), then one epoch and one evaluation of
+    each other key (the loss falling from the epoch's first tenth to its
+    last). ``inputs(name)``: the (dataset, features) of a key. Returns facts,
+    the trainers under "trainers" and the scatter launches the steps must
+    make under "scatter_expected" (``scatter_per_step`` a step). sasrec, mf
+    and the LightGCN keys train with the uniform sampler, the others with
+    the ddp recipe."""
     steps, n_eval, expected, facts, trainers = 0, 0, 0, {}, {}
     for i, (name, over) in enumerate(keys):
         label = key_label(name, over)
         ds, fs = inputs(name)
         cfg, model = model_20k(ds, fs, name, SEED + 1, **over)
-        tr = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=name != "sasrec", device=dev)
+        tr = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=ddp_recipe(name), device=dev)
         tr.init_state()
         n_tiles = int(tr.eval_data.users.shape[0])
-        epochs = first_epochs if i == 0 else 1
-        before = tr.test() if i == 0 else None
+        epochs = first_epochs if i < long else 1
+        before = tr.test() if i < long else None
         runs = []
         for _ in range(epochs):
             runs.append(_timed_epoch(tr))
             steps += tr.num_batches
-            expected += SCATTER_PER_STEP.get(name, 2) * tr.num_batches
+            expected += scatter_per_step(name) * tr.num_batches
         after = tr.test()
         n_eval += 1 + (before is not None)
         assert all(np.isfinite(v) for v in after.values()), after
@@ -2197,7 +2336,8 @@ def train_keys_20k(keys, inputs, dev, phase, first_epochs) -> dict:
             first, last = _falls(runs[0][2])
         else:  # the mean loss of the last epoch below the first's; recall above its start
             first, last = runs[0][1], runs[-1][1]
-            assert after["recall@10"] > before["recall@10"], (before["recall@10"], after["recall@10"])
+            if name not in RECALL_FLAT:
+                assert after["recall@10"] > before["recall@10"], (before["recall@10"], after["recall@10"])
         assert np.isfinite([r[1] for r in runs]).all() and last < first, f"{label}: loss {first} -> {last}"
         facts[label] = {"epochs": epochs, "epoch_s": [r[0] for r in runs], "loss": [r[1] for r in runs],
                         "loss_first_last": [first, last], "steps_per_epoch": tr.num_batches,
@@ -2427,7 +2567,7 @@ def sequence_attr_20k_data(ds, fs) -> dict:
     graphs (the informative features' categorical columns: 4 user and 5
     item fields over 32 clusters)."""
     t0 = time.perf_counter()
-    seqs = model_inputs_20k("sasrec", ds)["sequences"]
+    seqs = model_inputs_20k("sasrec", ds, fs)["sequences"]
     attrs = asage.attributes_from_categorical(fs)
     host_s = time.perf_counter() - t0
     lengths = seqs.lengths.numpy()
@@ -2510,6 +2650,77 @@ def sequence_attr_20k(ds, fs, dev, textsage_r1) -> dict:
     log(f"sequence-attr-20k: {data['phase_s']:.0f} s")
     return {"data": data, "serve": serve, "train": train, "numbers": numbers, "scatter_shapes": shapes,
             "textsage_R1": textsage_r1, "launches": launches}
+
+
+def registry_20k(ds, fs, dev, scatter_held, topk_held) -> dict:
+    """Phase 20: the registry keys that no other phase drives (REG_KEYS) on
+    the anchor20k graph, served and trained (the path, with the launch counts
+    set to 0 before it and read after, every launch's shape recorded and
+    held against those phase 3 checked), then their checks against the plain
+    top-k and the CPU, and their numbers."""
+    t0 = time.perf_counter()
+    st.launches = sc.launches = 0
+    with record_launch_shapes() as shapes:
+        serve, recs = {}, {}
+        for name, over in REG_KEYS:
+            label = key_label(name, over)
+            serve[label], recs[label] = serve_20k(ds, fs, dev, name, f"serve-registry-20k {label}", **over)
+        serve_topk = st.launches
+        assert sc.launches == 0, "the serve path launched the scatter kernel"
+        train, trainers = {"steps": 0, "evaluations": 0, "scatter_expected": 0}, {}
+        for family, long in REG_FAMILIES:
+            facts = train_keys_20k(family, lambda name: (ds, fs), dev, "train-registry-20k", REG_EPOCHS, long)
+            trainers.update(facts.pop("trainers"))
+            for k in ("steps", "evaluations", "scatter_expected"):
+                train[k] += facts.pop(k)
+            train.update(facts)
+    launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
+    n_tiles = train["eval_tiles"]
+    expected = train.pop("scatter_expected")
+    per_step = {key_label(name, over): scatter_per_step(name) for name, over in REG_KEYS}
+    assert launches["scatter_add_rows"] == expected, f"scatter {launches}, expected {expected}"
+    assert serve_topk == sum(r["requests"] for r in serve.values()), serve_topk
+    assert launches["masked_topk"] == serve_topk + train["evaluations"] * n_tiles, launches
+    launched = {kernel: sorted(part) for kernel, part in shapes.items()}
+    assert set(shapes["scatter_add_rows"]) <= scatter_held, set(shapes["scatter_add_rows"]) - scatter_held
+    assert set(shapes["masked_topk"]) <= topk_held, set(shapes["masked_topk"]) - topk_held
+    log(f"registry-20k: scatter launches {launches['scatter_add_rows']} ({per_step} per step over "
+        f"{train['steps']} steps), masked_topk launches {launches['masked_topk']} ({serve_topk} serving, one a "
+        f"request; {n_tiles} tiles per evaluation); launch shapes, each checked in phase 3: {launched}")
+
+    # checks: every evaluation against the plain top-k, REG_STEPS_VS_CPU steps
+    # of each key against the CPU
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    blocks = {}
+    for label, tr in trainers.items():
+        train[label]["eval_vs_plain"] = eval_kernel_vs_plain(tr)
+        blocks[label] = _block(tr, gen, REG_STEPS_VS_CPU)
+        cfg = tr.config.replace(compute_dtype="float32") if tr.config.model in REG_FLOAT32_VS_CPU else tr.config
+        train[label]["card_vs_cpu"] = card_vs_cpu_epoch(
+            ds, fs, cfg, params_to_numpy(tr.model), *blocks[label], dev,
+            f"registry-20k {label} card vs CPU ({cfg.compute_dtype} SpMM operands)")
+
+    # numbers: each key's refresh and step, and the scatter at the
+    # id-embedding keys' tree gathers (node width 64)
+    for label, rec in recs.items():
+        serve[label].pop("users_512")
+        serve[label]["refresh_ms"] = host_ms(lambda: rec.refresh(None), reps=10)
+        serve[label]["refresh_profile"] = device_profile(lambda: rec.refresh(None), n=5)
+        log(f"serve-registry-20k {label}: refresh {serve[label]['refresh_ms']:.3f} ms on the host, "
+            f"{(serve[label]['refresh_profile'] or {}).get('device_ms')} ms on the device")
+    numbers = {label: cadence_numbers(tr, f"registry-20k {label}", profile_steps=ATT_PROFILE_STEPS,
+                                      epoch_s=train[label]["epoch_s"][-1])
+               for label, tr in trainers.items()}
+    first_id = REG_ID_KEYS[0]
+    gathers = step_gathers(trainers[first_id], blocks[first_id][0][0], blocks[first_id][1][0])
+    assert [(n, d, ids.numel()) for n, d, ids in gathers] == [(n, d, r) for n, r, d in REG_SCATTER_SHAPES[:2]], \
+        [(n, d, ids.numel()) for n, d, ids in gathers]
+    shapes_64 = scatter_numbers_at([(n, ids) for n, _, ids in gathers], dev, 2 * TS_D, rows_seed=SEED + 22)
+    del trainers, recs
+    phase_s = time.perf_counter() - t0
+    log(f"registry-20k: {phase_s:.0f} s")
+    return {"serve": serve, "train": train, "numbers": numbers, "scatter_per_step": per_step,
+            "launch_shapes": launched, "scatter_shapes": shapes_64, "launches": launches, "phase_s": phase_s}
 
 
 def _tools(argv) -> tuple:
@@ -3364,10 +3575,11 @@ def mesh_ops_on_card(mesh, dev) -> dict:
     return out
 
 
-def record_launch_shapes() -> dict:
-    """Wrap both kernels' launch functions so that each launch records its
-    shape: {"scatter_add_rows": {(N, R, D)}, "masked_topk": {(B, M, d, k)}};
-    the launches themselves and their counts are unchanged."""
+@contextlib.contextmanager
+def record_launch_shapes():
+    """Inside, both kernels' launch functions record each launch's shape in
+    the dict it yields: {"scatter_add_rows": {(N, R, D)}, "masked_topk": {(B,
+    M, d, k)}}; the launches themselves and their counts are unchanged."""
     shapes = {"scatter_add_rows": set(), "masked_topk": set()}
     sc_launch, st_launch = sc._launch, st._launch
 
@@ -3380,7 +3592,10 @@ def record_launch_shapes() -> dict:
         return st_launch(user_emb, item_emb, users, k, *a, **kw)
 
     sc._launch, st._launch = scatter, topk
-    return shapes
+    try:
+        yield shapes
+    finally:
+        sc._launch, st._launch = sc_launch, st_launch
 
 
 def whole_moments(trainer: Trainer) -> dict:
@@ -3408,26 +3623,26 @@ def mesh_rank() -> None:
                          backend=args["backend"], device=dev, timeout_s=300)
     try:
         out = {"rank": rank}
-        shapes = record_launch_shapes()
-        for kind, case in MESH_CASES.items():
-            t0 = time.perf_counter()
-            trainer = mesh_trainer(kind, args["data_dir"], dev, tuple(args["mesh"]))
-            setup_s = time.perf_counter() - t0
-            for part in shapes.values():
-                part.clear()
-            first = mesh_first_steps(trainer)
-            np.savez(os.path.join(args["out"], f"{kind}_first_{rank}.npz"), **first.pop("params"))
-            res = (mesh_path(trainer, case["epochs"], args["ckpt"].format(rank=rank) if kind == "textsage" else None)
-                   if case["epochs"] else {})
-            res["launch_shapes"] = {kernel: sorted(part) for kernel, part in shapes.items()}
-            np.savez(os.path.join(args["out"], f"{kind}_moments_{rank}.npz"), **whole_moments(trainer))
-            res["first_steps_losses"] = first["losses"]
-            res["first_steps_launches"] = first["launches"]
-            res.update(setup_s=setup_s, memory=sharded_state_mib(trainer),
-                       eval_tiles=int(trainer.eval_data.users.shape[0]))
-            np.savez(os.path.join(args["out"], f"{kind}_params_{rank}.npz"), **whole_params(trainer))
-            out[kind] = res
-            del trainer
+        with record_launch_shapes() as shapes:
+            for kind, case in MESH_CASES.items():
+                t0 = time.perf_counter()
+                trainer = mesh_trainer(kind, args["data_dir"], dev, tuple(args["mesh"]))
+                setup_s = time.perf_counter() - t0
+                for part in shapes.values():
+                    part.clear()
+                first = mesh_first_steps(trainer)
+                np.savez(os.path.join(args["out"], f"{kind}_first_{rank}.npz"), **first.pop("params"))
+                ckpt = args["ckpt"].format(rank=rank) if kind == "textsage" else None
+                res = mesh_path(trainer, case["epochs"], ckpt) if case["epochs"] else {}
+                res["launch_shapes"] = {kernel: sorted(part) for kernel, part in shapes.items()}
+                np.savez(os.path.join(args["out"], f"{kind}_moments_{rank}.npz"), **whole_moments(trainer))
+                res["first_steps_losses"] = first["losses"]
+                res["first_steps_launches"] = first["launches"]
+                res.update(setup_s=setup_s, memory=sharded_state_mib(trainer),
+                           eval_tiles=int(trainer.eval_data.users.shape[0]))
+                np.savez(os.path.join(args["out"], f"{kind}_params_{rank}.npz"), **whole_params(trainer))
+                out[kind] = res
+                del trainer
         out["ops"] = mesh_ops_on_card(make_mesh(*args["mesh"], device=dev), dev)
         with open(os.path.join(args["out"], f"rank_{rank}.json"), "w") as f:
             json.dump(out, f)
@@ -3714,8 +3929,9 @@ def main() -> int:
     log(f"masked_topk pass 1, blocks per SM (occupancy API): {occupancy}")
 
     # 3. kernels against their plain versions
-    max_err = max(kernel_cases(dev), mesh_topk_cases(dev))
-    sc_max_err = scatter_cases(dev)
+    max_err, topk_held = kernel_cases(dev)
+    max_err = max(max_err, mesh_topk_cases(dev))
+    sc_max_err, sc_held = scatter_cases(dev)
 
     # 4. the serve path at full width
     t0 = time.perf_counter()
@@ -3918,6 +4134,10 @@ def main() -> int:
     # and trained
     seq = sequence_attr_20k(a20_ds, a20_fs, dev, cadences_20k["R1"])
 
+    # 20. registry-20k: the registry keys that no other phase drives, served
+    # and trained on the anchor20k graph, each launch at a shape phase 3 held
+    reg = registry_20k(a20_ds, a20_fs, dev, sc_held, topk_held)
+
     # 16. production-20k: phase 12's checkpoint through tools evaluate / infer
     # / recommend, production inference over the inference edge set
     prod = production_20k(a20_ds, a20_fs, dev, prod_ckpt, prod_dir.name, smi)
@@ -3951,7 +4171,8 @@ def main() -> int:
                      + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]
                      + att["launches"]["masked_topk"] + edge["launches"]["masked_topk"]
                      + seq["launches"]["masked_topk"] + prod_launches + rank_launches["masked_topk"]
-                     + pre["launches"]["masked_topk"] + mesh["launches"]["masked_topk"]),
+                     + pre["launches"]["masked_topk"] + mesh["launches"]["masked_topk"]
+                     + reg["launches"]["masked_topk"]),
         "launches_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"],
                              "serve_textsage": ts_serve_launches,
                              "train_textsage": ts_train_launches["masked_topk"],
@@ -3962,7 +4183,8 @@ def main() -> int:
                              "production_20k": prod_launches,
                              "rank_20k": rank_launches["masked_topk"],
                              "preprocess_20k": pre["launches"]["masked_topk"],
-                             "mesh_20k": mesh["launches"]["masked_topk"]},
+                             "mesh_20k": mesh["launches"]["masked_topk"],
+                             "registry_20k": reg["launches"]["masked_topk"]},
         "launches_per_call": f"ceil(k / {st.MAX_K}): one a round",
         "mesh_shapes": {"evaluation": [dict(zip(("B_rank", "M_block", "d", "k"), x)) for x in MESH_TOPK_SHAPES],
                         "launched": {kind: mesh["launch_shapes"][kind]["masked_topk"] for kind in MESH_CASES},
@@ -3997,7 +4219,7 @@ def main() -> int:
                      + a20["launches"]["scatter_add_rows"] + att["launches"]["scatter_add_rows"]
                      + edge["launches"]["scatter_add_rows"] + seq["launches"]["scatter_add_rows"]
                      + rank_launches["scatter_add_rows"] + pre["launches"]["scatter_add_rows"]
-                     + mesh["launches"]["scatter_add_rows"]),
+                     + mesh["launches"]["scatter_add_rows"] + reg["launches"]["scatter_add_rows"]),
         "launches_by_path": {"serve": 0, "train": train["launches"]["scatter_add_rows"],
                              "serve_textsage": ts_serve["launches"]["scatter_add_rows"],
                              "train_textsage": ts_train_launches["scatter_add_rows"],
@@ -4008,7 +4230,8 @@ def main() -> int:
                              "production_20k": prod["launches"]["scatter_add_rows"],
                              "rank_20k": rank_launches["scatter_add_rows"],
                              "preprocess_20k": pre["launches"]["scatter_add_rows"],
-                             "mesh_20k": mesh["launches"]["scatter_add_rows"]},
+                             "mesh_20k": mesh["launches"]["scatter_add_rows"],
+                             "registry_20k": reg["launches"]["scatter_add_rows"]},
         "launches_per_step": train["scatter_launches_per_step"],
         "launches_per_step_textsage": ts_train["scatter_launches_per_step"],
         "mesh_shapes": {"steps": [dict(zip(("N", "R_rank", "D"), x)) for x in MESH_SCATTER_SHAPES],
@@ -4025,6 +4248,11 @@ def main() -> int:
                                                           "library_device_ms", "bound_ms", "bound_by",
                                                           "global_adds", "largest_id_share")}
                                  for t in seq["scatter_shapes"]],
+        "registry_shapes": [{key: t[key] for key in ("N", "R", "D", "plan", "ms", "row_mode_ms", "plain_ms",
+                                                     "library_ms", "device_ms", "row_mode_device_ms",
+                                                     "library_device_ms", "bound_ms", "bound_by", "global_adds",
+                                                     "largest_id_share")}
+                            for t in reg["scatter_shapes"]],
         "rank_shape": {key: rank["ranker_scatter"][key] for key in (
             "N", "R", "D", "plan", "ms", "row_mode_ms", "plain_ms", "library_ms", "device_ms",
             "row_mode_device_ms", "library_device_ms", "bound_ms", "bound_by", "global_adds",
@@ -4085,6 +4313,10 @@ def main() -> int:
         "d": {kind: case["over"].get("latent_dim", TS_D) for kind, case in MESH_CASES.items()},
         "cases": {kind: {**case["over"], **case["model_kw"], "epochs": case["epochs"]}
                   for kind, case in MESH_CASES.items()}, **mesh}}))
+    log(json.dumps({"registry": {
+        "card": smi, "users": A20_USERS, "items": A20_ITEMS, "train_edges": A20_EDGES, "features": "informative",
+        "d": {key_label(name, over): key_config(name, **over).latent_dim * (2 if name in REG_ID_KEYS else 1)
+              for name, over in REG_KEYS}, **reg}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -14,17 +14,23 @@ Phases (any failure raises and exits non-zero):
                masked_topk (d=64, M=20000, B in {1, 8, 64, 512}, k in
                {10, 20, 128}; and the tiling's edges: (M, d) in {(127, 32),
                (20001, 100), (20000, 30)}, B in {1, 33, 65, 1000}, k in
-               {1, 20, 128}; k in {129, 200, 256} above one launch's 128, in
-               bounded rounds, at (M, d) in {(20000, 64), (10000, 32)} for B in
-               {1, 65, 512, 2048}, and k = M = 300 in three rounds; each with
+               {1, 20, 128}; k in {129, 200, 256} above csrc/streaming_topk.cu's
+               128, through the radix select of csrc/streaming_topk_wide.cu,
+               at (M, d) in {(20000, 64), (10000, 32)} for B in {1, 65, 512,
+               2048}, and k = M = 300; the radix select also called directly
+               at k in {1, 50, 128} (M = 10000, d = 32) and on tie-heavy
+               tables: scores the sigmoid saturates, zero user rows, an item
+               table of one repeated row, rows masked down to fewer than k
+               items, and k = 10000 (its sort in device memory); each with
                and without mask and sigmoid, one user twice in a tile, one
-               launch counted a round):
+               launch counted a call):
                (a) exact inputs (multiples of 1/8, duplicated items, one row
                    masked so densely that -1024 entries rank): ids and values equal
                (b) Gaussian inputs: values within rtol 1e-5 / atol 1e-6; ids equal
                    wherever the plain version's neighbouring values differ by
                    more than 1e-5 relative, the value multiset elsewhere
-               the first call runs under torch.cuda.set_sync_debug_mode("error")
+               the first call, and the radix select's first, run under
+               torch.cuda.set_sync_debug_mode("error")
                scatter_add_rows ((N, R, D) = (50000, 8192, 64) and
                (20000, 16384, 64), the bench step's user and item gathers;
                R = 999; R = 0; one id 5,000 times; ids out of range, D = 50;
@@ -143,13 +149,13 @@ Phases (any failure raises and exits non-zero):
                CPU propagation under phase 9's rule; requests of 1 / 8 / 64 /
                512 users at k = 20 and of 512 at k = 200, two more over HTTP,
                one at k = 200, each under rule 3(b), one masked_topk launch a
-               round); train-tgrec-20k (Trainer(ddp_recipe=True), R = 1, 3
+               request, the radix select's at k = 200); train-tgrec-20k (Trainer(ddp_recipe=True), R = 1, 3
                epochs between two evaluations: the last epoch's loss below the
                first's, recall@10 above its start); one epoch and one
                evaluation each of tgrec2, gnn --conv gat and gnn --conv
                transformer (the loss falling from the epoch's first tenth to
                its last); scatter_add_rows twice a step, masked_topk once a
-               round per request and per evaluation tile; every evaluation
+               request and per evaluation tile; every evaluation
                held against the plain top-k (phase 7's rule); 4 tgrec steps on
                the card and on the CPU (phase 12's step-by-step rule); then the refresh's
                times, masked_topk at B = 512, k = 200 beside the library call
@@ -234,7 +240,7 @@ Phases (any failure raises and exits non-zero):
                top topks[0]), two infer calls inside obs.profiler.trace
                (--user_batch 1000 --target_batches 0,9,25 --k 20, batch 25
                skipped with the JAX package's line; --target_batches 19 --k
-               200 in two bounded launches: 1 + 1 + 2 launches), each CSV's
+               200 in one radix-select launch: 1 + 1 + 1 launches), each CSV's
                ids held against masked_topk_reference over a
                Recommender(use_inference_edges=True) of the same checkpoint
                under rule 3(b), no train positive predicted, at least one
@@ -246,7 +252,8 @@ Phases (any failure raises and exits non-zero):
                each call and read after it; then the host seconds of each
                call's parts and masked_topk at B = 1000, k = 20 and 200, its
                device time from a profile that recorded every operation of
-               its calls (2 and 8 a call; a {"production": ...} line with the
+               its calls (2 a call at k = 20; at k = 200 the radix passes,
+               the sort and the fill: 9; a {"production": ...} line with the
                card's name and power limit)
  17. rank-20k  the two-stage ranker on phase 12's graph and features, from
                phase 16's data directory, as tools/rank20k_torch.py runs the
@@ -281,8 +288,9 @@ Phases (any failure raises and exits non-zero):
                tile (ids equal but near-ties); the stack's recall@10 above the
                parity rerank's and at least 0.95 x the best retriever alone;
                then the host seconds of each part, masked_topk at the dump's
-               shape (B 2048, k 50, unmasked, sigmoid off) beside matmul +
-               torch.topk and torch.topk alone, scatter_add_rows at the ids
+               shape (B 2048, k 50, unmasked, sigmoid off) beside the same
+               call through the radix select, matmul + torch.topk and
+               torch.topk alone, scatter_add_rows at the ids
                of one real ranker step (N 32, R 256 x C x 9, D 16), rank() at
                4096 users x 100 candidates (a {"rank": ...} line with the
                card's name and power limit)
@@ -514,10 +522,12 @@ EVAL_TILE = 1024  # the evaluator's users per masked_topk call (eval_user_batch)
 # (M, d) of the top-k tiling's edges: M not a multiple of the item tile, d
 # resident and in chunks, d not a multiple of 4
 TOPK_EDGES = ((127, 32), (20001, 100), (20000, 30))
-# k above one launch's MAX_K = 128: (M, d), B and k of the bounded rounds
+# k above csrc/streaming_topk.cu's MAX_K = 128, through the radix select:
+# (M, d), B and k
 TOPK_WIDE_SHAPES = ((20000, 64), (10000, 32))
 TOPK_WIDE_TILES = (1, 65, 512, 2048)
 TOPK_WIDE_KS = (129, 200, 256)
+WIDE_DIRECT_KS = (1, 50, 128)  # k at which phase 3 calls the radix select directly
 # H100 SXM published peaks (dense, 700 W): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -547,8 +557,8 @@ A20_EPOCHS, A20_RECALL10_FLOOR, A20_RECORDS_EPOCH6 = 6, 0.10, (0.1533, 0.1624)
 A20_EVAL_TILE = 2048  # the anchor20k evaluation's users per masked_topk call
 OOC_CHUNK = 2048  # rows a streamed chunk takes in the dask check: ten chunks
 # phase 13: the attention SAGE models on the anchor20k graph ((registry key,
-# config fields); tgrec first, trained longest), a request above one
-# launch's 128 keys, tgrec's epochs and its steps against the CPU
+# config fields); tgrec first, trained longest), a request above k = 128 (the
+# radix select), tgrec's epochs and its steps against the CPU
 ATT_KEYS = (("tgrec", {}), ("tgrec2", {}), ("gnn", {"conv": "gat"}), ("gnn", {"conv": "transformer"}))
 ATT_K = 200
 ATT_EPOCHS = 3
@@ -599,7 +609,7 @@ CADENCE_BLOCK = 8  # R = 8 and T = 8
 # and k, recommend's users and k, and the top-k kernel's names in a trace
 PROD_BATCH, PROD_K = 1000, 20
 PROD_USERS, PROD_REC_K = (3, 17, A20_USERS - 1), 10
-TOPK_KERNEL_NAMES = ("score_segments",)
+TOPK_KERNEL_NAMES = ("score_segments", "wide_radix_pass")
 # phase 17: the two-stage ranker (tools/rank20k_torch.py's protocol) with the
 # retrievers' and the rankers' epochs cut from the record's 30 and 40; the
 # dumps' k and batch (tools dump-candidates' default batch: 1024); a ranker
@@ -748,6 +758,8 @@ OWN_KERNELS = {
     "scatter_add_rows_kernel": "scatter", "scatter_tile_kernel": "scatter",
     "score_segments": "masked_topk",
     "merge_segments": "masked_topk",
+    "wide_radix_pass": "masked_topk",
+    "wide_sort_rows": "masked_topk",
 }
 
 
@@ -774,10 +786,11 @@ def compare(kv, ki, rv, ri, exact: bool, tie_atol: float = 0.0) -> float:
     return float(np.abs(kv - rv).max())
 
 
-def _topk_cases(dev, rng, n, m, d, tiles, ks, first_checked) -> tuple:
-    """masked_topk against its plain version on one (N, M, d); returns
-    (cases, max abs err). The first call runs under sync debug mode "error"
-    unless ``first_checked``."""
+def _topk_cases(dev, rng, n, m, d, tiles, ks, first_checked, topk=None) -> tuple:
+    """masked_topk (or ``topk``: st.masked_topk_wide) against its plain
+    version on one (N, M, d); returns (cases, max abs err). The first call
+    runs under sync debug mode "error" unless ``first_checked``."""
+    topk = st.masked_topk if topk is None else topk
     exact_u = (rng.integers(-4, 5, size=(n, d)) / 8).astype(np.float32)
     exact_i = (rng.integers(-2, 3, size=(m, d)) / 8).astype(np.float32)
     exact_i[1::2] = exact_i[0::2][: m // 2]  # every item has a twin: ties
@@ -806,19 +819,21 @@ def _topk_cases(dev, rng, n, m, d, tiles, ks, first_checked) -> tuple:
                 for masked in (False, True):
                     mask = (indptr, indices) if masked else (None, None)
                     for sig in (False, True):
-                        before = st.launches
+                        before = (st.launches, st.wide_launches)
                         if not first_checked:
                             torch.cuda.synchronize()
                             torch.cuda.set_sync_debug_mode("error")  # raises on a host sync
                             try:
-                                kv, ki = st.masked_topk(U, I, users, k, *mask, sigmoid=sig)
+                                kv, ki = topk(U, I, users, k, *mask, sigmoid=sig)
                             finally:
                                 torch.cuda.set_sync_debug_mode(0)
                             first_checked = True
                         else:
-                            kv, ki = st.masked_topk(U, I, users, k, *mask, sigmoid=sig)
-                        # one launch a round of at most MAX_K keys
-                        assert st.launches == before + -(-k // st.MAX_K), (k, st.launches - before)
+                            kv, ki = topk(U, I, users, k, *mask, sigmoid=sig)
+                        # one launch a call, the radix select's above MAX_K
+                        wide = int(topk is st.masked_topk_wide or k > st.MAX_K)
+                        assert (st.launches, st.wide_launches) == (before[0] + 1, before[1] + wide), (
+                            k, st.launches - before[0], st.wide_launches - before[1])
                         rv, ri = st.masked_topk_reference(U, I, users, k, *mask, sigmoid=sig)
                         torch.cuda.synchronize()
                         err = compare(kv, ki, rv, ri, exact=kind == "exact")
@@ -831,8 +846,9 @@ def _topk_cases(dev, rng, n, m, d, tiles, ks, first_checked) -> tuple:
 
 
 def kernel_cases(dev) -> tuple:
-    """Phase 3, masked_topk: the kernel against its plain version; returns
-    the max abs error and the (B, M, d, k) held."""
+    """Phase 3, masked_topk: both kernels against their plain version;
+    returns the max abs error, the (B, M, d, k) held and the radix select's
+    max abs error."""
     held = set()
 
     def cases(rng, n, m, d, tiles, ks, first_checked):
@@ -850,13 +866,19 @@ def kernel_cases(dev) -> tuple:
     # the anchor20k evaluation's tile (phase 12)
     c, e = cases(rng, A20_USERS, A20_ITEMS, TS_D, (A20_EVAL_TILE,), (10, 20), True)
     n, max_err = n + c, max(max_err, e)
-    # k > MAX_K: bounded rounds, the first call under the sync check again;
-    # and the whole catalog in three rounds
+    # k > MAX_K: the radix select, its first call under the sync check; the
+    # whole catalog; the radix select called directly at k <= MAX_K; its ties
     wide, wide_err = 0, 0.0
     for i, (m, d) in enumerate(TOPK_WIDE_SHAPES):
         c, e = cases(rng, 2100, m, d, TOPK_WIDE_TILES, TOPK_WIDE_KS, i > 0)
         wide, wide_err = wide + c, max(wide_err, e)
     c, e = cases(rng, 600, 300, TS_D, (1, 65, 512), (300,), True)
+    wide, wide_err = wide + c, max(wide_err, e)
+    held.update((b, A20_ITEMS, TS_D, k) for b in TOPK_WIDE_TILES for k in WIDE_DIRECT_KS)
+    c, e = _topk_cases(dev, rng, 2100, A20_ITEMS, TS_D, TOPK_WIDE_TILES, WIDE_DIRECT_KS, True,
+                       topk=st.masked_topk_wide)
+    wide, wide_err = wide + c, max(wide_err, e)
+    c, e = wide_tie_cases(dev)
     wide, wide_err = wide + c, max(wide_err, e)
     # the ranker's candidate dumps (phase 17): k = 50 over the anchor20k
     # catalog, tiles of 2048 and of tools dump-candidates' 1024 users
@@ -871,9 +893,51 @@ def kernel_cases(dev) -> tuple:
                      (1, 2) + TS_TILES[1:] + (A20_EVAL_TILE,), (10, TS_K), True)
         n, max_err = n + c, max(max_err, e)
     log(f"kernels: {n + wide} cases equal to the plain version (max abs err {max(max_err, wide_err):.3g}), "
-        f"{wide} of them at k > {st.MAX_K} in bounded rounds (max abs err {wide_err:.3g}); "
-        f"no host sync in the wrapper")
-    return max(max_err, wide_err), held
+        f"{wide} of them through the radix select (k > {st.MAX_K}, k in {WIDE_DIRECT_KS} called directly, "
+        f"the tie tables; max abs err {wide_err:.3g}); one launch a call; no host sync in the wrappers")
+    return max(max_err, wide_err), held, wide_err
+
+
+def wide_tie_cases(dev) -> tuple:
+    """Phase 3, the radix select on tie-heavy tables against the plain
+    version, ids and values equal: exact user rows x 8192 under the sigmoid
+    (every score a multiple of 128: exactly 1.0 above zero, 0.0 below, 0.5
+    at it); every third user row zero (every score +-0.0); an item table of
+    one repeated row; every fifth row masked down to 20 items (runs of -1024
+    tied by id at k > 20). k in {1, 50, 128} called directly, {129, 200, 300}
+    through masked_topk, and 10000 (the sort in device memory). Returns
+    (cases, max abs err)."""
+    rng = np.random.default_rng(SEED + 18)
+    n, m, d = 600, A20_ITEMS, TS_D
+    base_u = (rng.integers(-4, 5, size=(n, d)) / 8).astype(np.float32)
+    base_i = (rng.integers(-2, 3, size=(m, d)) / 8).astype(np.float32)
+    rows = [np.sort(rng.choice(m, size=m - 20 if r % 5 == 0 else int(rng.integers(0, 40)), replace=False))
+            for r in range(n)]
+    ip = torch.from_numpy(np.concatenate([[0], np.cumsum([len(r) for r in rows])]).astype(np.int32)).to(dev)
+    ix = torch.from_numpy(np.concatenate(rows).astype(np.int32)).to(dev)
+    zero_u = base_u.copy()
+    zero_u[::3] = 0.0
+    tables = {"sigmoid_saturated": (8192 * base_u, base_i, True), "zero_user": (zero_u, base_i, False),
+              "all_equal": (base_u, np.tile(base_i[7:8], (m, 1)), False)}
+    n_cases = 0
+    for kind, (u, i, sig) in tables.items():
+        U, I = torch.from_numpy(np.ascontiguousarray(u)).to(dev), torch.from_numpy(i).to(dev)
+        for b in (1, 65, 512):
+            users = torch.from_numpy(rng.permutation(n)[:b]).to(dev)
+            for k in WIDE_DIRECT_KS + TOPK_WIDE_KS[:2] + (300, 10_000):
+                for mask in ((None, None), (ip, ix)):
+                    topk = st.masked_topk_wide if k <= st.MAX_K else st.masked_topk
+                    before = st.wide_launches
+                    kv, ki = topk(U, I, users, k, *mask, sigmoid=sig)
+                    assert st.wide_launches == before + 1
+                    rv, ri = st.masked_topk_reference(U, I, users, k, *mask, sigmoid=sig)
+                    torch.cuda.synchronize()
+                    compare(kv, ki, rv, ri, exact=True)
+                    if mask[0] is not None and k > 20:  # row 0 of every fifth: 20 items, then -1024 by id
+                        masked_rows = (users % 5 == 0).nonzero().flatten()
+                        assert (kv[masked_rows, 20:] == st.MASK_SENTINEL).all()
+                    n_cases += 1
+    return n_cases, 0.0
 
 
 def mesh_topk_cases(dev) -> float:
@@ -1522,6 +1586,13 @@ def serve_textsage(ds, fs, dev, host_s) -> dict:
     }
 
 
+def topk_kernels(k, m) -> dict:
+    """Kernel name -> launches of one masked_topk call at this k over M items."""
+    if k > st.MAX_K:
+        return st.wide_kernels(m)
+    return dict.fromkeys(("score_segments", "merge_segments"), 1)
+
+
 def topk_numbers(U, I, users, k, mask, pos_csr, dev, request=None) -> dict:
     """masked_topk's times at one tile, beside its plain version's, the
     library call's (matmul + index_put_ + topk) and its bound."""
@@ -1546,10 +1617,10 @@ def topk_numbers(U, I, users, k, mask, pos_csr, dev, request=None) -> dict:
         "library_ms": event_ms(library),
         "bound_ms": 1e3 * max(t_bytes, t_flops),
         "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-        # pass 1 and the merge, once a round: every record of the calls
+        # every record of the calls: pass 1 and the merge, or the radix passes
+        # and the sort
         "kernel_profile": device_profile(lambda: st.masked_topk(U, I, users, k, *mask),
-                                         per_call=dict.fromkeys(("score_segments", "merge_segments"),
-                                                                -(-k // st.MAX_K))),
+                                         per_call=topk_kernels(k, m)),
     }
     if request is not None:
         out["request_ms"] = host_ms(request)
@@ -2238,8 +2309,8 @@ def propagation_vs_cpu(got, cfg, ds, fs, params) -> tuple:
 def serve_20k(ds, fs, dev, name, label, wide_k=None, **over) -> tuple:
     """The Recommender of a seeded model on the anchor20k graph (ds.graph:
     for rsage its relational graph); requests of 1 / 8 / 64 / 512 users at
-    k = 20 and, with ``wide_k``, of 512 at wide_k (ceil(k / 128) rounds of the
-    kernel); two more over HTTP, the second at wide_k when given; each answer
+    k = 20 and, with ``wide_k``, of 512 at wide_k (the radix select, one
+    launch); two more over HTTP, the second at wide_k when given; each answer
     against the plain version; the refresh against a CPU propagation.
     Returns (facts, recommender)."""
     cfg, model = model_20k(ds, fs, name, SEED, **over)
@@ -2255,23 +2326,25 @@ def serve_20k(ds, fs, dev, name, label, wide_k=None, **over) -> tuple:
     requests = [(users[b], TS_K) for b in TS_TILES] + ([(users[512], wide_k)] if wide_k else []) + list(http)
     answers = []
     for u, k in requests:
-        before = st.launches
+        before = (st.launches, st.wide_launches)
         answers.append(rec.recommend(u, k=k))
-        assert st.launches == before + -(-k // st.MAX_K), f"B={len(u)} k={k}: {st.launches - before} launches"
+        assert (st.launches, st.wide_launches) == (before[0] + 1, before[1] + (k > st.MAX_K)), (
+            f"B={len(u)} k={k}: {st.launches - before[0]} launches, {st.wide_launches - before[1]} wide")
     srv = make_server(rec, host="127.0.0.1", port=0)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     try:
         base = f"http://127.0.0.1:{srv.server_address[1]}"
-        before = st.launches
+        before = (st.launches, st.wide_launches)
         one = json.load(urllib.request.urlopen(f"{base}/recommend?user=17&k={http[0][1]}", timeout=60))
         req = urllib.request.Request(
             f"{base}/recommend", data=json.dumps({"users": http[1][0].tolist(), "k": http[1][1]}).encode(),
             method="POST",
         )
         batch = json.load(urllib.request.urlopen(req, timeout=60))
-        rounds = sum(-(-k // st.MAX_K) for _, k in http)
-        assert st.launches == before + rounds, "the HTTP requests did not launch the kernel once a round"
+        wide = sum(k > st.MAX_K for _, k in http)
+        assert (st.launches, st.wide_launches) == (before[0] + 2, before[1] + wide), (
+            "the HTTP requests did not launch the kernel once each")
     finally:
         srv.shutdown()
         srv.server_close()
@@ -2296,7 +2369,7 @@ def serve_20k(ds, fs, dev, name, label, wide_k=None, **over) -> tuple:
     wide = ""
     if wide_k:
         n_wide = sum(k == wide_k for _, k in requests + [http[1]])  # the POST's too
-        wide = f" ({n_wide} at k = {wide_k}: {-(-wide_k // st.MAX_K)} launches each)"
+        wide = f" ({n_wide} at k = {wide_k}: one radix-select launch each)"
     log(f"{label}: {n_requests} requests{wide}, answers equal to the plain version (max abs err {max_err:.3g}); "
         f"refresh equal to the CPU's propagation within {rule} (max abs err {prop_err:.3g} of {scale:.3g}); "
         f"first refresh {first_refresh_s:.2f} s")
@@ -2358,13 +2431,16 @@ def attention_20k(ds, fs, dev, textsage_r1) -> dict:
     and trained (the path, with the launch counts set to 0 before it and
     read after), then their checks against the plain top-k and the CPU, and
     their numbers."""
-    st.launches = sc.launches = 0
+    st.launches = st.wide_launches = sc.launches = 0
     serve, rec = serve_20k(ds, fs, dev, "tgrec", "serve-tgrec-20k", wide_k=ATT_K)
     serve_topk = st.launches
     assert sc.launches == 0, "the serve path launched the scatter kernel"
+    assert st.wide_launches == 3, f"{st.wide_launches} radix-select launches for the 3 requests at k = {ATT_K}"
     train = train_keys_20k(ATT_KEYS, lambda name: (ds, fs), dev, "train-attention-20k", ATT_EPOCHS)
     train.pop("scatter_expected")
-    launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
+    launches = {"masked_topk": st.launches, "masked_topk_wide": st.wide_launches,
+                "scatter_add_rows": sc.launches}
+    assert launches["masked_topk_wide"] == 3, launches
     n_tiles = train["eval_tiles"]
     assert launches["scatter_add_rows"] == 2 * train["steps"], f"scatter {launches} in {train['steps']} steps"
     assert launches["masked_topk"] == serve_topk + train["evaluations"] * n_tiles, launches
@@ -2823,7 +2899,7 @@ def production_20k(ds, fs, dev, ckpt, root, smi) -> dict:
     eval_csv = os.path.join(root, "evaluate.csv")
     part = {"name": "evaluate"}
     with record_propagations(part, sage.SAGE) as kept:
-        st.launches = sc.launches = 0
+        st.launches = st.wide_launches = sc.launches = 0
         ev, _ = _tools(["evaluate", *common, "--save_result", eval_csv])
         launches = {"evaluate": st.launches}
         trace_dir = os.path.join(root, "trace")
@@ -2843,6 +2919,7 @@ def production_20k(ds, fs, dev, ckpt, root, smi) -> dict:
                              "--k", str(PROD_REC_K)])
         launches["recommend"] = st.launches
     launches["scatter_add_rows"] = sc.launches
+    launches["masked_topk_wide"] = st.wide_launches  # the whole path's: the k = 200 batch's
     assert sc.launches == 0, f"the production tier launched the scatter kernel {sc.launches} times"
     mem = MetricLogger(jsonl_path=os.path.join(root, "memory.jsonl"), quiet=True)
     memory = log_device_memory(mem, prefix="mem/production")
@@ -2884,7 +2961,8 @@ def production_20k(ds, fs, dev, ckpt, root, smi) -> dict:
     mask = (rec_inf._mask.indptr, rec_inf._mask.indices)
     rec_tr = Recommender(rec_inf.model, back, rec_inf.config, None, use_inference_edges=False, device=dev)
     pos = ds.all_pos()
-    assert launches["infer_k20"] == 2 and launches["infer_k200"] == -(-ATT_K // st.MAX_K), launches
+    assert launches["infer_k20"] == 2 and launches["infer_k200"] == 1, launches
+    assert launches["masked_topk_wide"] == 1, launches
     skip = f"[infer] batch 25 out of range (n_users={ds.n_users}); skipped"
     assert skip in infer["k20"]["stdout"], infer["k20"]["stdout"]
     differs = 0
@@ -2916,7 +2994,7 @@ def production_20k(ds, fs, dev, ckpt, root, smi) -> dict:
     with open(os.path.join(root, "memory.jsonl")) as f:
         assert set(json.loads(f.readline())) == {"ts", *(f"mem/production/{k}" for k in memory)}
     log(f"production-20k infer: masked_topk launches {launches['infer_k20']} + {launches['infer_k200']} "
-        f"(k = {PROD_K}: batches 0 and 9, 25 skipped; k = {ATT_K}: batch 19 in two bounded rounds); every CSV "
+        f"(k = {PROD_K}: batches 0 and 9, 25 skipped; k = {ATT_K}: batch 19 in one radix-select launch); every CSV "
         f"equal to the plain top-k over the inference edges' propagation, no train positive predicted; "
         f"{differs} of batch 0's {PROD_BATCH} users' top {PROD_K} differ over the train edges alone; the trace "
         f"names the kernel ({len(text)} bytes); memory {memory['mib_in_use']:.0f} MiB in use, "
@@ -2937,9 +3015,9 @@ def production_20k(ds, fs, dev, ckpt, root, smi) -> dict:
     # numbers: the masked top-k at the infer calls' batch of 1000 users
     bu = torch.arange(0, PROD_BATCH, device=dev)
     numbers = {f"k{k}": topk_numbers(U_inf, I_inf, bu, k, mask, CSR(*mask), dev) for k in (PROD_K, ATT_K)}
-    # a call's device operations: pass 1 and the merge; at k = 200 twice, with
-    # the bound's two slices between the rounds and the two concatenations
-    for k, want in ((PROD_K, 2), (ATT_K, 8)):
+    # a call's device operations: pass 1 and the merge; at k = 200 the radix
+    # passes, the sort and the fill that zeroes the select's state
+    for k, want in ((PROD_K, 2), (ATT_K, sum(st.wide_kernels(I_inf.shape[0]).values()) + 1)):
         got = numbers[f"k{k}"]["kernel_profile"]["device_ops_per_call"]
         assert got == want, f"the k = {k} profile recorded {got} device operations a call, want {want}"
     for tag, t in numbers.items():
@@ -3075,8 +3153,9 @@ def rank_tiles_vs_one(ranker, full, dumps) -> dict:
 
 def rank_dump_numbers(U, I, dev) -> dict:
     """masked_topk at the dump's shape (B 2048, M 10000, d 32, k 50, unmasked,
-    sigmoid off) beside its plain version, matmul + torch.topk, torch.topk
-    alone over the same scores, and the bound (2 B M d operations)."""
+    sigmoid off) beside the radix select's call, its plain version, matmul +
+    torch.topk, torch.topk alone over the same scores, and the bound (2 B M d
+    operations)."""
     users = torch.arange(RANK_DUMP_B, device=dev)
     b, m, d, k = RANK_DUMP_B, I.shape[0], I.shape[1], RANK_K
     scores = U[users] @ I.T
@@ -3092,9 +3171,15 @@ def rank_dump_numbers(U, I, dev) -> dict:
         "bound_by": "bytes" if t_bytes >= t_flops else "operations",
         "kernel_profile": device_profile(lambda: st.masked_topk(U, I, users, k),
                                          per_call=dict.fromkeys(("score_segments", "merge_segments"), 1)),
+        # the same call through the radix select (masked_topk takes it above
+        # k = 128 only): recorded beside csrc/streaming_topk.cu's
+        "wide_ms": event_ms(lambda: st.masked_topk_wide(U, I, users, k)),
+        "wide_kernel_profile": device_profile(lambda: st.masked_topk_wide(U, I, users, k),
+                                              per_call=st.wide_kernels(m)),
     }
     log(f"masked_topk B={b} k={k} (the dump's shape): {out['ms']:.4f} ms (device "
-        f"{out['kernel_profile']['device_ms']:.4f}); plain {out['plain_ms']:.4f}, matmul + torch.topk "
+        f"{out['kernel_profile']['device_ms']:.4f}); the radix select {out['wide_ms']:.4f} (device "
+        f"{out['wide_kernel_profile']['device_ms']:.4f}); plain {out['plain_ms']:.4f}, matmul + torch.topk "
         f"{out['library_ms']:.4f}, torch.topk alone {out['topk_only_ms']:.4f}, bound {out['bound_ms']:.5f} by "
         f"{out['bound_by']}")
     return out
@@ -3929,7 +4014,7 @@ def main() -> int:
     log(f"masked_topk pass 1, blocks per SM (occupancy API): {occupancy}")
 
     # 3. kernels against their plain versions
-    max_err, topk_held = kernel_cases(dev)
+    max_err, topk_held, wide_max_err = kernel_cases(dev)
     max_err = max(max_err, mesh_topk_cases(dev))
     sc_max_err, sc_held = scatter_cases(dev)
 
@@ -4162,18 +4247,25 @@ def main() -> int:
 
     ts_serve_launches = ts_serve["launches"]["masked_topk"]
     ts_train_launches = ts_train["launches"]
+    # masked_topk calls on the main paths; those above k = 128 took the radix
+    # select (attention-20k's three requests at k = 200, production-20k's
+    # k = 200 batch), every other one csrc/streaming_topk.cu
+    wide_by_path = {"attention_20k": att["launches"]["masked_topk_wide"],
+                    "production_20k": prod["launches"]["masked_topk_wide"]}
+    calls = (serve_launches + train["launches"]["masked_topk"] + ts_serve_launches
+             + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]
+             + att["launches"]["masked_topk"] + edge["launches"]["masked_topk"]
+             + seq["launches"]["masked_topk"] + prod_launches + rank_launches["masked_topk"]
+             + pre["launches"]["masked_topk"] + mesh["launches"]["masked_topk"]
+             + reg["launches"]["masked_topk"])
+    att_k200_wide = att_k200["kernel_profile"] or {}
     kernels = [{
         "name": "masked_topk",
         "route": "cuda",
         "source": "furusato_recommend_tpu_torch/csrc/streaming_topk.cu",
         "replaces": "furusato_recommend_tpu/ops/pallas_topk.py:152",
-        "launches": (serve_launches + train["launches"]["masked_topk"] + ts_serve_launches
-                     + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]
-                     + att["launches"]["masked_topk"] + edge["launches"]["masked_topk"]
-                     + seq["launches"]["masked_topk"] + prod_launches + rank_launches["masked_topk"]
-                     + pre["launches"]["masked_topk"] + mesh["launches"]["masked_topk"]
-                     + reg["launches"]["masked_topk"]),
-        "launches_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"],
+        "launches": calls - sum(wide_by_path.values()),
+        "calls_by_path": {"serve": serve_launches, "train": train["launches"]["masked_topk"],
                              "serve_textsage": ts_serve_launches,
                              "train_textsage": ts_train_launches["masked_topk"],
                              "train_textsage_20k": a20["launches"]["masked_topk"],
@@ -4185,16 +4277,13 @@ def main() -> int:
                              "preprocess_20k": pre["launches"]["masked_topk"],
                              "mesh_20k": mesh["launches"]["masked_topk"],
                              "registry_20k": reg["launches"]["masked_topk"]},
-        "launches_per_call": f"ceil(k / {st.MAX_K}): one a round",
+        "launches_per_call": f"1 (k <= {st.MAX_K}; above it the radix select, masked_topk_wide)",
         "mesh_shapes": {"evaluation": [dict(zip(("B_rank", "M_block", "d", "k"), x)) for x in MESH_TOPK_SHAPES],
                         "launched": {kind: mesh["launch_shapes"][kind]["masked_topk"] for kind in MESH_CASES},
                         "sharded_masked_topk": mesh["ops"]["shapes"]},
         "rank_dump": {key: rank["dump_topk"][key] for key in (
             "B", "k", "M", "d", "ms", "plain_ms", "library_ms", "topk_only_ms", "bound_ms", "bound_by",
             "kernel_profile")},
-        "k200": {"at": {"B": 512, "k": ATT_K, "M": a20_ds.m_items, "d": TS_D}, "launches_per_call": 2,
-                 **{key: att_k200[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                                   "kernel_profile", "request_ms")}},
         "textsage": {"at": {"B": 512, "k": TS_K, "M": ts_ds.m_items, "d": TS_D},
                      **{key: ts_head[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                       "bound_by")},
@@ -4210,6 +4299,31 @@ def main() -> int:
         "eval_tile": {key: eval_tile[key] for key in (
             "B", "k", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_profile")},
         "tiles": tiles,
+    }, {
+        "name": "masked_topk_wide",
+        "route": "cuda",
+        "source": "furusato_recommend_tpu_torch/csrc/streaming_topk_wide.cu",
+        "replaces": "furusato_recommend_tpu/ops/pallas_topk.py:152",
+        "launches": sum(wide_by_path.values()),
+        "launches_by_path": wide_by_path,
+        "launches_per_call": 1,
+        "kernels_per_call": st.wide_kernels(a20_ds.m_items),
+        "max_abs_err": wide_max_err,
+        # serve-tgrec-20k's requests at k = 200: B = 512 over the anchor20k catalog
+        "at": {"B": 512, "k": ATT_K, "M": a20_ds.m_items, "d": TS_D},
+        **{key: att_k200[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "device_ms": att_k200_wide.get("device_ms"),
+        "k200": {"at": {"B": 512, "k": ATT_K, "M": a20_ds.m_items, "d": TS_D}, "launches_per_call": 1,
+                 **{key: att_k200[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                                   "kernel_profile", "request_ms")}},
+        "k200_b1000": {key: prod["topk"][f"k{ATT_K}"][key] for key in (
+            "B", "k", "M", "d", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_profile")},
+        # the ranker dump's shape (k = 50 < 128: masked_topk takes csrc/streaming_topk.cu there; recorded only)
+        "dump_shape": {"B": rank["dump_topk"]["B"], "k": rank["dump_topk"]["k"], "M": rank["dump_topk"]["M"],
+                       "d": rank["dump_topk"]["d"], "ms": rank["dump_topk"]["wide_ms"],
+                       "kernel_profile": rank["dump_topk"]["wide_kernel_profile"],
+                       "streaming_topk_ms": rank["dump_topk"]["ms"],
+                       "streaming_topk_device_ms": rank["dump_topk"]["kernel_profile"]["device_ms"]},
     }, {
         "name": "scatter_add_rows",
         "route": "cuda",

@@ -14,9 +14,8 @@
 // ties (the lax.top_k contract). Masked items are not removed: they still rank
 // when fewer than k items score above -1024. The [B, M] score matrix is never
 // written to device memory. A launch takes k <= 128 (the selection lists below
-// live in registers and shared memory); a larger k is taken in rounds, each
-// launch given a per-row bound key and selecting only the keys after it
-// (ops/streaming_topk.py::_topk_in_rounds).
+// live in registers and shared memory); ops/streaming_topk.py sends a larger k
+// to the radix select of streaming_topk_wide.cu, one call for any k.
 //
 // What bounds it on this card. One call must read the item table once,
 // M * d * 4 bytes (5.1 MB at M = 20000, d = 64; it stays in the 50 MB L2 between
@@ -49,8 +48,7 @@
 //           and segment. Selection, after WarpSelect (Johnson, Douze and
 //           Jegou, 2017): each warp owns 4 users and handles them together. A
 //           score is a candidate only if it beats the user's running k-th
-//           (value, id) key (one compare, a warp vote when any lane has one)
-//           and, in a bounded round, comes after the row's bound key;
+//           (value, id) key (one compare, a warp vote when any lane has one);
 //           a full candidate buffer is sorted and merged into the user's
 //           sorted running list in registers (a bitonic sort of the
 //           candidates, then a bitonic merge of the list with them reversed).
@@ -72,28 +70,9 @@
 #include <climits>
 #include <cstdint>
 
-namespace {
+#include "topk_tile.cuh"
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBU = 32;          // users per block
-constexpr int kTI = 128;         // items per tile
-constexpr int kDK = 64;          // columns per chunk of the K-loop
-constexpr int kLd = kDK + 4;     // shared row stride of a staged chunk (floats)
-constexpr int kSLd = kTI + 8;    // shared row stride of the score tile
-// A thread accumulates kPU users x kPI items; a warp covers 16 users x 32
-// items (lanes: 4 along users, 8 along items), the 8 warps 2 x 4 of those.
-// A warp's float4 loads then touch 8 item rows and 4 user rows, each one
-// shared-memory wavefront. That is still 2 bytes loaded per FMA, so shared
-// memory and not the FMAs sets the product's pace; a larger patch needs more
-// registers and shared memory than two blocks per SM leave.
-constexpr int kPU = 4;
-constexpr int kPI = 4;
-constexpr int kWin = 32;         // train-row ids staged per user
-constexpr int kSlots = kBU / kWarps;  // users per warp in the selection
-constexpr int kStages = 2;       // ring stages: copies run kStages - 1 steps ahead
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kMaskSentinel = -1024.0f;
+namespace {
 
 // Timing switches for tools/topk_ablation.py, 0 in the port's builds: bit 0
 // drops pass 1's selection (the mask, the candidate scan and the merges), bit
@@ -102,58 +81,9 @@ constexpr float kMaskSentinel = -1024.0f;
 #define TOPK_ABLATE 0
 #endif
 
-static_assert(kBU * kSLd <= kTI * kLd, "the score tile must fit in a ring stage");
-// the thread layout above; the selection reads a tile row as 32 lanes x 4
-static_assert(kBU == 32 && kTI == 128 && kThreads == 256, "the thread layout");
-
 // Total order of (value, id) keys: larger value first, smaller id on ties.
 __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Copy columns [c0, c0 + 4 * g4) of n_rows rows of a row-major [*, d] float
-// matrix into dst[r * kLd + c - c0]. Row r is src row row_of(r), or zeros when
-// row_of(r) < 0; columns at or past d are zeros.
-template <class RowOf>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int n_rows, int d,
-                                           int c0, int g4, bool vec4, RowOf row_of) {
-  const int n = n_rows * g4;
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int r = e / g4;
-    const int g = e - r * g4;
-    const int row = row_of(r);
-    const int c = c0 + 4 * g;
-    float* out = dst + r * kLd + 4 * g;
-    if (vec4) {  // d % 4 == 0, so a group is all in or all out
-      const float* in = row >= 0 ? src + static_cast<size_t>(row) * d + c : src;
-      cp_async16(out, in, row >= 0 ? 16 : 0);
-    } else {
-      for (int t = 0; t < 4; ++t) {
-        const bool ok = row >= 0 && c + t < d;
-        const float* in = ok ? src + static_cast<size_t>(row) * d + c + t : src;
-        cp_async4(out + t, in, ok ? 4 : 0);
-      }
-    }
-  }
 }
 
 // Warp-wide sorting networks over (value, id) keys held in registers: entry
@@ -247,27 +177,20 @@ __device__ __forceinline__ void warp_entry(const float (&v)[KL], const int (&id)
 __host__ __device__ constexpr int cand_cap(int kl) { return 32 * kl < 64 ? 32 * kl : 64; }
 
 // Shared memory of pass 1, in 4-byte words.
-__host__ __device__ constexpr int stage_words(bool resident) {
-  return (kTI + (resident ? 0 : kBU)) * kLd;
-}
-
-__host__ __device__ constexpr size_t score_smem_words(bool resident, int kl, bool bounded) {
+__host__ __device__ constexpr size_t score_smem_words(bool resident, int kl) {
   return kStages * stage_words(resident) + (resident ? kBU * kLd : 0) +
-         2 * kBU * (32 * kl + cand_cap(kl)) + kBU * kWin + 7 * kBU + (bounded ? 2 * kBU : 0);
+         2 * kBU * (32 * kl + cand_cap(kl)) + kBU * kWin + 7 * kBU;
 }
 
 // Pass 1. A user's running list holds its best 32 * KL keys so far, sorted, in
 // shared memory; its first k are exact. Candidates wait in a buffer of
 // cand_cap(KL) entries; a merge sorts them in registers and merges them in.
-// BOUNDED: a round of a larger k, given each row's bound key (after_v,
-// after_i); the unbounded instantiation reads neither and keeps no room for it.
-template <int KL, bool BOUNDED>
+template <int KL>
 __global__ void __launch_bounds__(kThreads, 2) score_segments(
     const float* __restrict__ user_emb, const float* __restrict__ item_emb,
     const void* __restrict__ users, int users_i64, int n_rows, int n_users, int m, int d,
     int k, const int* __restrict__ indptr, const int* __restrict__ indices, int sigmoid,
-    int seg_len, int vec4, const float* __restrict__ after_v, const int* __restrict__ after_i,
-    float* __restrict__ cand_v, int* __restrict__ cand_i) {
+    int seg_len, int vec4, float* __restrict__ cand_v, int* __restrict__ cand_i) {
   constexpr int kN = 32 * KL;
   constexpr int kCB = cand_cap(KL);
   extern __shared__ float4 smem4[];
@@ -287,11 +210,6 @@ __global__ void __launch_bounds__(kThreads, 2) score_segments(
   int* s_rend = s_cur + kBU;
   int* s_wbase = s_rend + kBU;  // train-row index of s_win[u][0]
   int* s_win = s_wbase + kBU;   // [kBU][kWin] train-row ids from s_wbase[u] on
-  // BOUNDED only: the row's bound key. Only keys strictly after it (in the
-  // order of `better`) are candidates: a flag, since every float value can be
-  // a real score
-  float* s_aft_v = reinterpret_cast<float*>(s_win + kBU * kWin);
-  int* s_aft_i = reinterpret_cast<int*>(s_aft_v + kBU);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -331,10 +249,6 @@ __global__ void __launch_bounds__(kThreads, 2) score_segments(
     s_cur[r] = lo;
     s_rend[r] = hi;
     s_wbase[r] = lo;
-    if constexpr (BOUNDED) {
-      s_aft_v[r] = r < rows ? after_v[b0 + r] : 0.0f;
-      s_aft_i[r] = r < rows ? after_i[b0 + r] : 0;
-    }
   }
   __syncthreads();
   if (indptr != nullptr) {
@@ -506,28 +420,17 @@ __global__ void __launch_bounds__(kThreads, 2) score_segments(
         }
         __syncwarp();
       }
-      float thr_v[kSlots], aft_v[kSlots];
-      int thr_i[kSlots], aft_i[kSlots], nc[kSlots];
+      float thr_v[kSlots];
+      int thr_i[kSlots], nc[kSlots];
 #pragma unroll
       for (int x = 0; x < kSlots; ++x) {
         const int u = min(warp + kWarps * x, kBU - 1);
         thr_v[x] = s_thr_v[u];
         thr_i[x] = s_thr_i[u];
         nc[x] = s_ncand[u];
-        if constexpr (BOUNDED) {
-          aft_v[x] = s_aft_v[u];
-          aft_i[x] = s_aft_i[u];
-        }
       }
-      // (value, id) of item j beats the running k-th key and, in a bounded
-      // round, comes after the bound key
-      const auto takes = [&](int x, float v, int j) {
-        if constexpr (BOUNDED) {
-          return better(v, j, thr_v[x], thr_i[x]) && better(aft_v[x], aft_i[x], v, j);
-        } else {
-          return better(v, j, thr_v[x], thr_i[x]);
-        }
-      };
+      // (value, id) of item j beats the running k-th key
+      const auto takes = [&](int x, float v, int j) { return better(v, j, thr_v[x], thr_i[x]); };
       if (!(TOPK_ABLATE & 1)) {  // each lane tests 4 scores of each user against its k-th key
         float sv[kSlots][4];
         bool any[kSlots];
@@ -680,21 +583,21 @@ __global__ void __launch_bounds__(32 * kMergeWarps) merge_segments(
 // Pass 1's dynamic shared memory at this d, opted in on the current device:
 // above 48 KB a kernel needs the opt-in, set once per device for the largest
 // size asked. Returns a CUDA error code.
-template <int KL, bool BOUNDED>
+template <int KL>
 int prepare_pass1(int d, size_t* smem) {
-  const size_t smem1 = 4 * score_smem_words(d <= kDK, KL, BOUNDED);
+  const size_t smem1 = 4 * score_smem_words(d <= kDK, KL);
   *smem = smem1;
   static size_t opted[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 64 || smem1 > opted[dev]) {
-    err = cudaFuncSetAttribute(score_segments<KL, BOUNDED>,
+    err = cudaFuncSetAttribute(score_segments<KL>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem1));
     if (err != cudaSuccess) return static_cast<int>(err);
     // all of L1 as shared memory, so that two blocks fit on an SM where they can
-    err = cudaFuncSetAttribute(score_segments<KL, BOUNDED>,
+    err = cudaFuncSetAttribute(score_segments<KL>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                static_cast<int>(cudaSharedmemCarveoutMaxShared));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -706,28 +609,25 @@ int prepare_pass1(int d, size_t* smem) {
 template <int KL>
 int blocks_per_sm(int d, int* out) {
   size_t smem1 = 0;
-  const int err = prepare_pass1<KL, false>(d, &smem1);
+  const int err = prepare_pass1<KL>(d, &smem1);
   if (err != 0) return err;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, score_segments<KL, false>, kThreads, smem1));
+      out, score_segments<KL>, kThreads, smem1));
 }
 
 template <int KL>
 int launch_passes(const float* user_emb, const float* item_emb, const void* users,
                   int users_i64, int n_rows, int n_users, int m, int d, int k,
                   const int* indptr, const int* indices, int sigmoid, int n_seg, int seg_len,
-                  int vec4, const float* after_v, const int* after_i, float* cand_v, int* cand_i,
-                  float* out_v, long long* out_i, cudaStream_t st) {
-  const bool bounded = after_v != nullptr;
+                  int vec4, float* cand_v, int* cand_i, float* out_v, long long* out_i,
+                  cudaStream_t st) {
   size_t smem1 = 0;
-  cudaError_t err = static_cast<cudaError_t>(bounded ? prepare_pass1<KL, true>(d, &smem1)
-                                                     : prepare_pass1<KL, false>(d, &smem1));
+  cudaError_t err = static_cast<cudaError_t>(prepare_pass1<KL>(d, &smem1));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid1(n_seg, (n_rows + kBU - 1) / kBU);
-  auto* pass1 = bounded ? score_segments<KL, true> : score_segments<KL, false>;
-  pass1<<<grid1, kThreads, smem1, st>>>(user_emb, item_emb, users, users_i64, n_rows, n_users, m,
-                                        d, k, indptr, indices, sigmoid, seg_len, vec4, after_v,
-                                        after_i, cand_v, cand_i);
+  score_segments<KL><<<grid1, kThreads, smem1, st>>>(user_emb, item_emb, users, users_i64, n_rows,
+                                                     n_users, m, d, k, indptr, indices, sigmoid,
+                                                     seg_len, vec4, cand_v, cand_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   merge_segments<KL><<<n_rows, 32 * kMergeWarps, 0, st>>>(cand_v, cand_i, n_seg, k, out_v,
@@ -739,21 +639,16 @@ int launch_passes(const float* user_emb, const float* item_emb, const void* user
 
 // Plain C entry point, bound with ctypes. Pointers are device pointers; users
 // are int64 when users_i64, else int32; indptr and indices are null when there
-// is no mask. after_v / after_i (float32 and int32 [n_rows], or both null) are
-// each row's bound key: only items whose (value, id) key comes strictly after
-// it are selected, so that a caller can take the top k in rounds of at most
-// 128 (each round bounded by the previous round's last key); the caller
-// guarantees at least k such items a row. cand holds 2 * n_rows * n_seg * k
-// 4-byte words (values, then ids). Launches both passes on `stream` and does
-// not synchronise; returns the first CUDA error (0 = cudaSuccess).
+// is no mask. cand holds 2 * n_rows * n_seg * k 4-byte words (values, then
+// ids). Launches both passes on `stream` and does not synchronise; returns the
+// first CUDA error (0 = cudaSuccess).
 extern "C" int masked_topk_launch(const float* user_emb, const float* item_emb,
                                   const void* users, int users_i64, int n_rows, int n_users,
                                   int m, int d, int k, const int* indptr, const int* indices,
-                                  int sigmoid, int n_seg, int seg_len, const float* after_v,
-                                  const int* after_i, void* cand, float* out_v, long long* out_i,
-                                  void* stream) {
+                                  int sigmoid, int n_seg, int seg_len, void* cand, float* out_v,
+                                  long long* out_i, void* stream) {
   if (n_rows <= 0 || n_users <= 0 || m <= 0 || d <= 0 || k < 1 || k > 128 || n_seg <= 0 ||
-      seg_len <= 0 || (after_v == nullptr) != (after_i == nullptr)) {
+      seg_len <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -763,15 +658,15 @@ extern "C" int masked_topk_launch(const float* user_emb, const float* item_emb,
   int* cand_i = reinterpret_cast<int*>(cand_v + static_cast<size_t>(n_rows) * n_seg * k);
   if (k <= 32)
     return launch_passes<1>(user_emb, item_emb, users, users_i64, n_rows, n_users, m, d, k,
-                            indptr, indices, sigmoid, n_seg, seg_len, vec4, after_v, after_i,
-                            cand_v, cand_i, out_v, out_i, st);
+                            indptr, indices, sigmoid, n_seg, seg_len, vec4, cand_v, cand_i,
+                            out_v, out_i, st);
   if (k <= 64)
     return launch_passes<2>(user_emb, item_emb, users, users_i64, n_rows, n_users, m, d, k,
-                            indptr, indices, sigmoid, n_seg, seg_len, vec4, after_v, after_i,
-                            cand_v, cand_i, out_v, out_i, st);
+                            indptr, indices, sigmoid, n_seg, seg_len, vec4, cand_v, cand_i,
+                            out_v, out_i, st);
   return launch_passes<4>(user_emb, item_emb, users, users_i64, n_rows, n_users, m, d, k,
-                          indptr, indices, sigmoid, n_seg, seg_len, vec4, after_v, after_i,
-                          cand_v, cand_i, out_v, out_i, st);
+                          indptr, indices, sigmoid, n_seg, seg_len, vec4, cand_v, cand_i,
+                          out_v, out_i, st);
 }
 
 // How many pass-1 blocks of the instantiation for k, at this d, one SM of the

@@ -5,8 +5,9 @@ batch of users a masked top-k that masks only the **train** positives, and
 one CSV a batch (``eval.results.save_user_result``).
 
 Each batch is one ``masked_topk`` call: the fused score + sigmoid + -1024
-mask + top-k kernel on the card (ceil(k / 128) launches), its plain version
-on the CPU; ties go to the lower item id, as ``lax.top_k`` orders them. The
+mask + top-k kernel on the card (one launch; above k = 128 the radix
+select), its plain version on the CPU; ties go to the lower item id, as
+``lax.top_k`` orders them. The
 JAX package pads the last batch with user 0 to a whole batch and slices the
 rows off; here it runs at its own size, which changes no row.
 """

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library ``_build/lib<name>-<hash>.so``, with a plain C interface that the
-kernel's module binds through ``ctypes``. The hash covers the source and the
-flags, so an edited source is rebuilt. Nothing is built when this module is
+kernel's module binds through ``ctypes``. The hash covers the source, the
+headers of ``csrc/`` it may include and the flags, so an edited source or
+header is rebuilt. Nothing is built when this module is
 imported: the first call that needs a library builds it, and ``build`` starts
 one ``nvcc`` per source, all at once.
 
@@ -31,7 +32,7 @@ __all__ = ["SOURCES", "build", "device_index", "launch", "library", "stream"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("streaming_topk", "scatter_add_rows")
+SOURCES = ("streaming_topk", "streaming_topk_wide", "scatter_add_rows")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -55,6 +56,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

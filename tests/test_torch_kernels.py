@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card; and
-the top-k kernel's launch plan, which runs anywhere.
+the top-k kernels' launch plans, which run anywhere.
 
 This file imports neither JAX nor the JAX package, so on a machine with a card
 and no JAX it runs on its own:
@@ -25,9 +25,12 @@ from furusato_recommend_tpu_torch.ops import streaming_topk as st
 from furusato_recommend_tpu_torch.ops.streaming_topk import (
     ITEM_TILE,
     USER_TILE,
+    WIDE_MAX_SEGMENT,
     masked_topk,
     masked_topk_reference,
+    masked_topk_wide,
     plan_tiles,
+    plan_wide,
 )
 
 torch.set_num_threads(1)
@@ -49,6 +52,25 @@ def test_plan_tiles_cover_users_and_catalog(b, m, per_sm):
     assert (covered == 1).all()  # every item in exactly one segment
     # two blocks per SM wherever there are that many (user tile, item tile) pairs
     assert n_ut * n_seg >= min(2 * sms, n_ut * -(-m // ITEM_TILE))
+
+
+@pytest.mark.parametrize("b", [1, 8, 33, 64, 65, 512, 1000, 1024, 2048, 100_000])
+@pytest.mark.parametrize("m", [1, 127, 300, 10000, 20001, 30000])
+@pytest.mark.parametrize("per_sm", [1, 2])
+def test_plan_wide_covers_users_and_catalog(b, m, per_sm):
+    """The radix select's plan: every row in one user tile, every item in
+    exactly one segment of whole item tiles, at most 65535 items a segment
+    (its 16-bit counts), and one wave wherever the user tiles leave room."""
+    sms = 132
+    n_ut, n_seg, seg_len = plan_wide(b, m, sms, per_sm)
+    assert (n_ut - 1) * USER_TILE < b <= n_ut * USER_TILE
+    assert seg_len % ITEM_TILE == 0 and seg_len <= WIDE_MAX_SEGMENT < 2**16
+    assert (n_seg - 1) * seg_len < m <= n_seg * seg_len  # no empty segment, none missing
+    if n_ut <= per_sm * sms:
+        assert n_ut * n_seg <= per_sm * sms
+        # segments a tile shorter would not fit the wave
+        per_seg, n_tiles = seg_len // ITEM_TILE, -(-m // ITEM_TILE)
+        assert per_seg == 1 or n_ut * -(-n_tiles // (per_seg - 1)) > per_sm * sms
 
 
 def _compare(kv, ki, rv, ri, exact):
@@ -94,7 +116,7 @@ def _users(b, n, dev):
     return users
 
 
-def _check_topk(n, m, d, tiles, ks, dev):
+def _check_topk(n, m, d, tiles, ks, dev, topk=masked_topk):
     exact, gauss, indptr, indices = _cases(n, m, d)
     ip, ix = torch.from_numpy(indptr).to(dev), torch.from_numpy(indices).to(dev)
     for kind, (u, i) in (("exact", exact), ("gauss", gauss)):
@@ -105,11 +127,14 @@ def _check_topk(n, m, d, tiles, ks, dev):
                 for masked in (False, True):
                     for sig in (False, True):
                         mk = (ip, ix) if masked else (None, None)
-                        kv, ki = masked_topk(U, I, users, k, *mk, sigmoid=sig)
+                        before = (st.launches, st.wide_launches)
+                        kv, ki = topk(U, I, users, k, *mk, sigmoid=sig)
+                        wide = topk is masked_topk_wide or k > st.MAX_K
+                        assert (st.launches, st.wide_launches) == (before[0] + 1, before[1] + wide)
                         rv, ri = masked_topk_reference(U, I, users, k, *mk, sigmoid=sig)
                         torch.cuda.synchronize()
                         _compare(kv, ki, rv, ri, kind == "exact")
-                        if masked and not sig and k == 128:
+                        if masked and not sig and k >= 128:
                             assert (kv[0, 50:] == -1024.0).all()
 
 
@@ -153,8 +178,8 @@ def test_cuda_kernel_odd_widths(m, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,d", [(20000, 64), (10000, 32)])
 def test_cuda_kernel_above_128_in_rounds(m, d):
-    """k > 128 runs ceil(k / 128) bounded launches; held against one plain
-    top-k of size k."""
+    """k > 128 runs the radix select of csrc/streaming_topk_wide.cu, one
+    launch a call; held against one plain top-k of size k."""
     _need_card()
     _check_topk(1100, m, d, (1, 65, 512, 2048), (129, 200, 256), torch.device("cuda"))
 
@@ -170,30 +195,71 @@ def test_cuda_kernel_at_the_candidate_dump_shape():
 
 @pytest.mark.cuda
 def test_cuda_kernel_whole_catalog_in_rounds():
-    """k = M = 300: three rounds, the densely masked row's -1024 entries
-    ranked by id at its end."""
+    """k = M = 300 in one radix-select launch, the densely masked row's -1024
+    entries ranked by id at its end; and the radix select itself at k = 1,
+    50 and 128."""
     _need_card()
     _check_topk(200, 300, 32, (1, 65), (300,), torch.device("cuda"))
+    _check_topk(200, 300, 32, (1, 65), (1, 50, 128), torch.device("cuda"), topk=masked_topk_wide)
 
 
 @pytest.mark.cuda
 def test_cuda_rounds_launch_once_a_round_without_waiting():
+    """One launch a call at any k (the radix select above 128), none of them
+    waiting for the card."""
     _need_card()
     dev = torch.device("cuda")
     exact, _, indptr, indices = _cases(300, 2000, 64)
     U, I = (torch.from_numpy(x).to(dev) for x in exact)
     mk = (torch.from_numpy(indptr).to(dev), torch.from_numpy(indices).to(dev))
     users = torch.arange(100, device=dev)
-    for k, rounds in ((128, 1), (129, 2), (200, 2), (385, 4)):
-        before = st.launches
+    for k in (128, 129, 200, 385):
+        before = (st.launches, st.wide_launches)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")  # raises on a host sync
         try:
             kv, ki = masked_topk(U, I, users, k, *mk)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        assert st.launches == before + rounds
+        assert (st.launches, st.wide_launches) == (before[0] + 1, before[1] + (k > st.MAX_K))
         _compare(kv, ki, *masked_topk_reference(U, I, users, k, *mk), exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sigmoid_saturated", "zero_user", "all_equal", "few_unmasked"])
+def test_cuda_radix_select_ties(kind):
+    """The radix select on tie-heavy inputs, ids and values equal to the plain
+    version: scores that the sigmoid saturates (multiples of 128: exactly 1.0
+    above zero, 0.0 below, 0.5 at it); user
+    rows of zeros (every score +-0.0); an item table of one repeated row; a
+    row masked down to 20 items at k = 200 and 300 (runs of -1024 tied by
+    id). A large k takes the sort in device memory (k = 10000)."""
+    _need_card()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+    n, m, d = 300, 12000, 32
+    u = (rng.integers(-4, 5, size=(n, d)) / 8).astype(np.float32)
+    i = (rng.integers(-2, 3, size=(m, d)) / 8).astype(np.float32)
+    sig = kind == "sigmoid_saturated"
+    if sig:
+        u *= 8192.0
+    if kind == "zero_user":
+        u[::3] = 0.0
+    if kind == "all_equal":
+        i[:] = i[7]
+    rows = [np.sort(rng.choice(m, size=m - 20 if r % 5 == 0 else int(rng.integers(0, 40)), replace=False))
+            for r in range(n)]
+    ip = torch.from_numpy(np.concatenate([[0], np.cumsum([len(r) for r in rows])]).astype(np.int32)).to(dev)
+    ix = torch.from_numpy(np.concatenate(rows).astype(np.int32)).to(dev)
+    U, I = torch.from_numpy(u).to(dev), torch.from_numpy(i).to(dev)
+    for b in (1, 65, 512):
+        users = torch.from_numpy(rng.permutation(n)[:b]).to(dev)
+        for k in (1, 50, 128, 200, 300, 10000):
+            for mk in ((None, None), (ip, ix)):
+                kv, ki = masked_topk_wide(U, I, users, k, *mk, sigmoid=sig)
+                rv, ri = masked_topk_reference(U, I, users, k, *mk, sigmoid=sig)
+                torch.cuda.synchronize()
+                _compare(kv, ki, rv, ri, exact=True)  # the sigmoid's 0, 0.5 and 1 are exact too
 
 
 @pytest.mark.cuda

@@ -196,7 +196,7 @@ def test_rejects_bad_arguments():
         masked_topk(_t(u), _t(i[:, :4]), users, 3)
 
 
-# ---- k > 128: rounds over a per-row bound (what masked_topk runs on a card) ----
+# ---- k > 128: the radix select (what masked_topk runs on a card), stage by stage ----
 def _masked_tied(seed, n=12, m=300):
     """Tied exact inputs and a train CSR in which row 0 leaves 20 items
     unmasked (so -1024 entries rank inside a large k) and other rows are
@@ -209,50 +209,106 @@ def _masked_tied(seed, n=12, m=300):
     return u, i, _t(indptr), _t(np.concatenate(rows).astype(np.int32))
 
 
-@pytest.mark.parametrize("max_k", [128, 7])
+def _jax_topk(u, i, users, k, indptr=None, indices=None, sigmoid=False):
+    """The JAX ``Recommender._topk`` (``serve.py:67-76``) on given tables:
+    scores, the sigmoid, -1024 over the train rows, ``lax.top_k``. The
+    scores have 0.0 added, so that a zero product is +0.0 (JAX's product of
+    a zero user row and a negative item is -0.0, and ``lax.top_k`` on the
+    CPU orders +0.0 before -0.0; the port ranks the two as equal values,
+    tied by id, as its kernels always have)."""
+    from furusato_recommend_tpu.data.graph import CSR as JCSR
+    from furusato_recommend_tpu.ops.csr_search import csr_gather_padded as jgather
+
+    ju = jnp.asarray(users)
+    s = (jnp.asarray(u)[ju] @ jnp.asarray(i).T).astype(jnp.float32)
+    if sigmoid:
+        s = jax.nn.sigmoid(s)
+    if indptr is not None:
+        ip = np.asarray(indptr)
+        pad = max(int(np.diff(ip).max()), 1)
+        pos, m = jgather(JCSR(jnp.asarray(ip), jnp.asarray(np.asarray(indices))), ju, pad)
+        cols = jnp.where(m, pos, i.shape[0])
+        s = s.at[jnp.arange(ju.shape[0])[:, None], cols].set(float(MASK_SENTINEL), mode="drop")
+    v, ids = jax.lax.top_k(s + 0.0, k)
+    return np.asarray(v), np.asarray(ids)
+
+
+def _wide_inputs(kind, seed):
+    """(user table, item table, mask CSR or (None, None), sigmoid) of the tie
+    cases: exact multiples of 1/8 with duplicated items; the same with a
+    row masked down to 20 items; scores that are multiples of 128 under the
+    sigmoid (exactly 1.0 above zero, 0.0 below, 0.5 at it); an all-zero
+    user row; an item table of one repeated row."""
+    if kind == "masked_tied":
+        u, i, ip, ix = _masked_tied(seed)
+        return u, i, (ip, ix), False
+    u, i = _tied_inputs(seed)
+    if kind == "sigmoid_saturated":
+        return (u * 8192).astype(np.float32), i, _masked_tied(seed)[2:], True
+    if kind == "zero_user":
+        u[[0, 5]] = 0.0
+        i[::7] = -np.abs(i[::7])  # products -0.0 in JAX's matmul
+    if kind == "all_equal":
+        i = np.tile(i[3:4], (i.shape[0], 1))
+    return u, i, (None, None), False
+
+
+_WIDE_USERS = np.array([0, 3, 3, 11, 5])
+
+
 @pytest.mark.parametrize("k", [129, 200, 300])
-@pytest.mark.parametrize("masked,sig", [(False, False), (True, False), (True, True)])
-def test_rounds_equal_one_topk(k, max_k, masked, sig):
-    """``_topk_in_rounds`` driven by the plain version, bounded by each
-    round's last key, equals one plain top-k of size k, bit for bit: on exact
-    inputs full of ties, with a row so densely masked that -1024 entries
-    rank; max_k 7 puts many round edges inside runs of equal values."""
-    u, i, ip, ix = _masked_tied(k + max_k)
-    U, I = _t(u), _t(i)
-    users = torch.tensor([0, 3, 3, 11, 5])
-    mk = (ip, ix) if masked else (None, None)
-    calls = []
-
-    def round_fn(kk, after):
-        calls.append((kk, after is None))
-        return st.masked_topk_reference(U, I, users, kk, *mk, sigmoid=sig, after=after)
-
-    gv, gi = st._topk_in_rounds(round_fn, k, max_k)
-    wv, wi = st.masked_topk_reference(U, I, users, k, *mk, sigmoid=sig)
-    np.testing.assert_array_equal(gi.numpy(), wi.numpy())
-    np.testing.assert_array_equal(gv.numpy(), wv.numpy())
-    n_rounds = -(-k // max_k)
-    assert [kk for kk, _ in calls] == [max_k] * (n_rounds - 1) + [k - max_k * (n_rounds - 1)]
-    assert [first for _, first in calls] == [True] + [False] * (n_rounds - 1)
-    assert len(set(map(tuple, gi.numpy()))) == 4  # rows 1 and 2 are one user
-    assert all(len(set(row)) == k for row in gi.numpy().tolist())  # no id twice
-    if masked and not sig:
-        assert (gv[0, 20:] == MASK_SENTINEL).all() and (gv[0, :20] > MASK_SENTINEL).all()
+@pytest.mark.parametrize("kind", ["tied", "masked_tied", "sigmoid_saturated", "zero_user", "all_equal"])
+def test_wide_model_ties_match_jax(kind, k):
+    """The radix select's stages on tie-heavy exact inputs against the JAX
+    masked top-k: ids and values equal, at k = 129, 200 and 300 = M; with
+    the kernel's candidate cap (the rows stop early) and with cap = k (every
+    row reads digits until exactly k keys are at or above its prefix, the
+    id's digits included where a value is tied across the k-th place)."""
+    u, i, mk, sig = _wide_inputs(kind, k)
+    jv, ji = _jax_topk(u, i, _WIDE_USERS, k, *mk, sigmoid=sig)
+    levels = []
+    for cap in (None, k):
+        tv, ti, done = st.wide_topk_model(_t(u), _t(i), _t(_WIDE_USERS), k, *mk, sigmoid=sig, cap=cap)
+        np.testing.assert_array_equal(ti.numpy(), ji)
+        np.testing.assert_array_equal(tv.numpy(), jv)  # exact products; the sigmoid's 0, 0.5 and 1
+        levels.append(int(done.max()))
+    if k < 300:
+        assert levels[1] >= 4  # cap = k: the ties at the k-th value take id digits
+    if kind == "masked_tied":
+        assert (jv[0, 20:] == MASK_SENTINEL).all() and (jv[0, :20] > MASK_SENTINEL).all()
 
 
-def test_reference_bound_excludes_keys_by_flag():
-    """The bound is a key, not a sentinel: items whose value equals the bound
-    value and whose id is larger come after it; values below -1024 (possible
-    without the sigmoid) are still selected."""
-    u = np.array([[1.0], [-2000.0]], np.float32)
-    i = np.array([[1.0], [1.0], [2.0], [1.0], [0.5]], np.float32)
-    after = (torch.tensor([1.0, -2000.0]), torch.tensor([1, 2], dtype=torch.int32))
-    v, ids = st.masked_topk_reference(_t(u), _t(i), torch.tensor([0, 1]), 2, after=after)
-    # row 0: the keys after (1.0, id 1); row 1: after (-2000.0, id 2), down to -4000
-    np.testing.assert_array_equal(ids.numpy(), [[3, 4], [3, 2]])
-    np.testing.assert_array_equal(v.numpy(), [[1.0, 0.5], [-2000.0, -4000.0]])
-    with pytest.raises(ValueError, match="fewer than k"):
-        st.masked_topk_reference(_t(u), _t(i), torch.tensor([0, 1]), 3, after=after)
+@pytest.mark.parametrize("cap", [None, "k"])
+@pytest.mark.parametrize("k", [129, 200, 300])
+def test_wide_model_matches_pallas_streaming_topk(k, cap):
+    """Unmasked Gaussian rows: the stages against the JAX package's Pallas
+    kernel in interpret mode, ids equal and values within rtol 1e-5."""
+    rng = np.random.default_rng(k)
+    u = rng.standard_normal((9, 16)).astype(np.float32)
+    i = rng.standard_normal((300, 16)).astype(np.float32)
+    jv, ji = streaming_topk(jnp.asarray(u), jnp.asarray(i), k=k, tile=128, b_tile=16, interpret=True)
+    tv, ti, done = st.wide_topk_model(_t(u), _t(i), torch.arange(9), k, cap=k if cap else None)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-6)
+    if cap is None:
+        assert (done == 0).all()  # 300 keys fit the candidate cap: one digit suffices
+
+
+def test_value_keys_order_and_round_trip():
+    """The key orders floats as the float compare does, -0.0 as +0.0, and
+    gives each value back."""
+    rng = np.random.default_rng(0)
+    v = np.concatenate([rng.standard_normal(500) * 10.0 ** rng.integers(-40, 39, 500),
+                        [0.0, -0.0, np.inf, -np.inf, MASK_SENTINEL, 1e-45, -1e-45]]).astype(np.float32)
+    keys = st.value_keys(_t(v)).numpy()
+    assert keys.min() >= 0 and keys.max() < 2**32
+    order = np.argsort(v, kind="stable")
+    assert (np.diff(keys[order]) >= 0).all()
+    assert ((np.diff(keys[order]) == 0) == (np.diff(v[order]) == 0)).all()
+    assert keys[-7] == keys[-6]  # +0.0 and -0.0
+    back = st.key_values(_t(keys)).numpy()
+    np.testing.assert_array_equal(back, v)  # -0.0 == 0.0 here
+    assert not np.signbit(back[-6])
 
 
 @pytest.fixture(scope="module")
@@ -305,4 +361,25 @@ def test_recommender_k200_matches_jax(wide_catalog, name):
     sep[:, 1:] &= gap
     sep[:, :-1] &= gap
     np.testing.assert_array_equal(tid[sep], jid[sep])
+    assert sep.mean() > 0.9
+
+
+@pytest.mark.parametrize("k", [129, 260])
+@pytest.mark.parametrize("name", ["mf", "lgn"])
+def test_wide_model_matches_jax_recommender(wide_catalog, name, k):
+    """The stages on the port Recommender's tables, train mask and sigmoid
+    (mf scores through it) against the JAX ``Recommender.recommend`` over 260
+    items: ids equal wherever neighbouring scores are apart, scores within
+    rtol 1e-5."""
+    jrec, trec = wide_catalog[name]
+    users = np.array([0, 5, 5, 21, 39])
+    jid, jsc = (np.asarray(x) for x in jrec.recommend(users, k=k))
+    tv, ti, _ = st.wide_topk_model(trec._user_emb, trec._item_emb, _t(users), k,
+                                   trec._mask.indptr, trec._mask.indices, sigmoid=trec.model.score_sigmoid)
+    np.testing.assert_allclose(tv.numpy(), jsc, rtol=1e-5, atol=1e-6)
+    gap = np.abs(np.diff(jsc, axis=1)) > 1e-5 * np.abs(jsc[:, 1:])
+    sep = np.ones(jid.shape, dtype=bool)
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    np.testing.assert_array_equal(ti.numpy()[sep], jid[sep])
     assert sep.mean() > 0.9

@@ -110,7 +110,7 @@ def main() -> int:
         for name, fn in libs.items():
             def call(fn=fn, name=name):
                 err = fn(U.data_ptr(), I.data_ptr(), users.data_ptr(), 1, b, n, m, d, k,
-                         indptr.data_ptr(), indices.data_ptr(), 0, n_seg, seg_len, None, None,
+                         indptr.data_ptr(), indices.data_ptr(), 0, n_seg, seg_len,
                          cand.data_ptr(), vals.data_ptr(), ids.data_ptr(), stream)
                 if err != 0:
                     raise RuntimeError(f"{name}: CUDA error {err}")

@@ -9,19 +9,21 @@ and a change) can be compared in one machine, in turns:
 and built (default: this one). The shapes, with random 0.1 * N(0, 1) tables
 and train rows from a numpy seed:
   lgn       N = 50000, M = 20000, d = 64, rows of 5-60 ids (phases 4-5):
-            B = 1, 64, 512, 1024 at k = 20, B = 512 at k = 10
+            B = 1, 64, 512, 1024 at k = 20, B = 512 at k = 10, B = 2048 at
+            k = 256
   textsage  N = 100000, M = 30000, d = 32, rows of 3-13 ids (phase 9):
             B = 1, 64, 512, 1024 at k = 20
   a20       N = 20000, M = 10000, d = 32, rows of 3-13 ids (phases 12-13):
             B = 2048 at k = 10 and 20 (the evaluation tile), B = 512 at k = 20
-            and at k = 200 (two bounded rounds; a checkout whose kernel takes
-            k <= 128 reports null there)
+            and at k = 200, B = 1000 at k = 200 (production-20k's batch); a
+            checkout whose kernel takes k <= 128 reports null above it
 
 Prints one JSON line: {"root", "device", "smi": "<name>, <power limit>",
 "blocks_per_sm": {"k20_d64": ..., ...} (pass 1, occupancy API), "rows":
-[{"shape", "B", "k", "call_ms", "device_ms"}, ...]}: "call_ms" the median of
-CUDA-event times around 30 wrapper calls, "device_ms" the profiler's device
-time a call over 20 calls (both passes and the fill).
+[{"shape", "B", "k", "call_ms", "device_ms", "kernels"}, ...]}: "call_ms" the
+median of CUDA-event times around 30 wrapper calls, "device_ms" the
+profiler's device time a call over 20 calls (every kernel of the call and its
+fills), "kernels" that time by kernel name.
 """
 
 from __future__ import annotations
@@ -36,9 +38,9 @@ import numpy as np
 import torch
 
 SHAPES = {  # name: (N, M, d, shortest row, longest row + 1, [(B, k), ...])
-    "lgn": (50_000, 20_000, 64, 5, 60, [(1, 20), (64, 20), (512, 20), (1024, 20), (512, 10)]),
+    "lgn": (50_000, 20_000, 64, 5, 60, [(1, 20), (64, 20), (512, 20), (1024, 20), (512, 10), (2048, 256)]),
     "textsage": (100_000, 30_000, 32, 3, 14, [(1, 20), (64, 20), (512, 20), (1024, 20)]),
-    "a20": (20_000, 10_000, 32, 3, 14, [(2048, 10), (2048, 20), (512, 20), (512, 200)]),
+    "a20": (20_000, 10_000, 32, 3, 14, [(2048, 10), (2048, 20), (512, 20), (512, 200), (1000, 200)]),
 }
 
 
@@ -58,7 +60,8 @@ def event_ms(fn, reps=30) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, n=20) -> float:
+def device_ms(fn, n=20) -> tuple:
+    """(device ms a call, {kernel name: device ms a call})."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -67,9 +70,12 @@ def device_ms(fn, n=20) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / n / 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:48]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / n / 1e3
+    return sum(by_name.values()), by_name
 
 
 def main() -> int:
@@ -110,7 +116,9 @@ def main() -> int:
                 rows.append({"shape": name, "B": b, "k": k, "call_ms": None, "device_ms": None,
                              "error": str(e)})
                 continue
-            rows.append({"shape": name, "B": b, "k": k, "call_ms": event_ms(call), "device_ms": device_ms(call)})
+            dev_ms, by_name = device_ms(call)
+            rows.append({"shape": name, "B": b, "k": k, "call_ms": event_ms(call), "device_ms": dev_ms,
+                         "kernels": by_name})
     print(json.dumps({"root": str(root), "device": torch.cuda.get_device_name(0), "smi": smi,
                       "blocks_per_sm": occupancy, "rows": rows}))
     return 0

@@ -55,7 +55,10 @@ Phases (any failure raises and exits non-zero):
                at the evaluation's tile (B = 1024, k = 20)
   6. train     Trainer for lgn, d=64, L=2, bfloat16 SpMM, B=8192, lr 1e-3 on the
                same graph: test(), one warm-up epoch, two timed epochs,
-               test(); the scatter kernel launched at least once per step and
+               test() (the epochs by replays of the captured step after its
+               warm-up steps, as the Trainer trains the models that declare
+               their step capturable, lgn's and textsage's constructions, on
+               the card: train/graphed.py); the scatter kernel launched at least once per step and
                masked_topk once per evaluation tile; the loss of the last
                epoch below the first's; recall@20 above its value at
                initialisation
@@ -88,8 +91,9 @@ Phases (any failure raises and exits non-zero):
                a rounding boundary moves an element by a bfloat16 step)
  10. train-textsage-100k
                Trainer(ddp_recipe=True), B=5000, lr 1e-3: an evaluation, a
-               warm-up of 10 steps, one timed epoch (421 steps of alias-sampled
-               triplets, fanout trees and dropout on the card), an evaluation;
+               warm-up of 10 eager steps, one timed epoch (421 steps of alias-sampled
+               triplets, fanout trees and dropout on the card; replays of the
+               captured step after its warm-up steps), an evaluation;
                the loss of the epoch's last tenth below its first tenth's;
                scatter_add_rows launched twice a step (one tree gather per
                side), masked_topk once per evaluation tile; one evaluation
@@ -111,7 +115,8 @@ Phases (any failure raises and exits non-zero):
                at the TextSAGE step's tree gathers and a categorical gather),
                the serve and train lines of the lgn paths and of the TextSAGE
                paths (samples/s, host and device ms a step with the profiler's
-               split, the idle share)
+               split, the idle share; the profiles of phases 8 and 11 are of
+               the eager train_step)
  12. train-textsage-20k
                the flagship recipe (eval tiles of 2048 users) on the anchor20k
                shape of the TPU records (benchmarks/anchor20k.py):
@@ -387,7 +392,8 @@ Phases (any failure raises and exits non-zero):
                train positive served, one masked_topk launch a request; the
                refresh against the CPU's propagation, mf and the LightGCN keys
                under phase 4's rule against a float64 one, the SAGE keys under
-               phase 9's), then trained: mf, rgcn and textsage_id 3 epochs
+               phase 9's), then trained (rgcn, lgn's model, by replays of its
+               captured step): mf, rgcn and textsage_id 3 epochs
                between two evaluations (the last epoch's loss below the
                first's, recall@10 above its start but mf's: RECALL_FLAT),
                every other key one epoch and one evaluation (the loss falling
@@ -402,6 +408,30 @@ Phases (any failure raises and exits non-zero):
                scatter at the ids of one textsage_id step's tree gathers at
                node width 64 (a {"registry": ...} line with the card's name
                and power limit)
+ 21. graph-20k lgn at phase 19's recipe and textsage at the flagship's on
+               phase 12's graph and features (run after phase 20), each
+               trained by replays of its captured step (train/graphed.py):
+               epoch 1 (the eager warm-up steps, the capture, replays), its
+               checkpoint; epoch 2 by replays, whose host syncs must be
+               exactly one (the loss mean), and the same epoch by the eager
+               train_step loop from the same parameters, Adam states and
+               generator state, twice: the generator states equal, the first
+               losses within 1e-6 relative, lgn's epoch under phase 7's rule
+               (losses within 1e-5 relative, parameters within 4 lr, all but
+               1e-3 of them within 1e-6 + 1e-5 |p|), textsage's under phase
+               19's rule for runs longer than two steps (losses within 2e-3
+               relative, parameters within 10 lr: the atomic adds' order
+               differs from run to run, and its two eager epochs part by as
+               much), and two steps each way under phase 7's rule; epoch 1's
+               checkpoint restored into a new Trainer, epoch 2 by its own
+               capture, held against the first one's by the key's epoch rule; a replayed step's profile holds as many
+               scatter_add_rows kernels as the eager step's (4 / 2) and no
+               library scatter the eager step does not; the scatter launches
+               counted over the phase, replays included, exactly; then
+               samples/s, host and device ms a step and the idle share of
+               replays and of eager epochs in turns, and the capture's cost
+               (warm-up steps, capture, instantiate, the graph pool's MiB)
+               (a {"graph": ...} line)
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
 30000, B in {1, 64, 512, 1024}, k in {10, 20}, and at phase 12's evaluation
@@ -513,6 +543,7 @@ from furusato_recommend_tpu_torch.rank.pipeline import _compact_rows, _dedup_row
 from furusato_recommend_tpu_torch.rank.ranker import NeuralRanker, epoch_batches
 from furusato_recommend_tpu_torch.sampling.bpr import sample_bpr
 from furusato_recommend_tpu_torch.serve import Recommender, make_server
+from furusato_recommend_tpu_torch.train import graphed as gr
 from furusato_recommend_tpu_torch.train.trainer import Trainer
 
 SEED = 0
@@ -1319,7 +1350,9 @@ def host_syncs(fn) -> list:
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    return [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+    # torch's notice that the mode is a prototype (once a process) is no sync
+    return [str(w.message).splitlines()[0] for w in caught
+            if "synchroniz" in str(w.message) and "prototype feature" not in str(w.message)]
 
 
 def train_config() -> Config:
@@ -2799,6 +2832,212 @@ def registry_20k(ds, fs, dev, scatter_held, topk_held) -> dict:
             "launch_shapes": launched, "scatter_shapes": shapes_64, "launches": launches, "phase_s": phase_s}
 
 
+GRAPH_KEYS = ("lgn", "textsage")  # phase 21: lgn at phase 19's recipe, textsage at the flagship's
+# phase 21's epoch rule a key, (loss rtol, parameters within that many lr,
+# the share of them allowed outside 1e-6 + 1e-5 |p|): lgn's epochs repeat to
+# a few parameters in a million, so phase 7's rule; textsage's eager epochs
+# part by up to 8e-4 in loss and about one lr in parameters from one run to
+# the next (its ReLU gates turn on the atomic adds' order), so phase 19's
+GRAPH_EPOCH_RULE = {"lgn": (1e-5, 4, 1e-3), "textsage": (MESH_LOSS_RTOL, MESH_PARAM_LRS, 1.0)}
+GRAPH_PROFILE_STEPS = 20
+GRAPH_FIRST_LOSS_RTOL = 1e-6
+# name parts of torch's own scatter kernels (index_add_, scatter_add_): a
+# replayed step must hold none that the eager step does not
+LIBRARY_SCATTER = ("indexFunc", "index_add", "scatter")
+
+
+def _snapshot(trainer) -> dict:
+    """Copies of the trainer's parameters, Adam states and generator state."""
+    return {"params": [p.detach().clone() for p in trainer.model.parameters()],
+            "adam": [{k: v.clone() for k, v in opt.state[p].items()}
+                     for opt in _optimizers(trainer) for g in opt.param_groups for p in g["params"]],
+            "generator": trainer.generator.get_state()}
+
+
+@torch.no_grad()
+def _reset(trainer, snap: dict) -> None:
+    """Set the trainer's parameters, Adam states and generator state back to
+    ``snap`` in place (the tensors a captured step reads stay where they are)."""
+    for p, v in zip(trainer.model.parameters(), snap["params"]):
+        p.copy_(v)
+    states = [opt.state[p] for opt in _optimizers(trainer) for g in opt.param_groups for p in g["params"]]
+    for st_, saved in zip(states, snap["adam"], strict=True):
+        for k, v in saved.items():
+            st_[k].copy_(v)
+    trainer.generator.set_state(snap["generator"])
+
+
+def _eager_epoch(trainer) -> tuple:
+    """One epoch by the eager ``train_step`` loop, as ``train_one_epoch``
+    takes it otherwise (the sampler, the steps, the mean loss read once):
+    (seconds, mean loss, per-step losses)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bs = trainer.config.bpr_batch_size
+    batches = trainer.sample_epoch()
+    losses = torch.empty(trainer.num_batches, device=trainer.device)
+    for b in range(trainer.num_batches):
+        losses[b] = trainer.train_step(batches.slice(b * bs, (b + 1) * bs))
+    mean = float(losses.mean())
+    return time.perf_counter() - t0, mean, losses.cpu().numpy()
+
+
+def _epoch_rule(got: tuple, want: tuple, lr: float, name: str) -> dict:
+    """Two epochs from one state, (losses, parameters, generator state)
+    each, under the key's GRAPH_EPOCH_RULE (the scatter kernel's atomic adds
+    sum in no fixed order, so the card does not repeat an epoch bit for bit,
+    and Adam turns that rounding into +-lr moves where a gradient is near 0):
+    the generator states equal, the first losses within
+    GRAPH_FIRST_LOSS_RTOL, every loss within the rule's rtol, every parameter
+    within its multiple of lr and all but its share within 1e-6 + 1e-5 |p|."""
+    (gl, gp, gg), (wl, wp, wg) = got, want
+    loss_rtol, lrs, share = GRAPH_EPOCH_RULE[name]
+    assert torch.equal(gg, wg), "the generator states differ"
+    first = abs(float(gl[0]) - float(wl[0])) / abs(float(wl[0]))
+    assert first <= GRAPH_FIRST_LOSS_RTOL, f"first losses {gl[0]} / {wl[0]}"
+    np.testing.assert_allclose(gl, wl, rtol=loss_rtol)
+    return {"first_loss_rel": first, "loss_max_rel": float(np.max(np.abs(gl - wl) / np.abs(wl))),
+            **_params_rule(gp, wp, lrs * lr, share=share)}
+
+
+def _two_steps(trainer, snap: dict, replays: bool) -> tuple:
+    """Two steps from ``snap`` on phase 7's seeded batches (the trees and
+    dropout from the trainer's generator), by replays or by train_step:
+    (losses, parameters)."""
+    _reset(trainer, snap)
+    bs = trainer.config.bpr_batch_size
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 2)
+    two = sample_bpr(gen, trainer.graph, 2 * bs, trainer.config.neg_candidates,
+                     edge_alias=trainer.edge_alias, neg_alias=trainer.neg_alias)
+    batches = [two.slice(0, bs), two.slice(bs, 2 * bs)]
+    if replays:
+        losses = trainer.train_epoch(batches)
+    else:
+        losses = torch.stack([trainer.train_step(b) for b in batches])
+    return losses.cpu().numpy(), whole_params(trainer)
+
+
+def step_kernels(fn, n=GRAPH_PROFILE_STEPS) -> dict:
+    """torch.profiler over n calls of a step (after one unprofiled): the
+    scatter kernels a step (the port's, torch's), device ms and operations a
+    step, and the share of the window's wall time with nothing on the card."""
+    fn()
+    torch.cuda.synchronize()
+    inside, wall_us, pad_kept = _window_profile(fn, n)
+    busy = sum(e.time_range.elapsed_us() for e in inside)
+    own = sum(_own_kernel(e.name) == "scatter" for e in inside)
+    lib = sum(_own_kernel(e.name) is None and any(p in e.name for p in LIBRARY_SCATTER) for e in inside)
+    return {"scatter_add_rows": own / n, "library_scatter": lib / n, "device_ms": busy / n / 1e3,
+            "device_ops": len(inside) / n, "idle_share_profiled": 1.0 - busy / wall_us, "pad_kept": pad_kept}
+
+
+def graph_trainer(ds, fs, name: str, dev) -> Trainer:
+    cfg, model = model_20k(ds, fs, name, SEED + 1)
+    trainer = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=ddp_recipe(name), device=dev)
+    trainer.init_state()
+    return trainer
+
+
+def graph_20k(ds, fs, dev, tmp) -> dict:
+    """Phase 21: lgn and textsage trained by replays of their captured step
+    against the eager train_step loop from the same state, the restore, the
+    epoch's host syncs, the kernels of a replayed step and both numbers."""
+    t0 = time.perf_counter()
+    st.launches = sc.launches = 0
+    out, steps = {}, {}
+    for name in GRAPH_KEYS:
+        tr = graph_trainer(ds, fs, name, dev)
+        n, lr, per_step = tr.num_batches, tr.config.lr, scatter_per_step(name)
+        first_s, _, _ = _timed_epoch(tr)  # W eager warm-up steps, the capture, replays
+        graph = tr.step_graph
+        assert tr.captured and graph is not None and graph.graph is not None, "the step was not captured"
+        capture = {k: graph.stats[k] for k in ("warmup_ms", "capture_ms", "instantiate_ms", "pool_mib")}
+        assert graph.scatter_launches == per_step, graph.scatter_launches
+        ckpt = os.path.join(tmp, f"graph_{name}.ckpt")
+        tr.save(ckpt)
+        snap = _snapshot(tr)
+        # (c) the replayed epoch's host syncs; its losses, parameters and
+        # generator state
+        replays = graph.stats["replays"]
+        syncs = host_syncs(tr.train_one_epoch)
+        assert graph.stats["replays"] == replays + n, "an epoch after the capture not all replays"
+        assert len(syncs) == 1, f"{len(syncs)} host syncs in an epoch of replays: {syncs}"
+        replayed = (tr.epoch_losses.cpu().numpy(), whole_params(tr), tr.generator.get_state())
+        # (a) the same epoch by the eager loop from the same state, twice
+        # (the card's own spread), and two steps each way under phase 7's rule
+        eager = []
+        for _ in range(2):
+            _reset(tr, snap)
+            _, _, eager_losses = _eager_epoch(tr)
+            eager.append((eager_losses, whole_params(tr), tr.generator.get_state()))
+        vs_eager = _epoch_rule(replayed, eager[0], lr, name)
+        eager_spread = _epoch_rule(eager[1], eager[0], lr, name)
+        (rl, rp), (el, ep) = _two_steps(tr, snap, True), _two_steps(tr, snap, False)
+        assert abs(rl[0] - el[0]) <= GRAPH_FIRST_LOSS_RTOL * abs(el[0]), (rl, el)
+        np.testing.assert_allclose(rl[1], el[1], rtol=1e-4)
+        two_steps = {"losses": [rl.tolist(), el.tolist()], **_params_rule(rp, ep, 4 * lr)}
+        # (d) epoch 1's checkpoint restored into a new trainer, epoch 2 by
+        # its own capture and replays
+        tr2 = graph_trainer(ds, fs, name, dev)
+        tr2.restore(ckpt)
+        tr2.train_one_epoch()
+        assert tr2.step_graph.stats["captures"] == 1 and tr2.step_graph.stats["replays"] == n - gr.WARMUP_STEPS
+        vs_restored = _epoch_rule((tr2.epoch_losses.cpu().numpy(), whole_params(tr2), tr2.generator.get_state()),
+                                  replayed, lr, name)
+        del tr2
+        # (e) numbers: replays and eager epochs in turns, then a profile of
+        # each step
+        epochs = {"replays": [], "eager": []}
+        for kind in ("replays", "eager", "eager", "replays"):
+            epochs[kind].append((_timed_epoch if kind == "replays" else _eager_epoch)(tr)[0])
+        gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+        batch = sample_bpr(gen, tr.graph, tr.config.bpr_batch_size, tr.config.neg_candidates,
+                           edge_alias=tr.edge_alias, neg_alias=tr.neg_alias)
+        # (b) the kernels of a replayed step against the eager step's
+        prof = {"replays": step_kernels(lambda: graph.step(batch)), "eager": step_kernels(lambda: tr.train_step(batch))}
+        assert prof["replays"]["scatter_add_rows"] == prof["eager"]["scatter_add_rows"] == per_step, prof
+        assert prof["replays"]["library_scatter"] == prof["eager"]["library_scatter"], prof
+        # epochs 1 and 2, 2 eager epochs, 2 x 2 steps, the restored epoch, 4
+        # timed epochs, 2 profiles
+        steps[name] = (9 * n + 4 + 2 * (GRAPH_PROFILE_STEPS + 1)) * per_step
+        numbers = {}
+        for kind in ("replays", "eager"):
+            s = float(np.median(epochs[kind]))
+            numbers[kind] = {"epoch_s": epochs[kind], "samples_per_s": tr.samples_per_epoch / s,
+                             "host_ms_per_step": 1e3 * s / n, **prof[kind]}
+            numbers[kind]["idle_share"] = 1.0 - prof[kind]["device_ms"] / numbers[kind]["host_ms_per_step"]
+        log(f"graph-20k {name}: epoch 1 {first_s:.2f} s ({gr.WARMUP_STEPS} eager warm-up steps "
+            f"{capture['warmup_ms']:.1f} ms, capture {capture['capture_ms']:.1f} ms, instantiate "
+            f"{capture['instantiate_ms']:.1f} ms, graph pool {capture['pool_mib']:.1f} MiB); epoch 2 by {n} replays "
+            f"against the eager loop from the same state: generator state equal, first loss within "
+            f"{vs_eager['first_loss_rel']:.3g} relative, losses {vs_eager['loss_max_rel']:.3g}, parameters within "
+            f"1e-6 + 1e-5 |p| but {vs_eager['off']} of {vs_eager['total']} (max abs diff "
+            f"{vs_eager['max_abs_diff']:.3g}; the eager loop twice: losses {eager_spread['loss_max_rel']:.3g}, "
+            f"{eager_spread['off']} parameters off, max abs diff {eager_spread['max_abs_diff']:.3g}); two steps "
+            f"each way under phase 7's rule: {two_steps['off']} parameters off (max abs diff "
+            f"{two_steps['max_abs_diff']:.3g}); {len(syncs)} host sync in epoch 2 ({syncs[0][:40]}...)")
+        log(f"graph-20k {name}: a replayed step {prof['replays']['scatter_add_rows']:g} scatter_add_rows kernels, "
+            f"{prof['replays']['library_scatter']:g} library scatters (eager: {prof['eager']['scatter_add_rows']:g}, "
+            f"{prof['eager']['library_scatter']:g}); epoch 1's checkpoint restored, epoch 2 by its own capture: "
+            f"generator state equal, losses {vs_restored['loss_max_rel']:.3g}, parameters but {vs_restored['off']} "
+            f"of {vs_restored['total']} (max abs diff {vs_restored['max_abs_diff']:.3g})")
+        for kind, x in numbers.items():
+            log(f"graph-20k {name} {kind}: {x['samples_per_s']:.0f} samples/s; a step {x['host_ms_per_step']:.3f} "
+                f"ms on the host, {x['device_ms']:.3f} ms on the device in {x['device_ops']:.0f} operations; idle "
+                f"{x['idle_share']:.3f}")
+        out[name] = {"steps_per_epoch": n, "B": tr.config.bpr_batch_size, "d": tr.config.latent_dim,
+                     "first_epoch_s": first_s, "capture": capture, "host_syncs_epoch_2": syncs,
+                     "vs_eager": vs_eager, "eager_spread": eager_spread, "two_steps": two_steps,
+                     "vs_restored": vs_restored, "numbers": numbers}
+        del tr, graph
+    launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
+    assert launches == {"masked_topk": 0, "scatter_add_rows": sum(steps.values())}, (launches, steps)
+    phase_s = time.perf_counter() - t0
+    log(f"graph-20k: scatter launches {launches['scatter_add_rows']} ({ {k: scatter_per_step(k) for k in GRAPH_KEYS} } "
+        f"per step, replays included); {phase_s:.0f} s")
+    return {**out, "launches": launches, "phase_s": phase_s}
+
+
 def _tools(argv) -> tuple:
     """``tools.main(argv)`` with its stdout captured (and echoed); (result, stdout)."""
     buf = io.StringIO()
@@ -4223,6 +4462,11 @@ def main() -> int:
     # and trained on the anchor20k graph, each launch at a shape phase 3 held
     reg = registry_20k(a20_ds, a20_fs, dev, sc_held, topk_held)
 
+    # 21. graph-20k: lgn and textsage by replays of their captured step,
+    # against the eager loop, on the anchor20k graph
+    with tempfile.TemporaryDirectory() as tmp:
+        graphed = graph_20k(a20_ds, a20_fs, dev, tmp)
+
     # 16. production-20k: phase 12's checkpoint through tools evaluate / infer
     # / recommend, production inference over the inference edge set
     prod = production_20k(a20_ds, a20_fs, dev, prod_ckpt, prod_dir.name, smi)
@@ -4333,7 +4577,8 @@ def main() -> int:
                      + a20["launches"]["scatter_add_rows"] + att["launches"]["scatter_add_rows"]
                      + edge["launches"]["scatter_add_rows"] + seq["launches"]["scatter_add_rows"]
                      + rank_launches["scatter_add_rows"] + pre["launches"]["scatter_add_rows"]
-                     + mesh["launches"]["scatter_add_rows"] + reg["launches"]["scatter_add_rows"]),
+                     + mesh["launches"]["scatter_add_rows"] + reg["launches"]["scatter_add_rows"]
+                     + graphed["launches"]["scatter_add_rows"]),
         "launches_by_path": {"serve": 0, "train": train["launches"]["scatter_add_rows"],
                              "serve_textsage": ts_serve["launches"]["scatter_add_rows"],
                              "train_textsage": ts_train_launches["scatter_add_rows"],
@@ -4345,7 +4590,8 @@ def main() -> int:
                              "rank_20k": rank_launches["scatter_add_rows"],
                              "preprocess_20k": pre["launches"]["scatter_add_rows"],
                              "mesh_20k": mesh["launches"]["scatter_add_rows"],
-                             "registry_20k": reg["launches"]["scatter_add_rows"]},
+                             "registry_20k": reg["launches"]["scatter_add_rows"],
+                             "graph_20k": graphed["launches"]["scatter_add_rows"]},
         "launches_per_step": train["scatter_launches_per_step"],
         "launches_per_step_textsage": ts_train["scatter_launches_per_step"],
         "mesh_shapes": {"steps": [dict(zip(("N", "R_rank", "D"), x)) for x in MESH_SCATTER_SHAPES],
@@ -4431,6 +4677,9 @@ def main() -> int:
         "card": smi, "users": A20_USERS, "items": A20_ITEMS, "train_edges": A20_EDGES, "features": "informative",
         "d": {key_label(name, over): key_config(name, **over).latent_dim * (2 if name in REG_ID_KEYS else 1)
               for name, over in REG_KEYS}, **reg}}))
+    log(json.dumps({"graph": {
+        "card": smi, "users": A20_USERS, "items": A20_ITEMS, "train_edges": A20_EDGES, "features": "informative",
+        "warmup_steps": gr.WARMUP_STEPS, **graphed}}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

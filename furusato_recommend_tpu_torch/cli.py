@@ -213,8 +213,10 @@ def build_model_inputs(config: Config, dataset):
 #: port ignores them
 _IGNORED = {
     "a_fold": "the port's SpMM needs no folding of the adjacency",
-    "compile_cache": "the port runs eagerly and compiles no epoch program",
-    "pipeline_dispatch": "the device queue already overlaps the host",
+    "compile_cache": "the port compiles no XLA program; the CUDA graph of a captured step is made in "
+                     "the run and kept by no cache",
+    "pipeline_dispatch": "the port draws an epoch's triplets before its steps, not during the last epoch's "
+                         "(a captured step is one CUDA-graph replay on the card)",
 }
 
 

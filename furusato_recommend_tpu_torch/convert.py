@@ -11,7 +11,9 @@ nested tree to those names, ``nest_params`` back).
 Adam's state: ``optax.adam`` keeps ``ScaleByAdamState(count, mu, nu)`` with
 ``mu`` / ``nu`` trees shaped like the parameters; ``torch.optim.Adam`` keeps,
 per parameter, ``step``, ``exp_avg`` and ``exp_avg_sq``. The two hold the same
-numbers (first and second moments, and the number of steps taken). The JAX
+numbers (first and second moments, and the number of steps taken); the fused
+Adam the trainer runs keeps ``step`` as a float32 tensor on the parameter's
+device, a plain Adam on the host. The JAX
 trainer's partitioned optimizers (``optax.multi_transform`` of ``adam`` and
 ``set_to_zero``, under ``feature_update_every`` > 1 and the out-of-core
 features) keep an Adam state whose moments are ``MaskedNode``s outside its
@@ -129,6 +131,9 @@ def adam_state_from_jax(
     ignored) after ``count`` steps."""
     mu, nu = flatten_params(mu), flatten_params(nu)
     stepped = {id(p) for group in optimizer.param_groups for p in group["params"]}
+    # the fused (or capturable) Adam keeps each step count on its parameter's device
+    on_device = {id(p) for group in optimizer.param_groups if group["fused"] or group["capturable"]
+                 for p in group["params"]}
     own = {name: p for name, p in model.named_parameters() if id(p) in stepped}
     missing = sorted(set(own) - (set(mu) & set(nu)))
     if missing or set(mu) - set(dict(model.named_parameters())):
@@ -138,8 +143,7 @@ def adam_state_from_jax(
         if tuple(m.shape) != tuple(p.shape) or tuple(v.shape) != tuple(p.shape):
             raise ValueError(f"{name}: moment shapes do not match the parameter's {tuple(p.shape)}")
         optimizer.state[p] = {
-            # a host scalar, as torch.optim.Adam keeps it when not capturable
-            "step": torch.tensor(float(count), dtype=torch.float32),
+            "step": torch.tensor(float(count), dtype=torch.float32, device=p.device if id(p) in on_device else "cpu"),
             "exp_avg": m.to(device=p.device, dtype=p.dtype).clone(),
             "exp_avg_sq": v.to(device=p.device, dtype=p.dtype).clone(),
         }

@@ -82,6 +82,7 @@ def attributes_from_categorical(features: FeatureStore) -> dict:
 
 class ASAGE(SAGE):
     name = "asage"
+    step_capturable = False  # its step has not been captured on the card
 
     def __init__(
         self,

@@ -159,6 +159,14 @@ class SAGE(PairwiseModel):
             else:
                 self.register_parameter(name, nn.Parameter(v))
 
+    @property
+    def step_capturable(self) -> bool:
+        """The ``sage_cat`` conv on feature tables alone, with the sampled
+        fanout trees (``PairwiseModel``): no id embedding, towers, full-graph
+        step or out-of-core features."""
+        return (self.conv_name == "sage_cat" and not self.ooc_numeric
+                and not (self.use_id or self.towers or self.full_graph_train))
+
     # ---- set-up ----
     @staticmethod
     def _build_text_adj(text: torch.Tensor, vocab: int) -> SparsePair:

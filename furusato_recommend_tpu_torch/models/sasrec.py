@@ -52,6 +52,7 @@ PROPAGATE_CHUNK = 1024
 
 class SASRec(SAGE):
     name = "sasrec"
+    step_capturable = False  # its step has not been captured on the card
 
     def __init__(self, config: Config, graph: BipartiteGraph, features: FeatureStore,
                  sequences: UserSequences, **kw):

@@ -47,13 +47,17 @@ import torch
 from . import _cuda
 
 __all__ = [
-    "ScatterPlan", "plan_scatter", "scatter_add_rows", "scatter_add_rows_reference",
+    "ScatterPlan", "count_replay", "plan_scatter", "scatter_add_rows", "scatter_add_rows_reference",
     "table_gather",
 ]
 
 #: kernel launches since the count was last set to 0 (one per
-#: scatter_add_rows call on CUDA tensors)
+#: scatter_add_rows call on CUDA tensors, and those of every replay of a CUDA
+#: graph that recorded them: ``count_replay``)
 launches = 0
+#: launches recorded into CUDA graphs being captured, which execute nothing
+#: (a capture's count is the difference across it)
+captured = 0
 
 MODES = {"row": 0, "tile": 1}  # csrc/scatter_add_rows.cu Mode
 THREADS = 256  # threads a block, kThreads
@@ -208,7 +212,7 @@ def _launch(ids: torch.Tensor, rows: torch.Tensor, num_rows: int,
             plan: Optional[ScatterPlan] = None) -> torch.Tensor:
     """The kernel on CUDA tensors, under ``plan`` (default ``plan_scatter``'s;
     measurements force another mode through it)."""
-    global launches
+    global launches, captured
     dev = rows.device
     if ids.device != dev:
         raise ValueError(f"ids on {ids.device}, rows on {dev}")
@@ -232,8 +236,17 @@ def _launch(ids: torch.Tensor, rows: torch.Tensor, num_rows: int,
     )
     if err != 0:
         raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA error {err}")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out
+
+
+def count_replay(n: int) -> None:
+    """Count the ``n`` launches a replayed CUDA graph's capture recorded."""
+    global launches
+    launches += n
 
 
 def scatter_add_rows(ids: torch.Tensor, rows: torch.Tensor, num_rows: int) -> torch.Tensor:

@@ -77,9 +77,18 @@ def build_kernels_once(mesh: Mesh) -> None:
         mesh.barrier()
 
 
-def adam(params, config: Config) -> torch.optim.Adam:
-    """``optax.adam(config.lr)``'s counterpart."""
-    return torch.optim.Adam(params, lr=config.lr, betas=(0.9, 0.999), eps=1e-8)
+def adam(params, config: Config, capturable: bool = False) -> torch.optim.Adam:
+    """``optax.adam(config.lr)``'s counterpart: torch's default Adam, or,
+    where the step is captured as a CUDA graph (``train/graphed.py``), the
+    fused Adam that a graph can record (one kernel a step for every
+    parameter, its step counts on the card). Only the captured configurations
+    take the fused one: it rounds its update otherwise than the default
+    Adam, and where a SAGE step's ReLU input is within rounding of 0 that
+    turns the gate within a few steps and moves parameters by a share of lr
+    (``tests/test_torch_cadence.py`` holds the default Adam's steps to
+    JAX's within rtol 1e-4, which the fused one misses)."""
+    return torch.optim.Adam(params, lr=config.lr, betas=(0.9, 0.999), eps=1e-8,
+                            **({"fused": True, "capturable": True} if capturable else {}))
 
 
 def loss_backward(model: PairwiseModel, graph: BipartiteGraph, batch: BPRBatch,

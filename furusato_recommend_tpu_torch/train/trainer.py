@@ -55,9 +55,13 @@ and ``init_state`` shard again. (Deviation: the JAX package raises where a
 model axis spans processes; every rank of the port is a process.) Only the
 primary prints and logs.
 
-The JAX package's XLA machinery (the compile cache, the epoch program split,
-``pipeline_dispatch``'s prefetch) has no counterpart here: PyTorch runs
-eagerly and its device queue already overlaps the host.
+The JAX package's one-dispatch epoch (``_build_train_epoch``'s scan) has its
+counterpart on the card for a model that declares its step capturable
+(``PairwiseModel.step_capturable``: lgn's and textsage's constructions) under
+the fresh cadence without a mesh: the step is captured once as a CUDA graph
+and replayed for every batch (``train/graphed.py``), with the fused Adam;
+every other configuration, and the CPU, runs its steps eagerly. The rest of the JAX package's XLA machinery (the compile cache,
+``pipeline_dispatch``'s next-epoch sampling) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -91,6 +95,7 @@ from ..sampling.weights import (
     popularity_positive_edge_weights,
     sample_prob_edge_weights,
 )
+from .graphed import StepGraph, captured
 from .sharding import adam, adam_step, build_kernels_once, loss_backward
 
 __all__ = ["OPTIMIZER_PREFIXES", "Trainer"]
@@ -224,11 +229,16 @@ class Trainer:
 
         #: the parameters the initial tables depend on (cached cadences)
         self.feature_names = sorted(model.initial_param_keys()) if self.cadence != "fresh" else []
+        #: the fresh step is replayed as a CUDA graph (``train/graphed.py``)
+        self.captured = captured(self.model, self.cadence, self.mesh, self.device)
+        self.step_graph: Optional[StepGraph] = None
         self._new_optimizers()
         #: the sampler's stream (and edge dropout's); saved and restored with
         #: the checkpoint so a resumed run draws what an uninterrupted one would
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
+        if self.captured:
+            self.step_graph = StepGraph(self)
 
         max_deg = int(np.max(np.bincount(dataset.train_user, minlength=dataset.n_users)))
         self.evaluator = Evaluator(model, self.graph, config, max_train_degree=max_deg, mesh=self.mesh)
@@ -259,8 +269,11 @@ class Trainer:
         named = dict(self.model.named_parameters())
         frozen = {f"{side}_numeric_{sfx}" for side in self.ooc for sfx in ("w", "b")}
         apart = set(self.feature_names) if self.cadence == "super" else set()
-        self.optimizer = adam([p for k, p in named.items() if k not in frozen | apart], self.config)
+        self.optimizer = adam([p for k, p in named.items() if k not in frozen | apart], self.config,
+                              capturable=self.captured)
         self.opt_feat = adam([named[k] for k in self.feature_names], self.config) if apart else None
+        if self.step_graph is not None:  # its Adam states are gone
+            self.step_graph.drop()
 
     def init_state(self, seed: Optional[int] = None) -> None:
         """Fresh parameters (drawn from ``seed``, default config.seed), fresh
@@ -313,7 +326,10 @@ class Trainer:
         losses = torch.empty(n, device=self.device)
         if self.cadence == "fresh":
             for b in range(n):
-                losses[b] = self.train_step(batches[b], draw(b))
+                if self.step_graph is not None and draws is None:
+                    losses[b] = self.step_graph.step(batches[b])
+                else:
+                    losses[b] = self.train_step(batches[b], draw(b))
             return losses
         if self.cadence == "super":
             t = self.feat_every

@@ -447,3 +447,182 @@ def test_cuda_table_gather_gradient_runs_the_kernel():
         torch.sum(out * torch.from_numpy(weight).to(dev)).backward()
         grads.append(t.grad.cpu().numpy())
     np.testing.assert_array_equal(grads[1], grads[0])
+
+
+def _graph_trainer(dropout: bool, key: str = "lgn"):
+    """A Trainer on the card whose fresh step is captured: lgn, or the
+    textsage flagship cut to d 32, fanout 3, B 512 (module-level imports stay
+    free of the trainer's)."""
+    import dataclasses
+
+    from furusato_recommend_tpu_torch.config import Config, ddp_flagship_config
+    from furusato_recommend_tpu_torch.data.dataset import synthetic_dataset
+    from furusato_recommend_tpu_torch.data.features import synthetic_features
+    from furusato_recommend_tpu_torch.models.registry import build_model
+    from furusato_recommend_tpu_torch.obs.log import MetricLogger
+    from furusato_recommend_tpu_torch.train.trainer import Trainer
+
+    ds = synthetic_dataset(n_users=3000, m_items=2000, avg_degree=10, seed=0)
+    if key == "textsage":
+        fields = dataclasses.asdict(ddp_flagship_config())
+        fields.pop("mesh")
+        fields.update(latent_dim=32, num_neighbors=3, bpr_batch_size=512, eval_user_batch=256, topks=(10, 20),
+                      test_count=2, compute_dtype="float32", lr=1e-3, seed=5)
+        cfg = Config(**fields)
+        model = build_model(key, cfg, ds.graph, features=synthetic_features(ds, cfg, seed=1))
+    else:
+        cfg = Config(model=key, latent_dim=32, n_layers=2, bpr_batch_size=1024, lr=1e-3, eval_user_batch=256,
+                     topks=(10, 20), compute_dtype="float32", seed=5, dropout=dropout, keep_prob=0.7)
+        model = build_model(key, cfg, ds.graph)
+    trainer = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=key == "textsage",
+                      device="cuda")
+    trainer.init_state()
+    return trainer
+
+
+def _graph_state(trainer):
+    """(parameters on the host, the optimizer's state tensors, the generator
+    state), copied."""
+    params = {k: p.detach().cpu().numpy().copy() for k, p in trainer.model.named_parameters()}
+    adam = [{k: v.clone() for k, v in trainer.optimizer.state[p].items()} for p in trainer.model.parameters()]
+    return params, adam, trainer.generator.get_state()
+
+
+@torch.no_grad()
+def _set_graph_state(trainer, state):
+    params, adam, gen = state
+    for k, p in trainer.model.named_parameters():
+        p.copy_(torch.from_numpy(params[k]))
+    for p, saved in zip(trainer.model.parameters(), adam):
+        for k, v in saved.items():
+            trainer.optimizer.state[p][k].copy_(v)
+    trainer.generator.set_state(gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [False, True])
+def test_cuda_replayed_epoch_equals_the_eager_epoch(dropout):
+    """An epoch by replays of the captured lgn step against the eager steps
+    from the same state (edge dropout drawn in the graph from the trainer's
+    generator): the generator states equal, the losses within rtol 1e-5 (the
+    first 1e-6), the parameters under phase 7's rule of ``chip_smoke.py``
+    (within 4 lr, all but 1e-3 of them within 1e-6 + 1e-5 |p|: the scatter
+    kernel's atomic adds sum in no fixed order); each replay counted as 4
+    scatter launches; no host sync in the replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from furusato_recommend_tpu_torch.train.graphed import WARMUP_STEPS
+
+    t = _graph_trainer(dropout)
+    n, bs = t.num_batches, t.config.bpr_batch_size
+    t.train_one_epoch()  # the warm-up steps, the capture, replays
+    graph = t.step_graph
+    assert t.captured and graph.graph is not None and graph.stats["captures"] == 1
+    assert graph.scatter_launches == 4
+    start = _graph_state(t)
+    batches = t.sample_epoch()
+    sc.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replayed = t.train_epoch([batches.slice(b * bs, (b + 1) * bs) for b in range(n)])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sc.launches == 4 * n and graph.stats["replays"] == 2 * n - WARMUP_STEPS
+    got = (replayed.cpu().numpy(), *_graph_state(t)[::2])
+    _set_graph_state(t, start)
+    batches = t.sample_epoch()
+    eager = torch.stack([t.train_step(batches.slice(b * bs, (b + 1) * bs)) for b in range(n)])
+    want = (eager.cpu().numpy(), *_graph_state(t)[::2])
+    assert torch.equal(got[2], want[2])
+    np.testing.assert_allclose(got[0][0], want[0][0], rtol=1e-6)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    off = total = 0
+    for k, w in want[1].items():
+        diff = np.abs(got[1][k] - w)
+        assert diff.max() <= 4 * t.config.lr, k
+        off += int((diff > 1e-6 + 1e-5 * np.abs(w)).sum())
+        total += diff.size
+    assert off <= 1e-3 * total, f"{off} of {total} parameters off"
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_recaptures_after_init_state_and_restore(tmp_path):
+    """The graph is dropped when init_state or restore replace the Adam
+    states, and the next epoch captures again; every epoch launches the
+    scatter kernel 4 times a step; a trainer restored from a checkpoint takes
+    the epoch the saved one takes, by its own capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    t = _graph_trainer(False)
+    n = t.num_batches
+    for captures, replace in ((1, None), (2, t.init_state), (3, lambda: t.restore(tmp_path / "a.ckpt"))):
+        if replace is not None:
+            replace()
+            assert t.step_graph.graph is None
+        sc.launches = 0
+        assert np.isfinite(t.train_one_epoch())
+        assert sc.launches == 4 * n
+        assert t.step_graph.stats["captures"] == captures and t.step_graph.graph is not None
+        if captures == 1:
+            t.save(tmp_path / "a.ckpt")
+    other = _graph_trainer(False)
+    other.restore(tmp_path / "a.ckpt")
+    t.restore(tmp_path / "a.ckpt")
+    t.train_one_epoch()
+    other.train_one_epoch()
+    assert torch.equal(t.generator.get_state(), other.generator.get_state())
+    np.testing.assert_allclose(other.epoch_losses.cpu().numpy(), t.epoch_losses.cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_takes_whole_batches_of_one_shape():
+    """The static inputs are made once at the first batch's shape; a batch
+    of another shape, or one rank's share of a batch, is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    t = _graph_trainer(False)
+    batches = t.sample_epoch()
+    t.step_graph.step(batches.slice(0, 1024))
+    ptr = t.step_graph.batch.user.data_ptr()
+    with pytest.raises(ValueError, match="a batch of"):
+        t.step_graph.step(batches.slice(0, 512))
+    with pytest.raises(ValueError, match="whole batches"):
+        t.step_graph.step(batches.slice(0, 1024).data_shard(0, 2))
+    t.step_graph.step(batches.slice(1024, 2048))
+    assert t.step_graph.batch.user.data_ptr() == ptr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["lgn", "textsage"])
+def test_cuda_captured_adam_matches_optax_over_eight_steps(key):
+    """The fused, capturable Adam of a captured configuration over 8 real
+    steps (as many as tests/test_torch_cadence.py's epoch: 3 eager warm-up
+    steps, the capture, 5 replays) against optax.adam's rule in float64
+    (``tests/torch_oracle.py::OptaxAdam``, held against optax on the CPU), fed
+    each step's gradients as the card computed them: the parameters within
+    test_torch_cadence.py's rtol 1e-4 / atol 1e-6, the moments within rtol
+    1e-4 (atol 1e-9 / 1e-12, as test_torch_graphed.py holds them against
+    optax), the step count 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from furusato_recommend_tpu_torch.train.graphed import WARMUP_STEPS
+    from torch_oracle import OptaxAdam
+
+    t = _graph_trainer(False, key)
+    assert t.captured and all(g["fused"] and g["capturable"] for g in t.optimizer.param_groups)
+    params = [p for g in t.optimizer.param_groups for p in g["params"]]
+    ref = OptaxAdam([p.detach().cpu().numpy() for p in params], t.config.lr)
+    bs = t.config.bpr_batch_size
+    batches = t.sample_epoch()
+    for b in range(8):
+        t.step_graph.step(batches.slice(b * bs, (b + 1) * bs))
+        assert all(p.grad is not None for p in params), b
+        ref.step([p.grad.cpu().numpy() for p in params])
+    assert t.step_graph.stats["captures"] == 1 and t.step_graph.stats["replays"] == 8 - WARMUP_STEPS
+    for i, p in enumerate(params):
+        state = t.optimizer.state[p]
+        assert float(state["step"]) == ref.count == 8
+        np.testing.assert_allclose(p.detach().cpu().numpy(), ref.params[i], rtol=1e-4, atol=1e-6, err_msg=str(i))
+        np.testing.assert_allclose(state["exp_avg"].cpu().numpy(), ref.mu[i], rtol=1e-4, atol=1e-9)
+        np.testing.assert_allclose(state["exp_avg_sq"].cpu().numpy(), ref.nu[i], rtol=1e-4, atol=1e-12)

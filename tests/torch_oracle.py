@@ -551,3 +551,28 @@ def run_mf_lgn(
     if metrics is None or not eval_every:
         metrics = evaluate()
     return metrics
+
+
+class OptaxAdam:
+    """``optax.adam(lr)``'s update rule (``scale_by_adam``, then -lr) in
+    float64 numpy, one ``step(grads)`` at a time over a list of parameter
+    arrays: mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g^2, and
+    p -= lr (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps).
+    Consumers: tests/test_torch_graphed.py holds it against optax,
+    tests/test_torch_kernels.py holds the card's Adam against it."""
+
+    def __init__(self, params, lr, b1=0.9, b2=0.999, eps=1e-8):
+        self.params = [np.array(p, np.float64) for p in params]
+        self.mu = [np.zeros_like(p) for p in self.params]
+        self.nu = [np.zeros_like(p) for p in self.params]
+        self.count = 0
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+
+    def step(self, grads) -> None:
+        self.count += 1
+        c1, c2 = 1.0 - self.b1**self.count, 1.0 - self.b2**self.count
+        for i, g in enumerate(grads):
+            g = np.asarray(g, np.float64)
+            self.mu[i] = self.b1 * self.mu[i] + (1.0 - self.b1) * g
+            self.nu[i] = self.b2 * self.nu[i] + (1.0 - self.b2) * g * g
+            self.params[i] = self.params[i] - self.lr * (self.mu[i] / c1) / (np.sqrt(self.nu[i] / c2) + self.eps)

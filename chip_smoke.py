@@ -392,8 +392,9 @@ Phases (any failure raises and exits non-zero):
                train positive served, one masked_topk launch a request; the
                refresh against the CPU's propagation, mf and the LightGCN keys
                under phase 4's rule against a float64 one, the SAGE keys under
-               phase 9's), then trained (rgcn, lgn's model, by replays of its
-               captured step): mf, rgcn and textsage_id 3 epochs
+               phase 9's), then trained (every key by replays of its captured
+               step, each trainer's graph freed after its evaluation): mf,
+               rgcn and textsage_id 3 epochs
                between two evaluations (the last epoch's loss below the
                first's, recall@10 above its start but mf's: RECALL_FLAT),
                every other key one epoch and one evaluation (the loss falling
@@ -408,30 +409,50 @@ Phases (any failure raises and exits non-zero):
                scatter at the ids of one textsage_id step's tree gathers at
                node width 64 (a {"registry": ...} line with the card's name
                and power limit)
- 21. graph-20k lgn at phase 19's recipe and textsage at the flagship's on
-               phase 12's graph and features (run after phase 20), each
-               trained by replays of its captured step (train/graphed.py):
+ 21. graph-20k every configuration whose step the trainer captures (the
+               fresh cadence, no mesh; GRAPH_KEYS): lgn at phase 19's recipe
+               and textsage at the flagship's (the first two captured), then mf, radj and
+               lgcnssm at phase 19's lgn recipe, phase 20's SAGE keys at the
+               flagship's, phase 13's attention keys, phase 14's edge-feature
+               keys on their inputs (rsage on the relational graph, tgsrec and
+               sasgnn with the purchase times) and phase 15's sasrec (its
+               anchor recipe) and asage, on phase 12's graph and features (run
+               after phase 20); every key after lgn and textsage cut to
+               GRAPH_STEPS steps an epoch (its checks the same). For each: an
+               eager step, then another under torch's sync debug mode "error";
                epoch 1 (the eager warm-up steps, the capture, replays), its
                checkpoint; epoch 2 by replays, whose host syncs must be
                exactly one (the loss mean), and the same epoch by the eager
                train_step loop from the same parameters, Adam states and
                generator state, twice: the generator states equal, the first
-               losses within 1e-6 relative, lgn's epoch under phase 7's rule
-               (losses within 1e-5 relative, parameters within 4 lr, all but
-               1e-3 of them within 1e-6 + 1e-5 |p|), textsage's under phase
-               19's rule for runs longer than two steps (losses within 2e-3
-               relative, parameters within 10 lr: the atomic adds' order
-               differs from run to run, and its two eager epochs part by as
-               much), and two steps each way under phase 7's rule; epoch 1's
-               checkpoint restored into a new Trainer, epoch 2 by its own
-               capture, held against the first one's by the key's epoch rule; a replayed step's profile holds as many
-               scatter_add_rows kernels as the eager step's (4 / 2) and no
-               library scatter the eager step does not; the scatter launches
-               counted over the phase, replays included, exactly; then
-               samples/s, host and device ms a step and the idle share of
-               replays and of eager epochs in turns, and the capture's cost
-               (warm-up steps, capture, instantiate, the graph pool's MiB)
-               (a {"graph": ...} line)
+               losses within 1e-6 relative, the epoch under the key's rule
+               (GRAPH_EPOCH_RULE: mf's and the LightGCN keys' phase 7's,
+               losses within 1e-5 relative, parameters within 4 lr, all but
+               1e-3 of them within 1e-6 + 1e-5 |p|; textsage's phase 19's,
+               losses within 2e-3 relative, parameters within 10 lr; every
+               other SAGE key's parameters within 2 lr and its losses
+               within 1e-4 relative (sasrec's 5e-4): the atomic adds' order
+               differs from run to run, a ReLU gate within rounding of 0
+               turns on it, and two eager epochs part by as much), and two
+               steps each way under phase 7's rule (tgsrec's
+               with a share of 1e-2); epoch 1's checkpoint restored
+               into a new Trainer, epoch 2 by its own capture, held against
+               the first one's by the key's epoch rule; a replayed step's
+               profile holds as many scatter_add_rows kernels as the eager
+               step's (scatter_per_step) and no library scatter; the trainer
+               and its graph pool freed before the next key's is built; the
+               scatter launches counted over the phase, replays included,
+               exactly; samples/s, host and device ms a step and the idle
+               share of replays and of eager epochs in turns for lgn,
+               textsage and one key of each family (GRAPH_TIMED), and every
+               capture's cost (warm-up steps, capture, instantiate, the graph
+               pool's MiB) (a {"graph": ...} line)
+
+Every fresh-cadence Trainer these phases build on the card without a mesh
+trains by replays of its captured step (train/graphed.py), every registry
+key but dask; the R / T / dask cadences and phase 19's mesh ranks step
+eagerly. Phases 13-15 and 20 free each trainer's graph after its evaluation
+and capture again before its numbers, which time replays.
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
 30000, B in {1, 64, 512, 1024}, k in {10, 20}, and at phase 12's evaluation
@@ -2226,17 +2247,20 @@ def card_vs_cpu_cadences(ds, fs, trainer8, dev) -> dict:
                                   ("T8", {"feature_update_every": CADENCE_BLOCK}))}
 
 
-def cadence_numbers(trainer, label, profile_steps=2 * CADENCE_BLOCK, epoch_s=None) -> dict:
-    """Samples/s and host ms a step from a timed epoch (``epoch_s``: the
-    seconds of one the caller timed, else one timed here); device ms and
+def cadence_numbers(trainer, label, profile_steps=2 * CADENCE_BLOCK) -> dict:
+    """Samples/s and host ms a step from a timed epoch; device ms and
     operations a step from ``profile_steps`` profiled steps run through
     ``train_epoch`` (whole blocks of the cadence; the dask epoch's streamed
     passes count only when the whole epoch is profiled); and the idle share of
-    an unprofiled step (1 - device / host)."""
-    if epoch_s is None:
-        epoch_s, _, _ = _timed_epoch(trainer)
-    steps = trainer.num_batches
+    an unprofiled step (1 - device / host). A captured trainer without a
+    graph first takes its warm-up steps and its capture, so that both are
+    replays; its graph is freed after them."""
     bs = trainer.config.bpr_batch_size
+    if trainer.step_graph is not None and trainer.step_graph.graph is None:
+        warm = trainer.sample_epoch()
+        trainer.train_epoch([warm.slice(i * bs, (i + 1) * bs) for i in range(gr.WARMUP_STEPS + 1)])
+    epoch_s, _, _ = _timed_epoch(trainer)
+    steps = trainer.num_batches
     batches = trainer.sample_epoch()
     blocks = [batches.slice(i * bs, (i + 1) * bs) for i in range(min(profile_steps, steps))]
     torch.cuda.synchronize()
@@ -2252,6 +2276,7 @@ def cadence_numbers(trainer, label, profile_steps=2 * CADENCE_BLOCK, epoch_s=Non
         log(f"{label}: {out['samples_per_s']:.0f} samples/s; a step {out['host_ms_per_step']:.2f} ms on the "
             f"host, {out['device_ms_per_step']:.3f} ms on the device in {out['device_ops_per_step']:.0f} "
             f"operations; idle {out['idle_share_unprofiled']:.3f}")
+    release(trainer)
     return out
 
 
@@ -2415,7 +2440,8 @@ def train_keys_20k(keys, inputs, dev, phase, first_epochs, long=1) -> dict:
     evaluations (the last epoch's loss below the first's, recall@10 above its
     start but for RECALL_FLAT's keys), then one epoch and one evaluation of
     each other key (the loss falling from the epoch's first tenth to its
-    last). ``inputs(name)``: the (dataset, features) of a key. Returns facts,
+    last); a captured key's graph is freed after its evaluation.
+    ``inputs(name)``: the (dataset, features) of a key. Returns facts,
     the trainers under "trainers" and the scatter launches the steps must
     make under "scatter_expected" (``scatter_per_step`` a step). sasrec, mf
     and the LightGCN keys train with the uniform sampler, the others with
@@ -2453,6 +2479,7 @@ def train_keys_20k(keys, inputs, dev, phase, first_epochs, long=1) -> dict:
             f"{last:.4f}"
             f"{' (first and last tenth)' if before is None else ''}, recall@10 "
             + (f"{before['recall@10']:.4f} -> " if before else "") + f"{after['recall@10']:.4f}")
+        release(tr)  # its graph pool, before the next key's trainer is built
         trainers[label] = tr
     facts.update(steps=steps, evaluations=n_eval, eval_tiles=n_tiles, trainers=trainers,
                  scatter_expected=expected)
@@ -2667,7 +2694,8 @@ def edge_20k(ds, fs, dev, textsage_r1, tgrec) -> dict:
                                      rows_seed=SEED + 17)
     del trainers, rs, rec
     return {"data": data, "serve": serve, "refresh": refresh, "train": train, "numbers": numbers,
-            "relation_scatter": rel_scatter, "textsage_R1": textsage_r1, "tgrec": tgrec, "launches": launches}
+            "relation_scatter": rel_scatter, "textsage_R1": textsage_r1, "tgrec": tgrec, "launches": launches,
+            "inputs": inputs}
 
 
 def sequence_attr_20k_data(ds, fs) -> dict:
@@ -2817,8 +2845,7 @@ def registry_20k(ds, fs, dev, scatter_held, topk_held) -> dict:
         serve[label]["refresh_profile"] = device_profile(lambda: rec.refresh(None), n=5)
         log(f"serve-registry-20k {label}: refresh {serve[label]['refresh_ms']:.3f} ms on the host, "
             f"{(serve[label]['refresh_profile'] or {}).get('device_ms')} ms on the device")
-    numbers = {label: cadence_numbers(tr, f"registry-20k {label}", profile_steps=ATT_PROFILE_STEPS,
-                                      epoch_s=train[label]["epoch_s"][-1])
+    numbers = {label: cadence_numbers(tr, f"registry-20k {label}", profile_steps=ATT_PROFILE_STEPS)
                for label, tr in trainers.items()}
     first_id = REG_ID_KEYS[0]
     gathers = step_gathers(trainers[first_id], blocks[first_id][0][0], blocks[first_id][1][0])
@@ -2832,14 +2859,55 @@ def registry_20k(ds, fs, dev, scatter_held, topk_held) -> dict:
             "launch_shapes": launched, "scatter_shapes": shapes_64, "launches": launches, "phase_s": phase_s}
 
 
-GRAPH_KEYS = ("lgn", "textsage")  # phase 21: lgn at phase 19's recipe, textsage at the flagship's
+# phase 21: every configuration whose step the trainer captures (the fresh
+# cadence, no mesh; rgcn is lgn's model, driven by phase 20): lgn and textsage
+# (the first two captured), then mf and the LightGCN keys at phase 19's lgn recipe, phase 20's
+# SAGE keys at the flagship's, phase 13's and 14's keys on their inputs (rsage
+# over its relational graph, tgsrec and sasgnn with the purchase times), sasrec
+# at its anchor recipe and asage at the flagship's
+GRAPH_KEYS = ((("lgn", {}), ("textsage", {})) + tuple(k for k in REG_KEYS if k[0] != "rgcn") + ATT_KEYS
+              + EDGE_KEYS + SEQ_KEYS)
+# the keys whose replay and eager epochs are timed in turns: lgn, textsage and
+# one of each family
+GRAPH_TIMED = ("lgn", "textsage", "mf", "radj", "pinsage", "nssage", "tgrec", "rsage add", "sasrec", "asage")
+# the depth cut: an epoch of every key after lgn and textsage (whole: 28 and 84
+# steps) takes its first GRAPH_STEPS steps; its checks are the same
+GRAPH_STEPS = 16
 # phase 21's epoch rule a key, (loss rtol, parameters within that many lr,
-# the share of them allowed outside 1e-6 + 1e-5 |p|): lgn's epochs repeat to
-# a few parameters in a million, so phase 7's rule; textsage's eager epochs
-# part by up to 8e-4 in loss and about one lr in parameters from one run to
-# the next (its ReLU gates turn on the atomic adds' order), so phase 19's
-GRAPH_EPOCH_RULE = {"lgn": (1e-5, 4, 1e-3), "textsage": (MESH_LOSS_RTOL, MESH_PARAM_LRS, 1.0)}
-GRAPH_PROFILE_STEPS = 20
+# the share of them allowed outside 1e-6 + 1e-5 |p|), each set from the
+# readings on the H100 of four whole runs (replays against eager, the eager
+# epoch against itself, the restored epoch; PERF.md): lgn's, mf's and
+# the LightGCN keys' epochs repeat to 25 parameters in 1.92 million (max
+# 0.004 lr), so phase 7's rule; textsage's 84 steps keep phase 19's (up to
+# 99% off, 1.33 lr, losses 1.1e-3). Every other SAGE-family key: a ReLU gate
+# within rounding of 0 turns on the atomic adds' order in some run of any of
+# them, and the run's parameters then part by up to 0.53 lr (sage; 0.17-0.25
+# the others), so 2 lr: a replay that misses an Adam update is off by up to an
+# lr a step. Where a gate turns, the parts spread over anywhere from 0.02% to
+# 91% of the parameters (gnn gat read at most 1.45% in three runs and 45% in
+# the fourth), so no count is held; losses part by up to 2.5e-5 (sasrec
+# 1.35e-4): 1e-4 (sasrec 5e-4)
+_PHASE7_RULE, _PHASE19_RULE = (1e-5, 4, 1e-3), (MESH_LOSS_RTOL, MESH_PARAM_LRS, 1.0)
+_SAGE_RULE, _SASREC_RULE = (1e-4, 2, 1.0), (5e-4, 2, 1.0)
+
+
+def _graph_rule(name: str, label: str) -> tuple:
+    if name not in SAGE_KEYS:
+        return _PHASE7_RULE
+    if label == "textsage":
+        return _PHASE19_RULE
+    return _SASREC_RULE if name == "sasrec" else _SAGE_RULE
+
+
+GRAPH_EPOCH_RULE = {key_label(name, over): _graph_rule(name, key_label(name, over)) for name, over in GRAPH_KEYS}
+# two steps each way under phase 7's rule, but tgsrec's (its two steps part
+# by 36-122 of 46,144 parameters, max 5.4e-6, on the H100: past phase 7's
+# share) with a share of 1e-2
+GRAPH_TWO_STEP_RULE = {label: (1e-5, 4, 1e-2) if label == "tgsrec" else _PHASE7_RULE for label in GRAPH_EPOCH_RULE}
+# profiled steps of a replayed and of an eager step: lgn's and textsage's 20,
+# the other timed keys' 8, every other key's 2
+GRAPH_PROFILE_STEPS = {"lgn": 20, "textsage": 20, **{label: 8 for label in GRAPH_TIMED[2:]}}
+GRAPH_CHECK_STEPS = 2
 GRAPH_FIRST_LOSS_RTOL = 1e-6
 # name parts of torch's own scatter kernels (index_add_, scatter_add_): a
 # replayed step must hold none that the eager step does not
@@ -2882,7 +2950,7 @@ def _eager_epoch(trainer) -> tuple:
     return time.perf_counter() - t0, mean, losses.cpu().numpy()
 
 
-def _epoch_rule(got: tuple, want: tuple, lr: float, name: str) -> dict:
+def _epoch_rule(got: tuple, want: tuple, lr: float, label: str) -> dict:
     """Two epochs from one state, (losses, parameters, generator state)
     each, under the key's GRAPH_EPOCH_RULE (the scatter kernel's atomic adds
     sum in no fixed order, so the card does not repeat an epoch bit for bit,
@@ -2891,7 +2959,7 @@ def _epoch_rule(got: tuple, want: tuple, lr: float, name: str) -> dict:
     GRAPH_FIRST_LOSS_RTOL, every loss within the rule's rtol, every parameter
     within its multiple of lr and all but its share within 1e-6 + 1e-5 |p|."""
     (gl, gp, gg), (wl, wp, wg) = got, want
-    loss_rtol, lrs, share = GRAPH_EPOCH_RULE[name]
+    loss_rtol, lrs, share = GRAPH_EPOCH_RULE[label]
     assert torch.equal(gg, wg), "the generator states differ"
     first = abs(float(gl[0]) - float(wl[0])) / abs(float(wl[0]))
     assert first <= GRAPH_FIRST_LOSS_RTOL, f"first losses {gl[0]} / {wl[0]}"
@@ -2917,7 +2985,7 @@ def _two_steps(trainer, snap: dict, replays: bool) -> tuple:
     return losses.cpu().numpy(), whole_params(trainer)
 
 
-def step_kernels(fn, n=GRAPH_PROFILE_STEPS) -> dict:
+def step_kernels(fn, n: int) -> dict:
     """torch.profiler over n calls of a step (after one unprofiled): the
     scatter kernels a step (the port's, torch's), device ms and operations a
     step, and the share of the window's wall time with nothing on the card."""
@@ -2931,111 +2999,157 @@ def step_kernels(fn, n=GRAPH_PROFILE_STEPS) -> dict:
             "device_ops": len(inside) / n, "idle_share_profiled": 1.0 - busy / wall_us, "pad_kept": pad_kept}
 
 
-def graph_trainer(ds, fs, name: str, dev) -> Trainer:
-    cfg, model = model_20k(ds, fs, name, SEED + 1)
+def graph_trainer(ds, fs, name: str, dev, steps=None, **over) -> Trainer:
+    """A key's trainer from fresh parameters; ``steps``: an epoch's steps
+    (the depth cut), else the whole epoch's."""
+    cfg, model = model_20k(ds, fs, name, SEED + 1, **over)
     trainer = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=ddp_recipe(name), device=dev)
     trainer.init_state()
+    if steps is not None:
+        trainer.num_batches = steps
+        trainer.samples_per_epoch = steps * cfg.bpr_batch_size
     return trainer
 
 
-def graph_20k(ds, fs, dev, tmp) -> dict:
-    """Phase 21: lgn and textsage trained by replays of their captured step
-    against the eager train_step loop from the same state, the restore, the
-    epoch's host syncs, the kernels of a replayed step and both numbers."""
+def release(trainer) -> None:
+    """Free a captured trainer's graph and its memory pool (the next epoch
+    captures again)."""
+    if trainer.step_graph is not None:
+        trainer.step_graph.drop()
+
+
+def graph_key(ds, fs, name: str, over: dict, dev, tmp) -> tuple:
+    """Phase 21 for one configuration: an eager step under the sync debug
+    mode's "error"; epoch 1 (the warm-up steps, the capture, replays), its
+    checkpoint; epoch 2 by replays (its host syncs) against the eager loop
+    from the same state, twice; two steps each way; the checkpoint restored
+    into a new trainer, epoch 2 by its own capture; the kernels of a replayed
+    step against an eager one's; for GRAPH_TIMED's keys replay and eager
+    epochs in turns. Returns (facts, the scatter launches its steps made)."""
+    label = key_label(name, over)
+    cut = None if label in ("lgn", "textsage") else GRAPH_STEPS
+    timed = label in GRAPH_TIMED
+    reserved = torch.cuda.memory_reserved(dev)
+    tr = graph_trainer(ds, fs, name, dev, cut, **over)
+    n, lr, per_step = tr.num_batches, tr.config.lr, scatter_per_step(name)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    batch = sample_bpr(gen, tr.graph, tr.config.bpr_batch_size, tr.config.neg_candidates,
+                       edge_alias=tr.edge_alias, neg_alias=tr.neg_alias)
+    # (0) a step, once its first call has built what it keeps, that never
+    # waits for the card: what a capture takes
+    tr.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.train_step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    first_s, _, _ = _timed_epoch(tr)  # W eager warm-up steps, the capture, replays
+    graph = tr.step_graph
+    assert tr.captured and graph is not None and graph.graph is not None, f"{label}: the step was not captured"
+    capture = {k: graph.stats[k] for k in ("warmup_ms", "capture_ms", "instantiate_ms", "pool_mib")}
+    assert graph.scatter_launches == per_step, (label, graph.scatter_launches)
+    ckpt = os.path.join(tmp, f"graph_{label.replace(' ', '_')}.ckpt")
+    tr.save(ckpt)
+    snap = _snapshot(tr)
+    # (c) the replayed epoch's host syncs; its losses, parameters and
+    # generator state
+    replays = graph.stats["replays"]
+    syncs = host_syncs(tr.train_one_epoch)
+    assert graph.stats["replays"] == replays + n, f"{label}: an epoch after the capture not all replays"
+    assert len(syncs) == 1, f"{label}: {len(syncs)} host syncs in an epoch of replays: {syncs}"
+    replayed = (tr.epoch_losses.cpu().numpy(), whole_params(tr), tr.generator.get_state())
+    # (a) the same epoch by the eager loop from the same state, twice (the
+    # card's own spread), and two steps each way under phase 7's rule
+    eager = []
+    for _ in range(2):
+        _reset(tr, snap)
+        _, _, eager_losses = _eager_epoch(tr)
+        eager.append((eager_losses, whole_params(tr), tr.generator.get_state()))
+    vs_eager = _epoch_rule(replayed, eager[0], lr, label)
+    eager_spread = _epoch_rule(eager[1], eager[0], lr, label)
+    (rl, rp), (el, ep) = _two_steps(tr, snap, True), _two_steps(tr, snap, False)
+    assert abs(rl[0] - el[0]) <= GRAPH_FIRST_LOSS_RTOL * abs(el[0]), (label, rl, el)
+    np.testing.assert_allclose(rl[1], el[1], rtol=1e-4)
+    _, two_lrs, two_share = GRAPH_TWO_STEP_RULE[label]
+    two_steps = {"losses": [rl.tolist(), el.tolist()], **_params_rule(rp, ep, two_lrs * lr, two_share)}
+    # (d) epoch 1's checkpoint restored into a new trainer, epoch 2 by its
+    # own capture and replays
+    tr2 = graph_trainer(ds, fs, name, dev, cut, **over)
+    tr2.restore(ckpt)
+    tr2.train_one_epoch()
+    assert tr2.step_graph.stats["captures"] == 1 and tr2.step_graph.stats["replays"] == n - gr.WARMUP_STEPS
+    vs_restored = _epoch_rule((tr2.epoch_losses.cpu().numpy(), whole_params(tr2), tr2.generator.get_state()),
+                              replayed, lr, label)
+    del tr2
+    # (e) numbers: replays and eager epochs in turns (GRAPH_TIMED), then a
+    # profile of each step
+    epochs = {"replays": [], "eager": []}
+    for kind in ("replays", "eager", "eager", "replays") if timed else ():
+        epochs[kind].append((_timed_epoch if kind == "replays" else _eager_epoch)(tr)[0])
+    # (b) the kernels of a replayed step against the eager step's
+    prof_n = GRAPH_PROFILE_STEPS.get(label, GRAPH_CHECK_STEPS)
+    prof = {"replays": step_kernels(lambda: graph.step(batch), prof_n),
+            "eager": step_kernels(lambda: tr.train_step(batch), prof_n)}
+    assert prof["replays"]["scatter_add_rows"] == prof["eager"]["scatter_add_rows"] == per_step, (label, prof)
+    assert prof["replays"]["library_scatter"] == prof["eager"]["library_scatter"] == 0, (label, prof)
+    # the 2 steps of (0), epochs 1 and 2, 2 eager epochs, 2 x 2 steps, the
+    # restored epoch, the timed epochs, 2 profiles
+    steps = (2 + 5 * n + 4 + 4 * n * timed + 2 * (prof_n + 1)) * per_step
+    numbers = {}
+    for kind in ("replays", "eager") if timed else ():
+        s = float(np.median(epochs[kind]))
+        numbers[kind] = {"epoch_s": epochs[kind], "samples_per_s": tr.samples_per_epoch / s,
+                         "host_ms_per_step": 1e3 * s / n, **prof[kind]}
+        numbers[kind]["idle_share"] = 1.0 - prof[kind]["device_ms"] / numbers[kind]["host_ms_per_step"]
+    log(f"graph-20k {label}: epoch 1 {first_s:.2f} s ({gr.WARMUP_STEPS} eager warm-up steps "
+        f"{capture['warmup_ms']:.1f} ms, capture {capture['capture_ms']:.1f} ms, instantiate "
+        f"{capture['instantiate_ms']:.1f} ms, graph pool {capture['pool_mib']:.1f} MiB); epoch 2 by {n} replays "
+        f"against the eager loop from the same state: generator state equal, first loss within "
+        f"{vs_eager['first_loss_rel']:.3g} relative, losses {vs_eager['loss_max_rel']:.3g}, parameters within "
+        f"1e-6 + 1e-5 |p| but {vs_eager['off']} of {vs_eager['total']} (max abs diff "
+        f"{vs_eager['max_abs_diff']:.3g}; the eager loop twice: losses {eager_spread['loss_max_rel']:.3g}, "
+        f"{eager_spread['off']} parameters off, max abs diff {eager_spread['max_abs_diff']:.3g}; rule "
+        f"{GRAPH_EPOCH_RULE[label]}); two steps each way under {GRAPH_TWO_STEP_RULE[label][1:]}: "
+        f"{two_steps['off']} parameters off "
+        f"(max abs diff {two_steps['max_abs_diff']:.3g}); {len(syncs)} host sync in epoch 2 ({syncs[0][:40]}...)")
+    log(f"graph-20k {label}: a replayed step {prof['replays']['scatter_add_rows']:g} scatter_add_rows kernels, "
+        f"{prof['replays']['library_scatter']:g} library scatters (eager: {prof['eager']['scatter_add_rows']:g}, "
+        f"{prof['eager']['library_scatter']:g}); epoch 1's checkpoint restored, epoch 2 by its own capture: "
+        f"generator state equal, losses {vs_restored['loss_max_rel']:.3g}, parameters but {vs_restored['off']} "
+        f"of {vs_restored['total']} (max abs diff {vs_restored['max_abs_diff']:.3g})")
+    for kind, x in numbers.items():
+        log(f"graph-20k {label} {kind}: {x['samples_per_s']:.0f} samples/s; a step {x['host_ms_per_step']:.3f} "
+            f"ms on the host, {x['device_ms']:.3f} ms on the device in {x['device_ops']:.0f} operations; idle "
+            f"{x['idle_share']:.3f}")
+    facts = {"steps_per_epoch": n, "B": tr.config.bpr_batch_size, "d": tr.config.latent_dim,
+             "first_epoch_s": first_s, "capture": capture, "host_syncs_epoch_2": syncs, "rule": GRAPH_EPOCH_RULE[label],
+             "vs_eager": vs_eager, "eager_spread": eager_spread, "two_steps": two_steps,
+             "vs_restored": vs_restored, "profiles": prof, "numbers": numbers}
+    del tr, graph
+    torch.cuda.empty_cache()
+    facts["reserved_mib_after_release"] = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+    return facts, steps
+
+
+def graph_20k(inputs, dev, tmp) -> dict:
+    """Phase 21: every captured configuration (GRAPH_KEYS) trained by
+    replays of its captured step against the eager train_step loop from the
+    same state (``graph_key``), each trainer and its graph pool freed before
+    the next is built; ``inputs(name)``: the (dataset, features) of a key."""
     t0 = time.perf_counter()
     st.launches = sc.launches = 0
     out, steps = {}, {}
-    for name in GRAPH_KEYS:
-        tr = graph_trainer(ds, fs, name, dev)
-        n, lr, per_step = tr.num_batches, tr.config.lr, scatter_per_step(name)
-        first_s, _, _ = _timed_epoch(tr)  # W eager warm-up steps, the capture, replays
-        graph = tr.step_graph
-        assert tr.captured and graph is not None and graph.graph is not None, "the step was not captured"
-        capture = {k: graph.stats[k] for k in ("warmup_ms", "capture_ms", "instantiate_ms", "pool_mib")}
-        assert graph.scatter_launches == per_step, graph.scatter_launches
-        ckpt = os.path.join(tmp, f"graph_{name}.ckpt")
-        tr.save(ckpt)
-        snap = _snapshot(tr)
-        # (c) the replayed epoch's host syncs; its losses, parameters and
-        # generator state
-        replays = graph.stats["replays"]
-        syncs = host_syncs(tr.train_one_epoch)
-        assert graph.stats["replays"] == replays + n, "an epoch after the capture not all replays"
-        assert len(syncs) == 1, f"{len(syncs)} host syncs in an epoch of replays: {syncs}"
-        replayed = (tr.epoch_losses.cpu().numpy(), whole_params(tr), tr.generator.get_state())
-        # (a) the same epoch by the eager loop from the same state, twice
-        # (the card's own spread), and two steps each way under phase 7's rule
-        eager = []
-        for _ in range(2):
-            _reset(tr, snap)
-            _, _, eager_losses = _eager_epoch(tr)
-            eager.append((eager_losses, whole_params(tr), tr.generator.get_state()))
-        vs_eager = _epoch_rule(replayed, eager[0], lr, name)
-        eager_spread = _epoch_rule(eager[1], eager[0], lr, name)
-        (rl, rp), (el, ep) = _two_steps(tr, snap, True), _two_steps(tr, snap, False)
-        assert abs(rl[0] - el[0]) <= GRAPH_FIRST_LOSS_RTOL * abs(el[0]), (rl, el)
-        np.testing.assert_allclose(rl[1], el[1], rtol=1e-4)
-        two_steps = {"losses": [rl.tolist(), el.tolist()], **_params_rule(rp, ep, 4 * lr)}
-        # (d) epoch 1's checkpoint restored into a new trainer, epoch 2 by
-        # its own capture and replays
-        tr2 = graph_trainer(ds, fs, name, dev)
-        tr2.restore(ckpt)
-        tr2.train_one_epoch()
-        assert tr2.step_graph.stats["captures"] == 1 and tr2.step_graph.stats["replays"] == n - gr.WARMUP_STEPS
-        vs_restored = _epoch_rule((tr2.epoch_losses.cpu().numpy(), whole_params(tr2), tr2.generator.get_state()),
-                                  replayed, lr, name)
-        del tr2
-        # (e) numbers: replays and eager epochs in turns, then a profile of
-        # each step
-        epochs = {"replays": [], "eager": []}
-        for kind in ("replays", "eager", "eager", "replays"):
-            epochs[kind].append((_timed_epoch if kind == "replays" else _eager_epoch)(tr)[0])
-        gen = torch.Generator(device=dev).manual_seed(SEED + 23)
-        batch = sample_bpr(gen, tr.graph, tr.config.bpr_batch_size, tr.config.neg_candidates,
-                           edge_alias=tr.edge_alias, neg_alias=tr.neg_alias)
-        # (b) the kernels of a replayed step against the eager step's
-        prof = {"replays": step_kernels(lambda: graph.step(batch)), "eager": step_kernels(lambda: tr.train_step(batch))}
-        assert prof["replays"]["scatter_add_rows"] == prof["eager"]["scatter_add_rows"] == per_step, prof
-        assert prof["replays"]["library_scatter"] == prof["eager"]["library_scatter"], prof
-        # epochs 1 and 2, 2 eager epochs, 2 x 2 steps, the restored epoch, 4
-        # timed epochs, 2 profiles
-        steps[name] = (9 * n + 4 + 2 * (GRAPH_PROFILE_STEPS + 1)) * per_step
-        numbers = {}
-        for kind in ("replays", "eager"):
-            s = float(np.median(epochs[kind]))
-            numbers[kind] = {"epoch_s": epochs[kind], "samples_per_s": tr.samples_per_epoch / s,
-                             "host_ms_per_step": 1e3 * s / n, **prof[kind]}
-            numbers[kind]["idle_share"] = 1.0 - prof[kind]["device_ms"] / numbers[kind]["host_ms_per_step"]
-        log(f"graph-20k {name}: epoch 1 {first_s:.2f} s ({gr.WARMUP_STEPS} eager warm-up steps "
-            f"{capture['warmup_ms']:.1f} ms, capture {capture['capture_ms']:.1f} ms, instantiate "
-            f"{capture['instantiate_ms']:.1f} ms, graph pool {capture['pool_mib']:.1f} MiB); epoch 2 by {n} replays "
-            f"against the eager loop from the same state: generator state equal, first loss within "
-            f"{vs_eager['first_loss_rel']:.3g} relative, losses {vs_eager['loss_max_rel']:.3g}, parameters within "
-            f"1e-6 + 1e-5 |p| but {vs_eager['off']} of {vs_eager['total']} (max abs diff "
-            f"{vs_eager['max_abs_diff']:.3g}; the eager loop twice: losses {eager_spread['loss_max_rel']:.3g}, "
-            f"{eager_spread['off']} parameters off, max abs diff {eager_spread['max_abs_diff']:.3g}); two steps "
-            f"each way under phase 7's rule: {two_steps['off']} parameters off (max abs diff "
-            f"{two_steps['max_abs_diff']:.3g}); {len(syncs)} host sync in epoch 2 ({syncs[0][:40]}...)")
-        log(f"graph-20k {name}: a replayed step {prof['replays']['scatter_add_rows']:g} scatter_add_rows kernels, "
-            f"{prof['replays']['library_scatter']:g} library scatters (eager: {prof['eager']['scatter_add_rows']:g}, "
-            f"{prof['eager']['library_scatter']:g}); epoch 1's checkpoint restored, epoch 2 by its own capture: "
-            f"generator state equal, losses {vs_restored['loss_max_rel']:.3g}, parameters but {vs_restored['off']} "
-            f"of {vs_restored['total']} (max abs diff {vs_restored['max_abs_diff']:.3g})")
-        for kind, x in numbers.items():
-            log(f"graph-20k {name} {kind}: {x['samples_per_s']:.0f} samples/s; a step {x['host_ms_per_step']:.3f} "
-                f"ms on the host, {x['device_ms']:.3f} ms on the device in {x['device_ops']:.0f} operations; idle "
-                f"{x['idle_share']:.3f}")
-        out[name] = {"steps_per_epoch": n, "B": tr.config.bpr_batch_size, "d": tr.config.latent_dim,
-                     "first_epoch_s": first_s, "capture": capture, "host_syncs_epoch_2": syncs,
-                     "vs_eager": vs_eager, "eager_spread": eager_spread, "two_steps": two_steps,
-                     "vs_restored": vs_restored, "numbers": numbers}
-        del tr, graph
+    for name, over in GRAPH_KEYS:
+        label = key_label(name, over)
+        out[label], steps[label] = graph_key(*inputs(name), name, over, dev, tmp)
     launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
     assert launches == {"masked_topk": 0, "scatter_add_rows": sum(steps.values())}, (launches, steps)
     phase_s = time.perf_counter() - t0
-    log(f"graph-20k: scatter launches {launches['scatter_add_rows']} ({ {k: scatter_per_step(k) for k in GRAPH_KEYS} } "
-        f"per step, replays included); {phase_s:.0f} s")
-    return {**out, "launches": launches, "phase_s": phase_s}
+    per_step = {key_label(name, over): scatter_per_step(name) for name, over in GRAPH_KEYS}
+    log(f"graph-20k: scatter launches {launches['scatter_add_rows']} ({per_step} per step, replays included); "
+        f"{phase_s:.0f} s")
+    return {"keys": out, "launches": launches, "phase_s": phase_s}
 
 
 def _tools(argv) -> tuple:
@@ -4462,10 +4576,13 @@ def main() -> int:
     # and trained on the anchor20k graph, each launch at a shape phase 3 held
     reg = registry_20k(a20_ds, a20_fs, dev, sc_held, topk_held)
 
-    # 21. graph-20k: lgn and textsage by replays of their captured step,
-    # against the eager loop, on the anchor20k graph
+    # 21. graph-20k: every captured configuration by replays of its step,
+    # against the eager loop, on the anchor20k graph (rsage on phase 14's
+    # relational graph, tgsrec and sasgnn with its purchase times)
+    edge_inputs = edge.pop("inputs")
     with tempfile.TemporaryDirectory() as tmp:
-        graphed = graph_20k(a20_ds, a20_fs, dev, tmp)
+        graphed = graph_20k(lambda name: edge_inputs(name) if name in ("rsage", "tgsrec", "sasgnn")
+                            else (a20_ds, a20_fs), dev, tmp)
 
     # 16. production-20k: phase 12's checkpoint through tools evaluate / infer
     # / recommend, production inference over the inference edge set

@@ -24,7 +24,9 @@ weight x an InfoNCE between the two views of the users and of the
 positives, each row against every row of the whole batch (on a data shard,
 the other shares' rows gathered through ``BatchShard.whole``). The
 attribute view's dropout is this module's ``DROPOUT_RATE`` (bound at import
-from ``sage``, as in the JAX package).
+from ``sage``, as in the JAX package). On the card its fresh-cadence
+training step is captured as a CUDA graph and replayed (``train/graphed.py``):
+the attribute trees and the dropout draw from the trainer's generator.
 """
 
 from __future__ import annotations
@@ -82,7 +84,6 @@ def attributes_from_categorical(features: FeatureStore) -> dict:
 
 class ASAGE(SAGE):
     name = "asage"
-    step_capturable = False  # its step has not been captured on the card
 
     def __init__(
         self,

@@ -119,11 +119,6 @@ def gather_batch_rows(user_emb, item_emb, batch):
 class PairwiseModel(nn.Module):
     #: apply sigmoid to full-catalog scores (MF); monotonic, so top-k invariant
     score_sigmoid: bool = False
-    #: the training step can be captured once as a CUDA graph and replayed
-    #: (``train/graphed.py``): its shapes are static and it never waits for
-    #: the card. Set by the constructions whose replayed step has been held
-    #: against the eager one on the card.
-    step_capturable: bool = False
 
     def __init__(self, config: Config, graph: BipartiteGraph):
         super().__init__()

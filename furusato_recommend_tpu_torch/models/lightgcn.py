@@ -49,11 +49,6 @@ class LightGCN(PairwiseModel):
         self._adj_graph = None
         self._adjacency(graph)
 
-    @property
-    def step_capturable(self) -> bool:
-        """The symmetric propagation with the BPR loss (``PairwiseModel``)."""
-        return self.norm == "sym" and self.loss_mode == "bpr"
-
     def _edge_weight(self, graph: BipartiteGraph) -> torch.Tensor:
         e = graph.norm_edges
         if self.norm == "sym":

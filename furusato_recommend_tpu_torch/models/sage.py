@@ -159,14 +159,6 @@ class SAGE(PairwiseModel):
             else:
                 self.register_parameter(name, nn.Parameter(v))
 
-    @property
-    def step_capturable(self) -> bool:
-        """The ``sage_cat`` conv on feature tables alone, with the sampled
-        fanout trees (``PairwiseModel``): no id embedding, towers, full-graph
-        step or out-of-core features."""
-        return (self.conv_name == "sage_cat" and not self.ooc_numeric
-                and not (self.use_id or self.towers or self.full_graph_train))
-
     # ---- set-up ----
     @staticmethod
     def _build_text_adj(text: torch.Tensor, vocab: int) -> SparsePair:
@@ -305,10 +297,12 @@ class SAGE(PairwiseModel):
                 parts.append(self._proj(side, None)[ids])
             else:
                 parts.append(feats.numeric[ids] @ getattr(self, f"{side}_numeric_w") + getattr(self, f"{side}_numeric_b"))
-        fields = ([0, 1, 2] if "t" in flags else []) + ([3] if side == "item" and "r" in flags else [])
-        if fields:  # the three text fields, then the review field
+        # the three text fields (0-2), then the review field (3): a slice, as
+        # a list index would copy it to the card, which a capture refuses
+        fields = slice(0 if "t" in flags else 3, 4 if side == "item" and "r" in flags else 3)
+        if fields.stop > fields.start:
             bags = self._text_bags(feats.text[ids][..., fields, :])
-            parts.extend(bags[..., j, :] for j in range(len(fields)))
+            parts.extend(bags[..., j, :] for j in range(fields.stop - fields.start))
         if "w" in flags:
             parts.append(feats.word2vec[ids])
         if "c" in flags:

@@ -376,9 +376,12 @@ def _recency_sampled(lp, target, aggr, ctx):
         nbrs = ctx["neighbors"]
         # the first slot of the latest time (torch.argmax returns the first
         # maximum, as jnp.argmax does): two slots that drew the same edge tie
-        # while dropout leaves their rows different
+        # while dropout leaves their rows different. Its row is taken by a
+        # one-hot sum over the slots, exact (the other slots add zeros), whose
+        # gradient is a product where a gather's would be torch's scatter-add
         idx = torch.argmax(edge_feature(ctx, ctx["edge_time"]), dim=-1)
-        recent = torch.gather(nbrs, -2, idx[..., None, None].expand(idx.shape + (1, nbrs.shape[-1])))[..., 0, :]
+        first = (torch.arange(nbrs.shape[-2], device=idx.device) == idx[..., None]).to(nbrs.dtype)
+        recent = (first[..., None] * nbrs).sum(dim=-2)
         out = aggr + aggr * recent
     return torch.cat([target, out], dim=-1) @ lp["w"] + lp["b"]
 

@@ -20,7 +20,10 @@ the parameter trees match the JAX package's. The sequence rows and the
 positive and negative items are one ``table_gather`` of the item table a
 step, so its gradient is one ``scatter_add_rows`` launch; a pad slot reads
 item 0 and adds an exact zero to it. The item table's text bags take one
-more: their word rows' gather (``SAGE._text_bags``).
+more: their word rows' gather (``SAGE._text_bags``). On the card its
+fresh-cadence training step is captured as a CUDA graph and replayed
+(``train/graphed.py``): the dropout draws from the trainer's generator, the
+causal attention and the gathers have static shapes.
 """
 
 from __future__ import annotations
@@ -52,7 +55,6 @@ PROPAGATE_CHUNK = 1024
 
 class SASRec(SAGE):
     name = "sasrec"
-    step_capturable = False  # its step has not been captured on the card
 
     def __init__(self, config: Config, graph: BipartiteGraph, features: FeatureStore,
                  sequences: UserSequences, **kw):

@@ -27,21 +27,27 @@ wrapper counts a launch under capture apart (``ops/scatter.py::captured``),
 and a replay counts the launches its capture recorded
 (``ops/scatter.py::count_replay``).
 
-Which configurations are captured (``captured``): a model that declares its
-step capturable (``PairwiseModel.step_capturable``) under the fresh cadence
-(R = 1, T = 1, no dask), on one process (no mesh), on a CUDA device. The
-Trainer makes a ``StepGraph`` for those alone; the CPU, and every other
-configuration, runs its steps eagerly through ``Trainer.train_step``. A failed
-capture or replay raises.
+Which configurations are captured (``captured``): every model of the
+registry (mf, the LightGCN family, the SAGE family with all its convs, heads
+and losses, sasrec and asage) under the fresh cadence (R = 1, T = 1, no
+dask), on one process (no mesh), on a CUDA device. The Trainer makes a
+``StepGraph`` for those alone; the CPU, the R / T / dask cadences and the
+mesh run their steps eagerly through ``Trainer.train_step``. A failed capture
+or replay raises; nothing falls back to eager steps.
 
 The Trainer drops the graph (``drop``) whenever it replaces a tensor the
 graph reads: new Adam states (``init_state``, ``restore``); the next step
-warms up and captures again.
+warms up and captures again. ``drop`` releases the graph's memory pool (the
+parameters' gradients, which the graph wrote, go with it) to the caching
+allocator, and so does dropping the Trainer: the ``StepGraph`` holds its
+Trainer by a weak reference, so no cycle keeps a dropped Trainer's pool until
+the collector runs.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Optional
 
 import torch
@@ -55,12 +61,10 @@ __all__ = ["WARMUP_STEPS", "StepGraph", "captured"]
 WARMUP_STEPS = 3
 
 
-def captured(model, cadence: str, mesh, device) -> bool:
+def captured(cadence: str, mesh, device) -> bool:
     """Whether a step of this configuration is replayed as a CUDA graph:
-    a model whose step is capturable, under the fresh cadence, without a
-    mesh, on a CUDA device."""
-    return (model.step_capturable and cadence == "fresh" and mesh is None
-            and torch.device(device).type == "cuda")
+    the fresh cadence, without a mesh, on a CUDA device."""
+    return cadence == "fresh" and mesh is None and torch.device(device).type == "cuda"
 
 
 class StepGraph:
@@ -69,19 +73,22 @@ class StepGraph:
     last capture, its pool's MiB, and the captures and replays so far."""
 
     def __init__(self, trainer):
-        self.trainer = trainer
+        self.trainer = weakref.proxy(trainer)  # the Trainer holds this
         self.batch: Optional[BPRBatch] = None  # the static inputs
         self.loss: Optional[torch.Tensor] = None  # the static loss slot
         self.graph = None
-        self.stream = torch.cuda.Stream(trainer.device)
+        self.stream = None  # the capture stream, made at the first step
         self.warm = 0  # eager steps since the last drop
         self.scatter_launches = 0  # the scatter kernel's launches a replay adds
         self.stats = {"warmup_ms": 0.0, "capture_ms": None, "instantiate_ms": None, "pool_mib": None,
                       "captures": 0, "replays": 0}
 
     def drop(self) -> None:
-        """Forget the captured graph; the next steps warm up and capture anew."""
-        self.graph = self.loss = None
+        """Forget the captured graph and release its memory pool; the next
+        steps warm up and capture anew."""
+        if self.graph is not None:
+            self.graph = self.loss = None
+            self.trainer.model.zero_grad(set_to_none=True)  # the pool's last tensors
         self.warm = 0
         self.stats["warmup_ms"] = 0.0
 
@@ -102,6 +109,8 @@ class StepGraph:
     def step(self, batch: BPRBatch) -> torch.Tensor:
         """One step on ``batch``; its loss, on the device (after the capture:
         the static loss slot, which the next step overwrites)."""
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.trainer.device)
         if self.graph is None and self.warm < WARMUP_STEPS:
             t0 = time.perf_counter()
             here = torch.cuda.current_stream(self.trainer.device)

@@ -56,12 +56,12 @@ model axis spans processes; every rank of the port is a process.) Only the
 primary prints and logs.
 
 The JAX package's one-dispatch epoch (``_build_train_epoch``'s scan) has its
-counterpart on the card for a model that declares its step capturable
-(``PairwiseModel.step_capturable``: lgn's and textsage's constructions) under
-the fresh cadence without a mesh: the step is captured once as a CUDA graph
-and replayed for every batch (``train/graphed.py``), with the fused Adam;
-every other configuration, and the CPU, runs its steps eagerly. The rest of the JAX package's XLA machinery (the compile cache,
-``pipeline_dispatch``'s next-epoch sampling) has no counterpart here.
+counterpart on the card for every model of the registry under the fresh
+cadence without a mesh: the step is captured once as a CUDA graph and
+replayed for every batch (``train/graphed.py``), with the fused Adam. The
+R / T / dask cadences, the mesh and the CPU run their steps eagerly. The rest
+of the JAX package's XLA machinery (the compile cache, ``pipeline_dispatch``'s
+next-epoch sampling) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -230,7 +230,7 @@ class Trainer:
         #: the parameters the initial tables depend on (cached cadences)
         self.feature_names = sorted(model.initial_param_keys()) if self.cadence != "fresh" else []
         #: the fresh step is replayed as a CUDA graph (``train/graphed.py``)
-        self.captured = captured(self.model, self.cadence, self.mesh, self.device)
+        self.captured = captured(self.cadence, self.mesh, self.device)
         self.step_graph: Optional[StepGraph] = None
         self._new_optimizers()
         #: the sampler's stream (and edge dropout's); saved and restored with

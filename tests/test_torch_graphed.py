@@ -3,19 +3,28 @@
 eagerly through ``Trainer.train_step``, the plain version of the graph.
 
 - the step the graph records (``Trainer.train_step``), fed the JAX package's
-  batches (and, for textsage, its fanout trees, dropout 0 in both), against
-  ``jax.value_and_grad`` + ``optax.adam`` for 3 steps, under
-  ``tests/test_torch_train.py``'s rules: float32 on a hub-free JAX graph,
-  parameters within rtol 1e-5 / atol 1e-6, the moments within rtol 1e-4;
-  with the CPU's Adam and with the fused Adam a captured configuration runs
-  (built here on the CPU, where it cannot be capturable);
+  batches (and, for the SAGE family, its fanout trees, asage's attribute
+  trees beside them, dropout 0 in both), against ``jax.value_and_grad`` +
+  ``optax.adam`` for 3 steps, under ``tests/test_torch_train.py``'s rules:
+  float32 on a hub-free JAX graph, parameters within rtol 1e-5 / atol 1e-6,
+  the moments within rtol 1e-4; with the CPU's Adam and with the fused Adam a
+  captured configuration runs (built here on the CPU, where it cannot be
+  capturable); lgn, textsage and one key of each family the card captures
+  (mf, radj, lgcnssm, pinsage, nssage, tgrec, rsage, sasrec, asage);
 - the fused Adam's state through the optax layout and back, and through
   ``save`` / ``restore``;
 - ``tests/torch_oracle.py::OptaxAdam``, the float64 form of optax.adam's rule
   that the card's captured Adam is held against, against optax itself;
-- which models declare their step capturable, the rule that picks the
-  captured configurations, the CPU Trainer's eager steps and default Adam,
-  and the graph dropped when the Adam states are replaced.
+- that every registry key and every ``gnn --conv`` trains under the fresh
+  cadence, which the rule captures on the card (``dask`` under its own, which
+  it does not), the rule that picks the captured configurations, the CPU
+  Trainer's eager steps and default Adam, and the graph dropped when the
+  Adam states are replaced;
+- that a step draws only from the trainer's generator, the one a graph
+  registers: torch's default generator is left as it was, and two trainers
+  from one seed take bit-equal steps whatever its state;
+- that a step graph does not keep its trainer alive (its pool goes with the
+  trainer).
 
 The card's replays are held against the eager steps in
 ``tests/test_torch_kernels.py`` (marked ``cuda``) and in ``chip_smoke.py``'s
@@ -23,6 +32,8 @@ phase 21.
 """
 
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -35,9 +46,13 @@ from furusato_recommend_tpu.config import Config as JConfig
 from furusato_recommend_tpu.data import dataset as jds
 from furusato_recommend_tpu.data.features import synthetic_features as jfeatures
 from furusato_recommend_tpu.data.graph import build_bipartite_graph as jbuild_graph
+from furusato_recommend_tpu.data import sequence as jseq
+from furusato_recommend_tpu.models import asage as jasage
 from furusato_recommend_tpu.models import sage as jsage
+from furusato_recommend_tpu.models import sasrec as jsasrec
 from furusato_recommend_tpu.models.registry import build_model as jbuild_model
 from furusato_recommend_tpu.sampling.bpr import BPRBatch as JBatch
+from furusato_recommend_tpu.sampling.neighbor import sample_neighbors as jsample_neighbors
 from furusato_recommend_tpu_torch.config import Config, ddp_flagship_config
 from furusato_recommend_tpu_torch.convert import (
     adam_state_from_jax,
@@ -47,14 +62,18 @@ from furusato_recommend_tpu_torch.convert import (
     params_to_numpy,
 )
 from furusato_recommend_tpu_torch.data import dataset as tds
+from furusato_recommend_tpu_torch.data import sequence as tseq
 from furusato_recommend_tpu_torch.data.features import synthetic_features
+from furusato_recommend_tpu_torch.data.ooc import MemmapNumeric
+from furusato_recommend_tpu_torch.models import asage as tasage
 from furusato_recommend_tpu_torch.models import sage as tsage
-from furusato_recommend_tpu_torch.models.registry import build_model
+from furusato_recommend_tpu_torch.models import sasrec as tsasrec
+from furusato_recommend_tpu_torch.models.registry import SAGE_KEYS, available_models, build_model
 from furusato_recommend_tpu_torch.obs.log import MetricLogger
 from furusato_recommend_tpu_torch.sampling.bpr import BPRBatch
 from furusato_recommend_tpu_torch.sampling.neighbor import SampledNeighbors
 from furusato_recommend_tpu_torch.train import trainer as trainer_module
-from furusato_recommend_tpu_torch.train.graphed import captured
+from furusato_recommend_tpu_torch.train.graphed import StepGraph, captured
 from furusato_recommend_tpu_torch.train.trainer import Trainer
 from torch_oracle import OptaxAdam
 
@@ -114,83 +133,201 @@ def _hub_free(jd):
     return dataclasses.replace(jd, _graph=g)
 
 
-def _lgn_pair():
-    """(JAX model, its graph, Trainer, JAX parameters, lr) for lgn at float32."""
+_LGN_KEYS = ("lgn", "mf", "radj", "lgcnssm")  # the keys at lgn's recipe here
+
+
+def _lgn_pair(key="lgn"):
+    """(JAX model, its graph, Trainer, JAX parameters, lr) for lgn, mf or a
+    LightGCN key at float32."""
     jd = _hub_free(jds.synthetic_dataset(n_users=N_USERS, m_items=M_ITEMS, avg_degree=8, seed=2))
     td = tds.synthetic_dataset(n_users=N_USERS, m_items=M_ITEMS, avg_degree=8, seed=2)
-    kw = _lgn_fields(bpr_batch_size=256)
+    kw = _lgn_fields(model=key, bpr_batch_size=256)
     cfg = Config(**kw)
-    jm = jbuild_model("lgn", JConfig(**kw), jd.graph)
+    jm = jbuild_model(key, JConfig(**kw), jd.graph)
     rng = np.random.default_rng(0)
     p = {"user_emb": (0.1 * rng.standard_normal((N_USERS, DIM))).astype(np.float32),
          "item_emb": (0.1 * rng.standard_normal((M_ITEMS, DIM))).astype(np.float32)}
-    tm = build_model("lgn", cfg, td.graph)
+    tm = build_model(key, cfg, td.graph)
     params_from_jax(p, tm)
     t = Trainer(cfg, td, tm, logger=MetricLogger(quiet=True), device="cpu")
     return jm, jd, t, jax.tree_util.tree_map(jnp.asarray, p), cfg.lr
 
 
-def _textsage_pair(monkeypatch):
-    """The same for the textsage flagship (features n / c / t / w, dropout 0),
-    its trees sampled by the JAX package and handed to the port's loss."""
+# a SAGE-family key's config fields and JAX batch (rows, invalid rows) here
+_SAGE_FIELDS = {"rsage": {"multi_relational": "sum"}, "sasrec": {"bpr_batch_size": 48}}
+
+
+def _no_dropout(monkeypatch):
+    """Dropout 0 in both packages: the SAGE family's, asage's bound copy and
+    sasrec's."""
+    for module in (jsage, tsage, jasage, tasage):
+        monkeypatch.setattr(module, "DROPOUT_RATE", 0.0)
+    monkeypatch.setattr(jsasrec, "DROPOUT", 0.0)
+    monkeypatch.setattr(tsasrec, "DROPOUT", 0.0)
+
+
+def _sage_pair(key, monkeypatch):
+    """The same for a SAGE-family key at the flagship recipe (features n / c /
+    t / w; rsage's relation labels and the edge times drawn with them; sasrec
+    its item sequences), dropout 0; its trees (and asage's attribute trees)
+    come from the JAX package and are handed to the port's loss."""
     monkeypatch.setattr(jsage.SAGE, "TEXT_HUB_WORDS", 0)
-    monkeypatch.setattr(jsage, "DROPOUT_RATE", 0.0)
-    monkeypatch.setattr(tsage, "DROPOUT_RATE", 0.0)
+    _no_dropout(monkeypatch)
     jd = _hub_free(jds.synthetic_dataset(n_users=N_USERS, m_items=M_ITEMS, avg_degree=8, seed=2))
     td = tds.synthetic_dataset(n_users=N_USERS, m_items=M_ITEMS, avg_degree=8, seed=2)
-    kw = _flagship(user_feature="nctw", item_feature="nctw", lr=1e-3)
-    jm = jbuild_model("textsage", JConfig(**kw), jd.graph, features=jfeatures(jd, JConfig(**kw), seed=1))
-    tm = build_model("textsage", Config(**kw), td.graph, features=synthetic_features(td, Config(**kw), seed=1))
+    kw = _flagship(model=key, user_feature="nctw", item_feature="nctw", lr=1e-3, **_SAGE_FIELDS.get(key, {}))
+    edge = dict(with_edge_time=True, with_edge_label=True)
+    jin = {"features": jfeatures(jd, JConfig(**kw), seed=1, **edge)}
+    tin = {"features": synthetic_features(td, Config(**kw), seed=1, **edge)}
+    np.testing.assert_array_equal(tin["features"].edge_label.numpy(), np.asarray(jin["features"].edge_label))
+    if key == "sasrec":
+        jin["sequences"], tin["sequences"] = jseq.build_sequences(jd), tseq.build_sequences(td)
+    jm = jbuild_model(key, JConfig(**kw), jd.graph, **jin)
+    tm = build_model(key, Config(**kw), td.graph, **tin)
     jp = jm.init(jax.random.PRNGKey(0))
     params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tm)
-    t = Trainer(Config(**kw), td, tm, logger=MetricLogger(quiet=True), ddp_recipe=True, device="cpu")
+    t = Trainer(Config(**kw), td, tm, logger=MetricLogger(quiet=True), ddp_recipe=key != "sasrec", device="cpu")
     return jm, jd, t, jp, kw["lr"]
 
 
+def _jax_attr_tree(jm, seeds, side, key):
+    """The attribute tree JAX's ``ASAGE._encode_attr_tree`` draws from ``key``."""
+    fwd, bwd = (jm.user_attr_fwd, jm.user_attr_bwd) if side == "user" else (jm.item_attr_fwd, jm.item_attr_bwd)
+    out, frontier = [], seeds
+    for level in range(jm.n_layers):
+        key, k = jax.random.split(key)
+        s = jsample_neighbors(k, fwd if level % 2 == 0 else bwd, frontier, jm.fanout)
+        out.append(s)
+        frontier = s.ids
+    return out
+
+
+def _jax_draws(key, jm, jd, jb, step):
+    """(the JAX loss's key, its trees argument or None, the port's trees and
+    attribute trees in the order its step samples them). The SAGE family's
+    trees are sampled here and passed to JAX's loss; asage's loss draws its
+    own from the key (the first three and the last three of its six keys),
+    which are sampled here the same way; mf, the LightGCN keys, nssage and
+    sasrec draw no trees."""
+    jkey = jax.random.PRNGKey(0)
+    if key in _LGN_KEYS or key in ("nssage", "sasrec"):
+        return jkey, None, [], []
+    seeds = ((jb.user, "user"), (jb.pos, "item"), (jb.neg, "item"))
+    if key == "asage":
+        jkey = jax.random.PRNGKey(10 + step)
+        k = jax.random.split(jkey, 6)
+        trees = [jm.sample_seed_tree(jd.graph, s, side, kk) for (s, side), kk in zip(seeds, k[:3])]
+        attr = [_jax_attr_tree(jm, s, side, kk) for (s, side), kk in zip(seeds, k[3:])]
+        return jkey, None, _to_torch(trees), _to_torch(attr)
+    keys = jax.random.split(jax.random.PRNGKey(10 + step), 3)
+    trees = [jm.sample_seed_tree(jd.graph, s, side, k) for (s, side), k in zip(seeds, keys)]
+    return jkey, trees, _to_torch(trees), []
+
+
+def _to_torch(trees):
+    return [[SampledNeighbors(*(torch.tensor(np.asarray(x)) for x in lvl)) for lvl in tree] for tree in trees]
+
+
+# the keys whose three steps hold the file's rule but for the elements
+# ``_rounding`` picks, as tests/test_torch_edge.py, test_torch_attention.py,
+# test_torch_sasrec.py and test_torch_asage.py hold these models' steps
+_ROUNDING_KEYS = ("pinsage", "tgrec", "sasrec", "asage")
+
+
+def _rounding(model, grads, rounding: dict) -> dict:
+    """The port's gradients (on ``model``) held to JAX's ``grads`` at the
+    same parameters under the gradient rule (rtol 1e-4, atol 1e-6 of the
+    largest magnitude where it exceeds 1; a parameter the loss never reads
+    has no gradient on either side); the elements where they differ by more
+    than 1e-3 of JAX's magnitude (Adam's g / (sqrt(v) + 1e-8) turns that into
+    more than 1e-3 x lr) added to ``rounding``."""
+    want = flatten_params(jax.tree_util.tree_map(np.asarray, grads))
+    for k, prm in model.named_parameters():
+        w = want[k]
+        g = np.zeros_like(w) if prm.grad is None else prm.grad.numpy()
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6 * max(1.0, float(np.abs(w).max())), err_msg=k)
+        rounding[k] = rounding.get(k, np.zeros(w.shape, bool)) | (np.abs(g - w) > 1e-3 * np.abs(w))
+    return rounding
+
+
+def _allclose_but(got, want, loose, rtol, atol, err_msg) -> None:
+    """``got`` within rtol / atol (a number, or one an element) of ``want``
+    but at the elements ``loose``."""
+    atol = np.broadcast_to(atol, want.shape)[~loose]
+    diff = np.abs(got[~loose] - want[~loose])
+    assert (diff <= atol + rtol * np.abs(want[~loose])).all(), f"{err_msg}: off by {diff.max()}"
+
+
+_JAX_STEPS = {}  # key -> (JAX model, its dataset, jitted value_and_grad of its loss)
+
+
 @pytest.mark.parametrize("fused", [False, True])
-@pytest.mark.parametrize("key", ["lgn", "textsage"])
+@pytest.mark.parametrize("key", ["lgn", "textsage", "mf", "radj", "lgcnssm", "pinsage", "nssage", "tgrec", "rsage",
+                                 "sasrec", "asage"])
 def test_static_step_matches_jax_three_adam_steps(key, fused, monkeypatch):
+    """Three ``train_step`` calls against the JAX package's, under the
+    module's rules. ``_ROUNDING_KEYS`` begin each step from JAX's parameters
+    and Adam state (``card_vs_cpu_epoch``'s way in ``chip_smoke.py``: a ReLU
+    input within rounding of 0 may take the other side of the gate after a
+    step, and Adam spreads that over the next steps); each step's gradients
+    are held against JAX's under the gradient rule, and the elements whose
+    port gradient differs from JAX's by more than 1e-3 of its magnitude are
+    held within 2 lr instead (no more than 1 in 100 of them), their moments
+    not compared; the other moments within the module's rule widened by what
+    the gradient rule lets the last step's gradient add (0.1 x its tolerance
+    to the first moment, 0.001 x (2 |g| + tol) x tol to the second)."""
     if fused:
         monkeypatch.setattr(trainer_module, "adam", _fused_adam)
-    jm, jd, t, jp, lr = _lgn_pair() if key == "lgn" else _textsage_pair(monkeypatch)
+    jm, jd, t, jp, lr = _lgn_pair(key) if key in _LGN_KEYS else _sage_pair(key, monkeypatch)
     assert all(bool(group["fused"]) is fused for group in t.optimizer.param_groups)
     td = t.dataset
     opt = optax.adam(lr)
     state = opt.init(jp)
-    fed = []  # the JAX trees the port's loss takes in place of its own draws
-    if key == "textsage":
-        monkeypatch.setattr(t.model, "sample_seed_tree", lambda *a, **k: fed.pop(0))
-    # compiled once for the three steps (trees None for lgn)
-    value_and_grad = jax.jit(jax.value_and_grad(
-        lambda q, b, trees: jm.loss(q, jd.graph, b, jax.random.PRNGKey(0), **({} if trees is None else
-                                                                                 {"trees": trees})),
-        has_aux=True))
+    fed, fed_attr = [], []  # the JAX trees the port's loss takes in place of its own draws
+    monkeypatch.setattr(t.model, "sample_seed_tree", lambda *a, **k: fed.pop(0), raising=False)
+    monkeypatch.setattr(t.model, "sample_attr_tree", lambda *a, **k: fed_attr.pop(0), raising=False)
+    # compiled once for the key's cases (trees None but for the sampled SAGE
+    # keys); its JAX model gives the same parameters at every build
+    if key not in _JAX_STEPS:
+        _JAX_STEPS[key] = jm, jd, jax.jit(jax.value_and_grad(
+            lambda q, b, k, trees: jm.loss(q, jd.graph, b, k, **({} if trees is None else {"trees": trees})),
+            has_aux=True))
+    jm, jd, value_and_grad = _JAX_STEPS[key]
+    b, n_invalid = (256, 16) if key in _LGN_KEYS else (48, 4)
+    held, rounding = key in _ROUNDING_KEYS, {}
     for step in range(3):
-        jb, tb = _jax_batch(td, step, 256 if key == "lgn" else 48, 16 if key == "lgn" else 4)
-        trees = None
-        if key == "textsage":
-            keys = jax.random.split(jax.random.PRNGKey(10 + step), 3)
-            trees = [jm.sample_seed_tree(jd.graph, s, side, k) for (s, side), k in
-                     zip(((jb.user, "user"), (jb.pos, "item"), (jb.neg, "item")), keys)]
-            fed[:] = [[SampledNeighbors(*(torch.tensor(np.asarray(x)) for x in lvl)) for lvl in tree]
-                      for tree in trees]
-        (jl, _), g = value_and_grad(jp, jb, trees)
+        jb, tb = _jax_batch(td, step, b, n_invalid)
+        jkey, trees, fed[:], fed_attr[:] = _jax_draws(key, jm, jd, jb, step)
+        if held and step:  # the step begins from JAX's state
+            params_from_jax(jax.tree_util.tree_map(np.asarray, jp), t.model)
+            adam = jax.tree_util.tree_map(np.asarray, state[0])
+            adam_state_from_jax(int(adam.count), adam.mu, adam.nu, t.optimizer, t.model)
+        (jl, _), g = value_and_grad(jp, jb, jkey, trees)
         upd, state = opt.update(g, state, jp)
         jp = optax.apply_updates(jp, upd)
         loss = t.train_step(tb)
-        assert not fed  # every tree was read
+        assert not fed and not fed_attr  # every tree was read
+        if held:
+            rounding = _rounding(t.model, g, {})
         np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5, atol=1e-6)
         got = flatten_params(params_to_numpy(t.model))
         want = flatten_params(jax.tree_util.tree_map(np.asarray, jp))
+        assert sum(int(m.sum()) for m in rounding.values()) <= 1e-2 * sum(v.size for v in want.values())
         for k in want:
-            np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6, err_msg=f"step {step}: {k}")
+            loose = rounding.get(k, np.zeros(want[k].shape, bool))
+            _allclose_but(got[k], want[k], loose, 1e-5, 1e-6, f"step {step}: {k}")
+            assert (np.abs(got[k] - want[k])[loose] <= 2 * lr).all(), f"step {step}: {k}"
     count, mu, nu = adam_state_to_numpy(t.optimizer, t.model)
     assert count == int(state[0].count) == 3
     want_mu = flatten_params(jax.tree_util.tree_map(np.asarray, state[0].mu))
     want_nu = flatten_params(jax.tree_util.tree_map(np.asarray, state[0].nu))
+    last = flatten_params(jax.tree_util.tree_map(np.asarray, g))
     for k, v in flatten_params(mu).items():
-        np.testing.assert_allclose(v, want_mu[k], rtol=1e-4, atol=1e-9, err_msg=k)
-        np.testing.assert_allclose(flatten_params(nu)[k], want_nu[k], rtol=1e-4, atol=1e-12, err_msg=k)
+        loose = rounding.get(k, np.zeros(v.shape, bool))
+        w = np.abs(last[k])
+        tol = (1e-4 * w + 1e-6 * max(1.0, float(w.max()))) if held else np.zeros_like(w)
+        _allclose_but(v, want_mu[k], loose, 1e-4, 1e-9 + 0.1 * tol, k)
+        _allclose_but(flatten_params(nu)[k], want_nu[k], loose, 1e-4, 1e-12 + 1e-3 * (2 * w + tol) * tol, k)
 
 
 def _states_equal(a: torch.optim.Adam, b: torch.optim.Adam) -> None:
@@ -251,48 +388,107 @@ def test_adam_oracle_matches_optax_eight_steps():
         np.testing.assert_allclose(v, np.asarray(wv), rtol=1e-4, atol=1e-18)
 
 
-_CAPTURABLE = {"lgn": True, "rgcn": True, "radj": False, "lgcnssm": False, "mf": False, "textsage": True,
-               "textsage_id": False, "sage": False, "fastsage": False, "lightsage": False, "pinsage": False,
-               "mrec": False, "nssage": False, "gnn": False, "asage": False}
-
-
-@pytest.mark.parametrize("key", sorted(_CAPTURABLE))
-def test_models_declare_a_capturable_step(key):
-    """lgn's construction (symmetric propagation, the BPR loss; rgcn is the
-    same model) and textsage's (the sage_cat conv on feature tables alone)
-    declare their step capturable; the others do not."""
+def _key_trainer(key: str, tmp_path=None, **kw) -> Trainer:
+    """A Trainer on the CPU for any registry key at this module's size: mf
+    and the LightGCN keys at lgn's recipe (edge dropout on), sasrec with its
+    item sequences, every other key at the flagship recipe (features n / c /
+    t / w, the edge times and relation labels drawn with them; dask with its
+    numeric matrices on disk under ``tmp_path``)."""
     td = tds.synthetic_dataset(n_users=N_USERS, m_items=M_ITEMS, avg_degree=8, seed=2)
-    if key in ("lgn", "rgcn", "radj", "lgcnssm", "mf"):
-        cfg = Config(**_lgn_fields(model=key))
-        model = build_model(key, cfg, td.graph)
-    else:
-        cfg = Config(**_flagship(model=key))
-        model = build_model(key, cfg, td.graph, features=synthetic_features(td, cfg, seed=1))
-    assert model.step_capturable is _CAPTURABLE[key]
+    if key not in SAGE_KEYS:
+        cfg = Config(**_lgn_fields(model=key, dropout=True, keep_prob=0.7, **kw))
+        return Trainer(cfg, td, build_model(key, cfg, td.graph), logger=MetricLogger(quiet=True), device="cpu")
+    cfg = Config(**_flagship(model=key, user_feature="nctw", item_feature="nctw", **kw))
+    fs = synthetic_features(td, cfg, seed=1, with_edge_time=True, with_edge_label=True)
+    inputs = {}
+    if key == "sasrec":
+        inputs["sequences"] = tseq.build_sequences(td)
+    if key == "dask":
+        inputs["ooc_numeric"] = {side: MemmapNumeric.write(str(tmp_path / f"{side}.npy"), getattr(fs, side).numeric.numpy())
+                                 for side in ("user", "item")}
+        fs = dataclasses.replace(fs, user=dataclasses.replace(fs.user, numeric=None),
+                                 item=dataclasses.replace(fs.item, numeric=None))
+    model = build_model(key, cfg, td.graph, features=fs, **inputs)
+    return Trainer(cfg, td, model, logger=MetricLogger(quiet=True), ddp_recipe=key != "sasrec", device="cpu")
 
 
-class _Model:
-    def __init__(self, capturable: bool):
-        self.step_capturable = capturable
+# every registry key but gnn (cases of its own) and dask (not captured), with
+# the config fields that pick rsage's combine; then gnn under every --conv
+# (gcn, the default, as plain gnn)
+_CONFIGS = ([(key, {}) for key in available_models() if key not in ("gnn", "rsage", "dask")]
+            + [("rsage", {"multi_relational": mode}) for mode in ("add", "sum", "prod")]
+            + [("gnn", {})] + [("gnn", {"conv": conv}) for conv in ("sage", "gat", "transformer", "ggnn", "mean",
+                                                                     "light")])
+_IDS = [key + "".join(f"-{v}" for v in over.values()) for key, over in _CONFIGS]
+
+
+@pytest.mark.parametrize("key,over", _CONFIGS + [("dask", {})], ids=_IDS + ["dask"])
+def test_every_fresh_key_is_captured_on_the_card(key, over, tmp_path):
+    """Every registry key and every gnn --conv trains under the fresh
+    cadence by default, which the rule captures on a CUDA device (mf, the
+    LightGCN family, the SAGE family with all its convs, heads and losses,
+    sasrec and asage); dask, whose numeric projections stream from the host,
+    trains under its own cadence, which the rule does not capture."""
+    t = _key_trainer(key, tmp_path, **over)
+    assert t.cadence == ("ooc" if key == "dask" else "fresh")
+    assert captured(t.cadence, None, "cuda") is (key != "dask")
+    assert not t.captured and t.step_graph is None
+
+@pytest.mark.parametrize("key,over", _CONFIGS, ids=_IDS)
+def test_a_step_draws_only_from_the_trainers_generator(key, over):
+    """A ``train_step`` (dropout and edge dropout on, the trees drawn) leaves
+    torch's default generator as it was, and two trainers from one seed take
+    bit-equal steps whatever its state: a replay reproduces the draws of the
+    generator it registers, and of no other."""
+    a, b = _key_trainer(key, **over), _key_trainer(key, **over)
+    bs = a.config.bpr_batch_size
+    batch = a.sample_epoch().slice(0, bs)
+    b.generator.set_state(a.generator.get_state())
+    torch.manual_seed(0)
+    before = torch.random.get_rng_state()
+    loss_a = a.train_step(batch)
+    assert torch.equal(torch.random.get_rng_state(), before)
+    torch.manual_seed(1)
+    loss_b = b.train_step(batch)
+    assert torch.equal(loss_a, loss_b)
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    for (k, pa), pb in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(pa, pb), k
+
+
+def test_a_step_graph_does_not_keep_its_trainer():
+    """The trainer holds its step graph, and the graph holds the trainer by a
+    weak reference: dropping the trainer frees both (and, on the card, the
+    graph's memory pool) without waiting for the cycle collector."""
+    t = _trainer("lgn")
+    t.step_graph = StepGraph(t)
+    assert t.step_graph.trainer.device == t.device
+    dead = weakref.ref(t)
+    gc.disable()
+    try:
+        del t
+        assert dead() is None
+    finally:
+        gc.enable()
 
 
 _MESH = object()  # any mesh: a configuration with one is never captured
 
 
-@pytest.mark.parametrize("capturable,cadence,mesh,device,want", [
-    (True, "fresh", None, "cuda", True),
-    (True, "fresh", None, torch.device("cuda", 1), True),
-    (True, "fresh", None, "cpu", False),
-    (True, "fresh", None, torch.device("cpu"), False),
-    (True, "fresh", _MESH, "cuda", False),
-    (True, "relin", None, "cuda", False),
-    (True, "super", None, "cuda", False),
-    (True, "ooc", None, "cuda", False),
-    (False, "fresh", None, "cuda", False),
-    (False, "fresh", None, "cpu", False),
+@pytest.mark.parametrize("cadence,mesh,device,want", [
+    ("fresh", None, "cuda", True),
+    ("fresh", None, "cuda:0", True),
+    ("fresh", None, torch.device("cuda", 1), True),
+    ("fresh", None, "cpu", False),
+    ("fresh", None, torch.device("cpu"), False),
+    ("fresh", _MESH, "cuda", False),
+    ("relin", None, "cuda", False),
+    ("super", None, "cuda", False),
+    ("ooc", None, "cuda", False),
+    ("relin", _MESH, "cpu", False),
 ])
-def test_the_rule_picks_the_captured_configurations(capturable, cadence, mesh, device, want):
-    assert captured(_Model(capturable), cadence, mesh, device) is want
+def test_the_rule_picks_the_captured_configurations(cadence, mesh, device, want):
+    assert captured(cadence, mesh, device) is want
 
 
 @pytest.mark.parametrize("key,kw", [

@@ -449,33 +449,42 @@ def test_cuda_table_gather_gradient_runs_the_kernel():
     np.testing.assert_array_equal(grads[1], grads[0])
 
 
-def _graph_trainer(dropout: bool, key: str = "lgn"):
-    """A Trainer on the card whose fresh step is captured: lgn, or the
-    textsage flagship cut to d 32, fanout 3, B 512 (module-level imports stay
-    free of the trainer's)."""
+def _graph_trainer(dropout: bool, key: str = "lgn", **over):
+    """A Trainer on the card whose fresh step is captured: mf or a LightGCN
+    key (d 32, B 1024), or a SAGE-family key at the textsage flagship cut to
+    d 32, fanout 3, B 512 (features n / w / t, asage's n / c / t / w; the edge
+    times and relation labels drawn with them; sasrec with its item
+    sequences); ``over``: config fields (gnn's conv, rsage's combine).
+    Module-level imports stay free of the trainer's."""
     import dataclasses
 
     from furusato_recommend_tpu_torch.config import Config, ddp_flagship_config
     from furusato_recommend_tpu_torch.data.dataset import synthetic_dataset
     from furusato_recommend_tpu_torch.data.features import synthetic_features
-    from furusato_recommend_tpu_torch.models.registry import build_model
+    from furusato_recommend_tpu_torch.data.sequence import build_sequences
+    from furusato_recommend_tpu_torch.models.registry import SAGE_KEYS, build_model
     from furusato_recommend_tpu_torch.obs.log import MetricLogger
     from furusato_recommend_tpu_torch.train.trainer import Trainer
 
     ds = synthetic_dataset(n_users=3000, m_items=2000, avg_degree=10, seed=0)
-    if key == "textsage":
+    if key in SAGE_KEYS:
         fields = dataclasses.asdict(ddp_flagship_config())
         fields.pop("mesh")
-        fields.update(latent_dim=32, num_neighbors=3, bpr_batch_size=512, eval_user_batch=256, topks=(10, 20),
-                      test_count=2, compute_dtype="float32", lr=1e-3, seed=5)
+        fields.update(model=key, latent_dim=32, num_neighbors=3, bpr_batch_size=512, eval_user_batch=256,
+                      topks=(10, 20), test_count=2, compute_dtype="float32", lr=1e-3, seed=5, **over)
+        if key == "asage":  # its attribute graphs from the categorical columns
+            fields.update(user_feature="nctw", item_feature="nctw")
         cfg = Config(**fields)
-        model = build_model(key, cfg, ds.graph, features=synthetic_features(ds, cfg, seed=1))
+        inputs = {"features": synthetic_features(ds, cfg, seed=1, with_edge_time=True, with_edge_label=True)}
+        if key == "sasrec":
+            inputs["sequences"] = build_sequences(ds)
+        model = build_model(key, cfg, ds.graph, **inputs)
     else:
         cfg = Config(model=key, latent_dim=32, n_layers=2, bpr_batch_size=1024, lr=1e-3, eval_user_batch=256,
-                     topks=(10, 20), compute_dtype="float32", seed=5, dropout=dropout, keep_prob=0.7)
+                     topks=(10, 20), compute_dtype="float32", seed=5, dropout=dropout, keep_prob=0.7, **over)
         model = build_model(key, cfg, ds.graph)
-    trainer = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=key == "textsage",
-                      device="cuda")
+    trainer = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True),
+                      ddp_recipe=key in SAGE_KEYS and key != "sasrec", device="cuda")
     trainer.init_state()
     return trainer
 
@@ -593,8 +602,25 @@ def test_cuda_step_graph_takes_whole_batches_of_one_shape():
     assert t.step_graph.batch.user.data_ptr() == ptr
 
 
+# one key of each family the trainer captures (a SAGE-family step's own
+# conv, head or loss), and every configuration it captures besides lgn and
+# textsage (the first two captured), with its config fields
+_FAMILY_KEYS = ["lgn", "textsage", "mf", "radj", "pinsage", "nssage", "tgrec", "rsage", "sasrec", "asage"]
+_NEW_KEYS = ([(key, {}) for key in ("mf", "radj", "lgcnssm", "textsage_id", "sage", "fsage", "fastsage", "lightsage",
+                                    "pinsage", "mrec", "nssage")]
+             + [("gnn", {"conv": conv}) for conv in ("gcn", "ggnn", "gat", "transformer")]
+             + [("tgrec", {}), ("tgrec2", {})]
+             + [("rsage", {"multi_relational": mode}) for mode in ("add", "sum", "prod")]
+             + [(key, {}) for key in ("tgsrec", "sasgnn", "sasrec", "asage")])
+# the parameters a key's loss never reads (sasrec scores its users by their
+# item sequences: the user side's projections and the SAGE layers go unread);
+# every other parameter of a captured key has a gradient every step
+_UNREAD = {"sasrec": {"user_numeric_w", "user_numeric_b", "user_proj_w", "user_proj_b",
+                      "layers.0.w", "layers.0.b", "layers.1.w", "layers.1.b"}}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("key", ["lgn", "textsage"])
+@pytest.mark.parametrize("key", _FAMILY_KEYS)
 def test_cuda_captured_adam_matches_optax_over_eight_steps(key):
     """The fused, capturable Adam of a captured configuration over 8 real
     steps (as many as tests/test_torch_cadence.py's epoch: 3 eager warm-up
@@ -603,7 +629,9 @@ def test_cuda_captured_adam_matches_optax_over_eight_steps(key):
     each step's gradients as the card computed them: the parameters within
     test_torch_cadence.py's rtol 1e-4 / atol 1e-6, the moments within rtol
     1e-4 (atol 1e-9 / 1e-12, as test_torch_graphed.py holds them against
-    optax), the step count 8."""
+    optax), the step count 8. Every parameter has a gradient at every step
+    but those the key's loss never reads (``_UNREAD``: sasrec's user side and
+    SAGE layers), which have none, no state and do not move."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     from furusato_recommend_tpu_torch.train.graphed import WARMUP_STEPS
@@ -612,17 +640,109 @@ def test_cuda_captured_adam_matches_optax_over_eight_steps(key):
     t = _graph_trainer(False, key)
     assert t.captured and all(g["fused"] and g["capturable"] for g in t.optimizer.param_groups)
     params = [p for g in t.optimizer.param_groups for p in g["params"]]
-    ref = OptaxAdam([p.detach().cpu().numpy() for p in params], t.config.lr)
+    names = {id(p): k for k, p in t.model.named_parameters()}
+    read = [names[id(p)] not in _UNREAD.get(key, ()) for p in params]
     bs = t.config.bpr_batch_size
     batches = t.sample_epoch()
+    start = [p.detach().clone() for p in params]
+    ref = OptaxAdam([x.cpu().numpy() for x, r in zip(start, read) if r], t.config.lr)
     for b in range(8):
         t.step_graph.step(batches.slice(b * bs, (b + 1) * bs))
-        assert all(p.grad is not None for p in params), b
-        ref.step([p.grad.cpu().numpy() for p in params])
+        assert [p.grad is not None for p in params] == read, b
+        ref.step([p.grad.cpu().numpy() for p, r in zip(params, read) if r])
     assert t.step_graph.stats["captures"] == 1 and t.step_graph.stats["replays"] == 8 - WARMUP_STEPS
-    for i, p in enumerate(params):
+    stepped = [p for p, r in zip(params, read) if r]
+    for p, x, r in zip(params, start, read):
+        if not r:
+            assert not t.optimizer.state[p] and torch.equal(p.detach(), x)
+    for i, p in enumerate(stepped):
         state = t.optimizer.state[p]
         assert float(state["step"]) == ref.count == 8
         np.testing.assert_allclose(p.detach().cpu().numpy(), ref.params[i], rtol=1e-4, atol=1e-6, err_msg=str(i))
         np.testing.assert_allclose(state["exp_avg"].cpu().numpy(), ref.mu[i], rtol=1e-4, atol=1e-9)
         np.testing.assert_allclose(state["exp_avg_sq"].cpu().numpy(), ref.nu[i], rtol=1e-4, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,over", _NEW_KEYS,
+                         ids=[key + "".join(f"-{v}" for v in over.values()) for key, over in _NEW_KEYS])
+def test_cuda_key_captures_without_a_host_sync_and_replays_its_eager_steps(key, over):
+    """Each captured configuration but lgn and textsage: after one eager step (which
+    builds what the step keeps), its warm-up steps, capture and first replay
+    run under torch's sync debug mode "error"; then 3 replays, also under it,
+    against 3 eager steps from the same state on the same batches: the
+    generator states equal, the first losses within 1e-6 relative, the
+    losses and parameters under the key's rule (mf and the LightGCN keys
+    ``chip_smoke.py``'s phase 7's: losses rtol 1e-5, every parameter within
+    4 lr, all but 1e-3 of them within 1e-6 + 1e-5 |p|; the SAGE family, whose
+    ReLU gates may turn on the scatter kernel's order of atomic adds: losses
+    rtol 1e-4, every parameter within half an lr, so that a replay that
+    misses or repeats an Adam update fails, all but 1e-2 of them within
+    1e-6 + 1e-5 |p|); each replay counted as as many scatter launches as an
+    eager step makes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from furusato_recommend_tpu_torch.models.registry import SAGE_KEYS
+    from furusato_recommend_tpu_torch.train.graphed import WARMUP_STEPS
+
+    t = _graph_trainer(False, key, **over)
+    graph, bs = t.step_graph, t.config.bpr_batch_size
+    batches = t.sample_epoch()
+    batch = [batches.slice(b * bs, (b + 1) * bs) for b in range(WARMUP_STEPS + 5)]
+    t.train_step(batch[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batch[1:WARMUP_STEPS + 2]:  # the warm-up steps, the capture and its first replay
+            graph.step(b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert graph.graph is not None and graph.stats["captures"] == 1
+    start = _graph_state(t)
+    sc.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replayed = torch.stack([graph.step(b).clone() for b in batch[-3:]])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    replay_launches = sc.launches
+    got = (replayed.cpu().numpy(), *_graph_state(t)[::2])
+    _set_graph_state(t, start)
+    sc.launches = 0
+    eager = torch.stack([t.train_step(b) for b in batch[-3:]])
+    assert replay_launches == sc.launches == 3 * graph.scatter_launches > 0, (replay_launches, sc.launches)
+    want = (eager.cpu().numpy(), *_graph_state(t)[::2])
+    assert torch.equal(got[2], want[2])
+    np.testing.assert_allclose(got[0][0], want[0][0], rtol=1e-6)
+    loss_rtol, lrs, share = (1e-4, 0.5, 1e-2) if key in SAGE_KEYS else (1e-5, 4, 1e-3)
+    np.testing.assert_allclose(got[0], want[0], rtol=loss_rtol)
+    off = total = 0
+    for k, w in want[1].items():
+        diff = np.abs(got[1][k] - w)
+        assert diff.max() <= lrs * t.config.lr, k
+        off += int((diff > 1e-6 + 1e-5 * np.abs(w)).sum())
+        total += diff.size
+    assert off <= share * total, f"{off} of {total} parameters off"
+
+
+@pytest.mark.cuda
+def test_cuda_dropped_trainer_frees_its_graph_pool():
+    """A captured trainer dropped (no collector run) gives its graph's memory
+    pool back: the card's reserved memory falls by at least the pool."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import gc
+
+    t = _graph_trainer(False, "textsage")
+    t.train_one_epoch()
+    pool = t.step_graph.stats["pool_mib"] * 2**20
+    assert pool > 0
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    gc.disable()
+    try:
+        del t
+        torch.cuda.empty_cache()
+        assert reserved - torch.cuda.memory_reserved() >= pool
+    finally:
+        gc.enable()

@@ -127,10 +127,15 @@ Phases (any failure raises and exits non-zero):
                records, at R = 1: 0.1533-0.1624); one epoch each of R = 0 (its
                loss only finite), feature_update_every T = 8 (the feature
                parameters bit-identical inside each super-step, moved at its
-               end; optimizer step hooks) and dask (the numeric columns in
+               end) and dask (the numeric columns in
                .npy files under a temporary directory, read through
                MemmapNumeric; the numeric linears held inside the epoch and
-               moved after it; stream_project on the card, in one chunk and
+               moved after it); every trainer by replays of its cadence's
+               captured parts (train/graphed.py), counted (R = 8: every step
+               after the first epoch's 3 warm-up steps), the T = 8 and dask
+               checks read between the parts of each block
+               (checked_parts: a replay fires no optimizer hook);
+               stream_project on the card, in one chunk and
                in chunks of 2048 rows, equal to the in-core projection within
                rtol 1e-5; stream_project_grad in chunks of 2048 rows equal to
                X^T G within 1e-5 of the magnitudes summed into each element),
@@ -146,7 +151,8 @@ Phases (any failure raises and exits non-zero):
                at the end, a near-zero gradient's +-lr step grows over the
                steps after it: tools/card_vs_cpu_spread.py); then samples/s, host and device ms a step, device
                operations a step and the idle share for R = 1, R = 8, T = 8
-               and dask at this shape, and train-textsage-100k at R = 8
+               and dask at this shape (R = 8, T = 8 and dask by replays and
+               by their eager parts, "eager"), and train-textsage-100k at R = 8
                beside phase 10's R = 1 (a {"train_cadences": ...} line)
  13. attention-20k
                the attention SAGE models on phase 12's graph and features:
@@ -409,28 +415,31 @@ Phases (any failure raises and exits non-zero):
                scatter at the ids of one textsage_id step's tree gathers at
                node width 64 (a {"registry": ...} line with the card's name
                and power limit)
- 21. graph-20k every configuration whose step the trainer captures (the
-               fresh cadence, no mesh; GRAPH_KEYS): lgn at phase 19's recipe
+ 21. graph-20k every configuration whose step the trainer captures (no
+               mesh): the fresh cadence (GRAPH_KEYS): lgn at phase 19's recipe
                and textsage at the flagship's (the first two captured), then mf, radj and
                lgcnssm at phase 19's lgn recipe, phase 20's SAGE keys at the
                flagship's, phase 13's attention keys, phase 14's edge-feature
                keys on their inputs (rsage on the relational graph, tgsrec and
                sasgnn with the purchase times) and phase 15's sasrec (its
                anchor recipe) and asage, on phase 12's graph and features (run
-               after phase 20); every key after lgn and textsage cut to
+               after phase 20); then the cached cadences (GRAPH_CADENCES):
+               textsage at R = 8, R = 0 and T = 8, dask, and tgrec, rsage add
+               and asage at R = 8; every key after lgn and textsage cut to
                GRAPH_STEPS steps an epoch (its checks the same). For each: an
-               eager step, then another under torch's sync debug mode "error";
+               eager step (a cached cadence: a one-step epoch of its eager
+               parts), then another under torch's sync debug mode "error";
                epoch 1 (the eager warm-up steps, the capture, replays), its
                checkpoint; epoch 2 by replays, whose host syncs must be
                exactly one (the loss mean), and the same epoch by the eager
-               train_step loop from the same parameters, Adam states and
+               parts (the train_step loop) from the same parameters, Adam states and
                generator state, twice: the generator states equal, the first
                losses within 1e-6 relative, the epoch under the key's rule
                (GRAPH_EPOCH_RULE: mf's and the LightGCN keys' phase 7's,
                losses within 1e-5 relative, parameters within 4 lr, all but
                1e-3 of them within 1e-6 + 1e-5 |p|; textsage's phase 19's,
                losses within 2e-3 relative, parameters within 10 lr; every
-               other SAGE key's parameters within 2 lr and its losses
+               other SAGE key's (the cadences' too) parameters within 2 lr and its losses
                within 1e-4 relative (sasrec's 5e-4): the atomic adds' order
                differs from run to run, a ReLU gate within rounding of 0
                turns on it, and two eager epochs part by as much), and two
@@ -448,11 +457,11 @@ Phases (any failure raises and exits non-zero):
                capture's cost (warm-up steps, capture, instantiate, the graph
                pool's MiB) (a {"graph": ...} line)
 
-Every fresh-cadence Trainer these phases build on the card without a mesh
-trains by replays of its captured step (train/graphed.py), every registry
-key but dask; the R / T / dask cadences and phase 19's mesh ranks step
-eagerly. Phases 13-15 and 20 free each trainer's graph after its evaluation
-and capture again before its numbers, which time replays.
+Every Trainer these phases build on the card without a mesh trains by
+replays of its cadence's captured parts (train/graphed.py): every registry
+key under the fresh cadence, and the R / T / dask cadences; phase 19's mesh
+ranks step eagerly. Phases 13-15 and 20 free each trainer's graph after its
+evaluation and capture again before its numbers, which time replays.
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
 30000, B in {1, 64, 512, 1024}, k in {10, 20}, and at phase 12's evaluation
@@ -1931,6 +1940,29 @@ def _params(model) -> dict:
     return {k: p.detach().clone() for k, p in model.named_parameters()}
 
 
+@contextlib.contextmanager
+def checked_parts(trainer, check):
+    """Within, each part of the trainer's cadence that its step graph runs
+    (``train/graphed.py::StepGraph.run``: an eager warm-up part or a replay)
+    is followed by ``check(part, replayed)``, which reads the trainer's state
+    between the parts of a block: what an optimizer hook read before the
+    parts were replayed (a replay fires none)."""
+    graph = trainer.step_graph
+    assert graph is not None, "the trainer's steps are not captured"
+    run = graph.run
+
+    def checked(part, batch=None):
+        out = run(part, batch)
+        check(part, bool(graph.graphs))  # a part after the capture is a replay
+        return out
+
+    graph.run = checked
+    try:
+        yield
+    finally:
+        del graph.run
+
+
 def train_textsage_20k(ds, fs, dev, tmp) -> dict:
     """Phase 12: the SAGE cadences on the anchor20k shape; returns facts (the
     R = 8 trainer under "trainer")."""
@@ -1952,11 +1984,15 @@ def train_textsage_20k(ds, fs, dev, tmp) -> dict:
             n_eval += 1
     assert np.isfinite([m for _, m in epochs]).all() and epochs[-1][1] < epochs[0][1], epochs
     assert recall[A20_EPOCHS] >= A20_RECALL10_FLOOR, f"recall@10 {recall} below {A20_RECALL10_FLOOR}"
-    log(f"train-textsage-20k R=8: {A20_EPOCHS} epochs of {tr8.num_batches} steps, loss {epochs[0][1]:.4f} -> "
+    replays8 = tr8.step_graph.stats["replays"]
+    assert tr8.step_graph.stats["captures"] == 1 and replays8 == steps - gr.WARMUP_STEPS, tr8.step_graph.stats
+    log(f"train-textsage-20k R=8: {A20_EPOCHS} epochs of {tr8.num_batches} steps ({replays8} of them replays), "
+        f"loss {epochs[0][1]:.4f} -> "
         f"{epochs[-1][1]:.4f}, recall@10 {recall[3]:.4f} at epoch 3 and {recall[6]:.4f} at epoch 6 (TPU records, "
         f"R=1: {A20_RECORDS_EPOCH6[0]}-{A20_RECORDS_EPOCH6[1]} at epoch 6; floor {A20_RECALL10_FLOOR})")
     facts["R8"] = {"epoch_s": [e for e, _ in epochs], "loss": [m for _, m in epochs], "recall@10": recall,
-                   "steps_per_epoch": tr8.num_batches, "samples_per_epoch": tr8.samples_per_epoch}
+                   "steps_per_epoch": tr8.num_batches, "samples_per_epoch": tr8.samples_per_epoch,
+                   "replayed_steps": replays8}
 
     # R = 0: one epoch (the epoch-start linearization only has to stay finite)
     tr0 = cadence_trainer(ds, fs, dev, relin_every=0)
@@ -1965,48 +2001,53 @@ def train_textsage_20k(ds, fs, dev, tmp) -> dict:
     r0 = tr0.test()
     n_eval += 1
     assert np.isfinite(losses).all() and all(np.isfinite(v) for v in r0.values()), (mean, r0)
+    assert tr0.step_graph.stats["replays"] == tr0.num_batches - gr.WARMUP_STEPS, tr0.step_graph.stats
     facts["R0"] = {"epoch_s": dt, "loss_first_last_tenth": _falls(losses), "recall@10": r0["recall@10"],
-                   "steps_per_epoch": tr0.num_batches}
+                   "steps_per_epoch": tr0.num_batches, "replayed_steps": tr0.step_graph.stats["replays"]}
     log(f"train-textsage-20k R=0: loss {facts['R0']['loss_first_last_tenth']} (first and last tenth), "
-        f"recall@10 {r0['recall@10']:.4f}")
+        f"recall@10 {r0['recall@10']:.4f}; {tr0.step_graph.stats['replays']} of {tr0.num_batches} steps replayed")
     del tr0
 
-    # T = 8: the feature parameters held inside each super-step, moved at its end
+    # T = 8: the feature parameters held inside each super-step, moved at its
+    # end; read between the parts of each super-step (a replay fires no
+    # optimizer hook), the first super-step's parts eager, the rest replays
     tr_t = cadence_trainer(ds, fs, dev, feature_update_every=CADENCE_BLOCK)
     feat = [dict(tr_t.model.named_parameters())[k] for k in tr_t.feature_names]
-    held = {"last": [p.detach().clone() for p in feat], "inner": 0, "super": 0, "bad": []}
+    held = {"last": [p.detach().clone() for p in feat], "inner": 0, "super": 0, "bad": [], "replayed": 0}
 
-    def pre_feat(opt, args, kwargs):
-        if not all(torch.equal(p.detach(), q) for p, q in zip(feat, held["last"])):
-            held["bad"].append(f"a feature parameter moved inside super-step {held['super']}")
-        if held["inner"] != CADENCE_BLOCK:
-            held["bad"].append(f"{held['inner']} inner steps in super-step {held['super']}")
+    def check_feat(part, replayed):
+        held["replayed"] += replayed
+        if part == "_inner_step":
+            held["inner"] += 1
+            if not all(torch.equal(p.detach(), q) for p, q in zip(feat, held["last"])):
+                held["bad"].append(f"a feature parameter moved inside super-step {held['super']}")
+        elif part == "_outer_step":
+            if held["inner"] != CADENCE_BLOCK:
+                held["bad"].append(f"{held['inner']} inner steps in super-step {held['super']}")
+            now = [p.detach().clone() for p in feat]
+            if all(torch.equal(a, b) for a, b in zip(now, held["last"])):
+                held["bad"].append(f"the feature parameters did not move at super-step {held['super']}")
+            held.update(last=now, inner=0, super=held["super"] + 1)
 
-    def post_feat(opt, args, kwargs):
-        now = [p.detach().clone() for p in feat]
-        if all(torch.equal(a, b) for a, b in zip(now, held["last"])):
-            held["bad"].append(f"the feature parameters did not move at super-step {held['super']}")
-        held.update(last=now, inner=0, super=held["super"] + 1)
-
-    def post_dense(opt, args, kwargs):
-        held["inner"] += 1
-
-    hooks = [tr_t.opt_feat.register_step_pre_hook(pre_feat), tr_t.opt_feat.register_step_post_hook(post_feat),
-             tr_t.optimizer.register_step_post_hook(post_dense)]
-    dt, mean, losses = _timed_epoch(tr_t)
-    for h in hooks:
-        h.remove()
+    with checked_parts(tr_t, check_feat):
+        dt, mean, losses = _timed_epoch(tr_t)
     steps += tr_t.num_batches
     rt = tr_t.test()
     n_eval += 1
     first, last = _falls(losses)
     assert not held["bad"], held["bad"][:5]
     assert held["super"] == tr_t.num_batches // CADENCE_BLOCK, held["super"]
+    # the first super-step eager, the second's linearization eager: the other
+    # steps, super-step ends and linearizations replayed
+    want = (tr_t.num_batches - CADENCE_BLOCK) + (held["super"] - 1) + (held["super"] - 2)
+    assert held["replayed"] == want, f"{held['replayed']} parts replayed, {want} expected"
     assert np.isfinite(losses).all() and last < first, (first, last)
-    facts["T8"] = {"epoch_s": dt, "loss_first_last_tenth": [first, last], "recall@10": rt["recall@10"],
-                   "super_steps": held["super"], "steps_per_epoch": tr_t.num_batches}
+    facts["T8"] = {"epoch_s_checked": dt, "loss_first_last_tenth": [first, last], "recall@10": rt["recall@10"],
+                   "super_steps": held["super"], "steps_per_epoch": tr_t.num_batches,
+                   "parts_replayed": held["replayed"]}
     log(f"train-textsage-20k T=8: {held['super']} super-steps, the feature parameters bit-identical inside "
-        f"each and moved at its end; loss {first:.4f} -> {last:.4f}, recall@10 {rt['recall@10']:.4f}")
+        f"each and moved at its end (read between the parts; {held['replayed']} parts replayed, the first "
+        f"super-step's eager); loss {first:.4f} -> {last:.4f}, recall@10 {rt['recall@10']:.4f}")
 
     # dask: the numeric columns on disk, read through MemmapNumeric
     mms = {}
@@ -2016,19 +2057,21 @@ def train_textsage_20k(ds, fs, dev, tmp) -> dict:
     trd = cadence_trainer(ds, fs, dev, name="dask", ooc=mms)
     numeric = {k: p for k, p in trd.model.named_parameters() if "_numeric_" in k}
     start = {k: p.detach().clone() for k, p in numeric.items()}
-    moved_inside = []
+    moved_inside, dask_replayed = [], []
 
-    def post_dask(opt, args, kwargs):
+    def check_numeric(part, replayed):
+        dask_replayed.append(replayed)
         moved_inside.extend(k for k, p in numeric.items() if not torch.equal(p.detach(), start[k]))
 
-    h = trd.optimizer.register_step_post_hook(post_dask)
-    dt, mean, losses = _timed_epoch(trd)
-    h.remove()
+    with checked_parts(trd, check_numeric):
+        dt, mean, losses = _timed_epoch(trd)
     steps += trd.num_batches
     rd = trd.test()
     n_eval += 1
     first, last = _falls(losses)
     assert not moved_inside, f"numeric linears moved inside the epoch: {sorted(set(moved_inside))}"
+    # the epoch's linearization and first steps eager, every later step replayed
+    assert sum(dask_replayed) == trd.num_batches - gr.WARMUP_STEPS, f"{sum(dask_replayed)} parts replayed"
     assert all(not torch.equal(p.detach(), start[k]) for k, p in numeric.items()), "no numeric linear moved"
     assert np.isfinite(losses).all() and last < first, (first, last)
     proj_err, grad_rel = 0.0, 0.0
@@ -2053,10 +2096,12 @@ def train_textsage_20k(ds, fs, dev, tmp) -> dict:
         torch.testing.assert_close(gb, g.sum(0), rtol=1e-5, atol=1e-5 * float(g.abs().sum(0).max()))
         grad_rel = max(grad_rel, float(((gw - want_w).abs() / mag_w.clamp_min(1e-30)).max()))
     n_chunks = -(-A20_USERS // OOC_CHUNK)
-    facts["dask"] = {"epoch_s": dt, "loss_first_last_tenth": [first, last], "recall@10": rd["recall@10"],
+    facts["dask"] = {"epoch_s_checked": dt, "loss_first_last_tenth": [first, last], "recall@10": rd["recall@10"],
+                     "parts_replayed": sum(dask_replayed),
                      "stream_project_max_abs_err": proj_err, "stream_project_grad_max_err_over_magnitude": grad_rel,
                      "check_chunk": OOC_CHUNK, "steps_per_epoch": trd.num_batches}
-    log(f"train-textsage-20k dask: numeric linears held inside the epoch and moved after it; stream_project "
+    log(f"train-textsage-20k dask: numeric linears held inside the epoch (read after each of its parts, "
+        f"{sum(dask_replayed)} of them replays) and moved after it; stream_project "
         f"in one chunk and in chunks of {OOC_CHUNK} rows ({n_chunks} on the user side) equal to the in-core "
         f"projection (max abs err {proj_err:.3g}); stream_project_grad equal to X^T G (max err / magnitude "
         f"{grad_rel:.3g}); loss {first:.4f} -> {last:.4f}, recall@10 {rd['recall@10']:.4f}")
@@ -2247,20 +2292,29 @@ def card_vs_cpu_cadences(ds, fs, trainer8, dev) -> dict:
                                   ("T8", {"feature_update_every": CADENCE_BLOCK}))}
 
 
-def cadence_numbers(trainer, label, profile_steps=2 * CADENCE_BLOCK) -> dict:
-    """Samples/s and host ms a step from a timed epoch; device ms and
-    operations a step from ``profile_steps`` profiled steps run through
-    ``train_epoch`` (whole blocks of the cadence; the dask epoch's streamed
-    passes count only when the whole epoch is profiled); and the idle share of
-    an unprofiled step (1 - device / host). A captured trainer without a
-    graph first takes its warm-up steps and its capture, so that both are
-    replays; its graph is freed after them."""
-    bs = trainer.config.bpr_batch_size
-    if trainer.step_graph is not None and trainer.step_graph.graph is None:
-        warm = trainer.sample_epoch()
-        trainer.train_epoch([warm.slice(i * bs, (i + 1) * bs) for i in range(gr.WARMUP_STEPS + 1)])
+@contextlib.contextmanager
+def eager_parts(trainer):
+    """Within, the trainer calls each part of its cadence eagerly (its step
+    graph set aside, kept for after): the eager epoch a replayed one is held
+    against."""
+    graph, trainer.step_graph = trainer.step_graph, None
+    try:
+        yield
+    finally:
+        trainer.step_graph = graph
+
+
+def warm_batches(trainer) -> int:
+    """Steps a captured trainer takes before its first replayed step: the
+    warm-up steps, under T > 1 a whole super-step (its end among the parts
+    that warm up)."""
+    return max(gr.WARMUP_STEPS, trainer.feat_every if trainer.cadence == "super" else 0) + 1
+
+
+def _epoch_numbers(trainer, label, profile_steps) -> dict:
     epoch_s, _, _ = _timed_epoch(trainer)
     steps = trainer.num_batches
+    bs = trainer.config.bpr_batch_size
     batches = trainer.sample_epoch()
     blocks = [batches.slice(i * bs, (i + 1) * bs) for i in range(min(profile_steps, steps))]
     torch.cuda.synchronize()
@@ -2276,9 +2330,28 @@ def cadence_numbers(trainer, label, profile_steps=2 * CADENCE_BLOCK) -> dict:
         log(f"{label}: {out['samples_per_s']:.0f} samples/s; a step {out['host_ms_per_step']:.2f} ms on the "
             f"host, {out['device_ms_per_step']:.3f} ms on the device in {out['device_ops_per_step']:.0f} "
             f"operations; idle {out['idle_share_unprofiled']:.3f}")
-    release(trainer)
     return out
 
+
+def cadence_numbers(trainer, label, profile_steps=2 * CADENCE_BLOCK, eager=False) -> dict:
+    """Samples/s and host ms a step from a timed epoch; device ms and
+    operations a step from ``profile_steps`` profiled steps run through
+    ``train_epoch`` (whole blocks of the cadence; the dask epoch's streamed
+    passes count only when the whole epoch is profiled); and the idle share of
+    an unprofiled step (1 - device / host). A captured trainer without a
+    graph first takes its warm-up steps and its capture, so that both are
+    replays; its graph is freed after them. With ``eager``, the same numbers
+    of the trainer's eager epoch follow (under "eager")."""
+    bs = trainer.config.bpr_batch_size
+    if trainer.step_graph is not None and trainer.step_graph.graph is None:
+        warm = trainer.sample_epoch()
+        trainer.train_epoch([warm.slice(i * bs, (i + 1) * bs) for i in range(warm_batches(trainer))])
+    out = _epoch_numbers(trainer, label + (" replays" if eager else ""), profile_steps)
+    if eager:
+        with eager_parts(trainer):
+            out["eager"] = _epoch_numbers(trainer, f"{label} eager", profile_steps)
+    release(trainer)
+    return out
 
 
 def scatter_per_step(name: str) -> int:
@@ -2287,12 +2360,18 @@ def scatter_per_step(name: str) -> int:
 
 
 def key_label(name, over) -> str:
-    """A registry key and the config field that picks its conv."""
+    """A registry key, the config field that picks its conv, and its
+    cadence where it is not the fresh one."""
     if "conv" in over:
-        return f"{name} --conv {over['conv']}"
-    if "multi_relational" in over:
-        return f"{name} {over['multi_relational']}"
-    return name
+        label = f"{name} --conv {over['conv']}"
+    elif "multi_relational" in over:
+        label = f"{name} {over['multi_relational']}"
+    else:
+        label = name
+    for field, tag in (("relin_every", "R"), ("feature_update_every", "T")):
+        if field in over:
+            label += f" {tag}={over[field]}"
+    return label
 
 
 def sasrec_config(**over) -> Config:
@@ -2867,6 +2946,15 @@ def registry_20k(ds, fs, dev, scatter_held, topk_held) -> dict:
 # at its anchor recipe and asage at the flagship's
 GRAPH_KEYS = ((("lgn", {}), ("textsage", {})) + tuple(k for k in REG_KEYS if k[0] != "rgcn") + ATT_KEYS
               + EDGE_KEYS + SEQ_KEYS)
+# the cached cadences, captured since slice 19: textsage at R = 8, R = 0 and
+# T = 8, dask (its numeric matrices on disk, R = 0), and at R = 8 one key of
+# each other family whose loss takes the cached tables (tgrec, rsage add,
+# asage); each GRAPH_STEPS steps an epoch, two whole blocks
+GRAPH_CADENCES = (("textsage", {"relin_every": CADENCE_BLOCK}), ("textsage", {"relin_every": 0}),
+                  ("textsage", {"feature_update_every": CADENCE_BLOCK}), ("dask", {}),
+                  ("tgrec", {"relin_every": CADENCE_BLOCK}),
+                  ("rsage", {"multi_relational": "add", "relin_every": CADENCE_BLOCK}),
+                  ("asage", {"relin_every": CADENCE_BLOCK}))
 # the keys whose replay and eager epochs are timed in turns: lgn, textsage and
 # one of each family
 GRAPH_TIMED = ("lgn", "textsage", "mf", "radj", "pinsage", "nssage", "tgrec", "rsage add", "sasrec", "asage")
@@ -2891,6 +2979,13 @@ _PHASE7_RULE, _PHASE19_RULE = (1e-5, 4, 1e-3), (MESH_LOSS_RTOL, MESH_PARAM_LRS, 
 _SAGE_RULE, _SASREC_RULE = (1e-4, 2, 1.0), (5e-4, 2, 1.0)
 
 
+# The cached cadences' 16 steps take the family's rule: over three whole
+# runs on the H100 (PERF.md, PR 21) textsage's R = 8, R = 0, T = 8 and dask
+# epochs parted by at most 0.0072 lr, 80 of 37,888 parameters and losses
+# 3.6e-7 (tgrec, rsage add, asage at R = 8: 0.0081 lr, 19, 1.7e-7), and a
+# gate that turns in some run parts the family's keys by up to 0.53 lr
+
+
 def _graph_rule(name: str, label: str) -> tuple:
     if name not in SAGE_KEYS:
         return _PHASE7_RULE
@@ -2899,7 +2994,8 @@ def _graph_rule(name: str, label: str) -> tuple:
     return _SASREC_RULE if name == "sasrec" else _SAGE_RULE
 
 
-GRAPH_EPOCH_RULE = {key_label(name, over): _graph_rule(name, key_label(name, over)) for name, over in GRAPH_KEYS}
+GRAPH_EPOCH_RULE = {key_label(name, over): _graph_rule(name, key_label(name, over))
+                    for name, over in GRAPH_KEYS + GRAPH_CADENCES}
 # two steps each way under phase 7's rule, but tgsrec's (its two steps part
 # by 36-122 of 46,144 parameters, max 5.4e-6, on the H100: past phase 7's
 # share) with a share of 1e-2
@@ -2936,16 +3032,16 @@ def _reset(trainer, snap: dict) -> None:
 
 
 def _eager_epoch(trainer) -> tuple:
-    """One epoch by the eager ``train_step`` loop, as ``train_one_epoch``
-    takes it otherwise (the sampler, the steps, the mean loss read once):
-    (seconds, mean loss, per-step losses)."""
+    """One epoch with each part of the cadence called eagerly (the fresh
+    cadence's ``train_step`` loop), as ``train_one_epoch`` takes it otherwise
+    (the sampler, the steps, the mean loss read once): (seconds, mean loss,
+    per-step losses)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bs = trainer.config.bpr_batch_size
     batches = trainer.sample_epoch()
-    losses = torch.empty(trainer.num_batches, device=trainer.device)
-    for b in range(trainer.num_batches):
-        losses[b] = trainer.train_step(batches.slice(b * bs, (b + 1) * bs))
+    with eager_parts(trainer):
+        losses = trainer.train_epoch([batches.slice(b * bs, (b + 1) * bs) for b in range(trainer.num_batches)])
     mean = float(losses.mean())
     return time.perf_counter() - t0, mean, losses.cpu().numpy()
 
@@ -2970,8 +3066,9 @@ def _epoch_rule(got: tuple, want: tuple, lr: float, label: str) -> dict:
 
 def _two_steps(trainer, snap: dict, replays: bool) -> tuple:
     """Two steps from ``snap`` on phase 7's seeded batches (the trees and
-    dropout from the trainer's generator), by replays or by train_step:
-    (losses, parameters)."""
+    dropout from the trainer's generator), by replays or by the eager parts
+    (a cached cadence: one linearization, a super-step cut short): (losses,
+    parameters)."""
     _reset(trainer, snap)
     bs = trainer.config.bpr_batch_size
     gen = torch.Generator(device=trainer.device).manual_seed(SEED + 2)
@@ -2981,7 +3078,8 @@ def _two_steps(trainer, snap: dict, replays: bool) -> tuple:
     if replays:
         losses = trainer.train_epoch(batches)
     else:
-        losses = torch.stack([trainer.train_step(b) for b in batches])
+        with eager_parts(trainer):
+            losses = trainer.train_epoch(batches)
     return losses.cpu().numpy(), whole_params(trainer)
 
 
@@ -2999,10 +3097,16 @@ def step_kernels(fn, n: int) -> dict:
             "device_ops": len(inside) / n, "idle_share_profiled": 1.0 - busy / wall_us, "pad_kept": pad_kept}
 
 
-def graph_trainer(ds, fs, name: str, dev, steps=None, **over) -> Trainer:
+def graph_trainer(ds, fs, name: str, dev, steps=None, ooc=None, **over) -> Trainer:
     """A key's trainer from fresh parameters; ``steps``: an epoch's steps
-    (the depth cut), else the whole epoch's."""
-    cfg, model = model_20k(ds, fs, name, SEED + 1, **over)
+    (the depth cut), else the whole epoch's; ``ooc``: dask's numeric
+    matrices on disk (side -> MemmapNumeric)."""
+    if ooc is None:
+        cfg, model = model_20k(ds, fs, name, SEED + 1, **over)
+    else:
+        cfg = key_config(name, **over)
+        model = build_model(name, cfg, ds.graph, generator=torch.Generator().manual_seed(SEED + 1),
+                            features=_no_numeric(fs), ooc_numeric=ooc)
     trainer = Trainer(cfg, ds, model, logger=MetricLogger(quiet=True), ddp_recipe=ddp_recipe(name), device=dev)
     trainer.init_state()
     if steps is not None:
@@ -3018,37 +3122,48 @@ def release(trainer) -> None:
         trainer.step_graph.drop()
 
 
-def graph_key(ds, fs, name: str, over: dict, dev, tmp) -> tuple:
-    """Phase 21 for one configuration: an eager step under the sync debug
-    mode's "error"; epoch 1 (the warm-up steps, the capture, replays), its
-    checkpoint; epoch 2 by replays (its host syncs) against the eager loop
-    from the same state, twice; two steps each way; the checkpoint restored
-    into a new trainer, epoch 2 by its own capture; the kernels of a replayed
-    step against an eager one's; for GRAPH_TIMED's keys replay and eager
-    epochs in turns. Returns (facts, the scatter launches its steps made)."""
+def graph_key(ds, fs, name: str, over: dict, dev, tmp, ooc=None) -> tuple:
+    """Phase 21 for one configuration: an eager step (a cached cadence: a
+    one-step epoch of its eager parts) under the sync debug mode's "error";
+    epoch 1 (the warm-up steps, the capture, replays), its checkpoint; epoch
+    2 by replays (its host syncs) against the eager loop from the same state,
+    twice; two steps each way; the checkpoint restored into a new trainer,
+    epoch 2 by its own capture; the kernels of a replayed step against an
+    eager one's; for GRAPH_TIMED's keys replay and eager epochs in turns.
+    Returns (facts, the scatter launches its steps made)."""
     label = key_label(name, over)
     cut = None if label in ("lgn", "textsage") else GRAPH_STEPS
     timed = label in GRAPH_TIMED
     reserved = torch.cuda.memory_reserved(dev)
-    tr = graph_trainer(ds, fs, name, dev, cut, **over)
+    tr = graph_trainer(ds, fs, name, dev, cut, ooc, **over)
     n, lr, per_step = tr.num_batches, tr.config.lr, scatter_per_step(name)
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
     batch = sample_bpr(gen, tr.graph, tr.config.bpr_batch_size, tr.config.neg_candidates,
                        edge_alias=tr.edge_alias, neg_alias=tr.neg_alias)
+
     # (0) a step, once its first call has built what it keeps, that never
     # waits for the card: what a capture takes
-    tr.train_step(batch)
+    def eager_step():
+        with eager_parts(tr):
+            tr.train_epoch([batch])
+
+    eager_step()
     torch.cuda.synchronize()
+    launches = sc.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
-        tr.train_step(batch)
+        eager_step()
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    assert sc.launches - launches == per_step, (label, sc.launches - launches)
     first_s, _, _ = _timed_epoch(tr)  # W eager warm-up steps, the capture, replays
     graph = tr.step_graph
     assert tr.captured and graph is not None and graph.graph is not None, f"{label}: the step was not captured"
     capture = {k: graph.stats[k] for k in ("warmup_ms", "capture_ms", "instantiate_ms", "pool_mib")}
+    capture["warmup_steps"] = graph.warm[graph.step_part]
     assert graph.scatter_launches == per_step, (label, graph.scatter_launches)
+    # the linearization and a super-step's end launch no scatter kernel here
+    assert all(graph.launches[part] == 0 for part in graph.parts if part != graph.step_part), graph.launches
     ckpt = os.path.join(tmp, f"graph_{label.replace(' ', '_')}.ckpt")
     tr.save(ckpt)
     snap = _snapshot(tr)
@@ -3075,10 +3190,11 @@ def graph_key(ds, fs, name: str, over: dict, dev, tmp) -> tuple:
     two_steps = {"losses": [rl.tolist(), el.tolist()], **_params_rule(rp, ep, two_lrs * lr, two_share)}
     # (d) epoch 1's checkpoint restored into a new trainer, epoch 2 by its
     # own capture and replays
-    tr2 = graph_trainer(ds, fs, name, dev, cut, **over)
+    tr2 = graph_trainer(ds, fs, name, dev, cut, ooc, **over)
     tr2.restore(ckpt)
     tr2.train_one_epoch()
-    assert tr2.step_graph.stats["captures"] == 1 and tr2.step_graph.stats["replays"] == n - gr.WARMUP_STEPS
+    assert tr2.step_graph.stats["captures"] == 1, tr2.step_graph.stats
+    assert tr2.step_graph.stats["replays"] == n - warm_batches(tr2) + 1, tr2.step_graph.stats
     vs_restored = _epoch_rule((tr2.epoch_losses.cpu().numpy(), whole_params(tr2), tr2.generator.get_state()),
                               replayed, lr, label)
     del tr2
@@ -3090,7 +3206,7 @@ def graph_key(ds, fs, name: str, over: dict, dev, tmp) -> tuple:
     # (b) the kernels of a replayed step against the eager step's
     prof_n = GRAPH_PROFILE_STEPS.get(label, GRAPH_CHECK_STEPS)
     prof = {"replays": step_kernels(lambda: graph.step(batch), prof_n),
-            "eager": step_kernels(lambda: tr.train_step(batch), prof_n)}
+            "eager": step_kernels(lambda: getattr(tr, graph.step_part)(batch), prof_n)}
     assert prof["replays"]["scatter_add_rows"] == prof["eager"]["scatter_add_rows"] == per_step, (label, prof)
     assert prof["replays"]["library_scatter"] == prof["eager"]["library_scatter"] == 0, (label, prof)
     # the 2 steps of (0), epochs 1 and 2, 2 eager epochs, 2 x 2 steps, the
@@ -3102,7 +3218,7 @@ def graph_key(ds, fs, name: str, over: dict, dev, tmp) -> tuple:
         numbers[kind] = {"epoch_s": epochs[kind], "samples_per_s": tr.samples_per_epoch / s,
                          "host_ms_per_step": 1e3 * s / n, **prof[kind]}
         numbers[kind]["idle_share"] = 1.0 - prof[kind]["device_ms"] / numbers[kind]["host_ms_per_step"]
-    log(f"graph-20k {label}: epoch 1 {first_s:.2f} s ({gr.WARMUP_STEPS} eager warm-up steps "
+    log(f"graph-20k {label}: epoch 1 {first_s:.2f} s ({graph.warm[graph.step_part]} eager warm-up steps "
         f"{capture['warmup_ms']:.1f} ms, capture {capture['capture_ms']:.1f} ms, instantiate "
         f"{capture['instantiate_ms']:.1f} ms, graph pool {capture['pool_mib']:.1f} MiB); epoch 2 by {n} replays "
         f"against the eager loop from the same state: generator state equal, first loss within "
@@ -3140,13 +3256,18 @@ def graph_20k(inputs, dev, tmp) -> dict:
     t0 = time.perf_counter()
     st.launches = sc.launches = 0
     out, steps = {}, {}
-    for name, over in GRAPH_KEYS:
+    for name, over in GRAPH_KEYS + GRAPH_CADENCES:
         label = key_label(name, over)
-        out[label], steps[label] = graph_key(*inputs(name), name, over, dev, tmp)
+        ds, fs = inputs(name)
+        ooc = None
+        if name == "dask":  # its numeric matrices on disk
+            ooc = {side: MemmapNumeric.write(os.path.join(tmp, f"{side}_numeric.npy"), getattr(fs, side).numeric.numpy())
+                   for side in ("user", "item")}
+        out[label], steps[label] = graph_key(ds, fs, name, over, dev, tmp, ooc)
     launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
     assert launches == {"masked_topk": 0, "scatter_add_rows": sum(steps.values())}, (launches, steps)
     phase_s = time.perf_counter() - t0
-    per_step = {key_label(name, over): scatter_per_step(name) for name, over in GRAPH_KEYS}
+    per_step = {key_label(name, over): scatter_per_step(name) for name, over in GRAPH_KEYS + GRAPH_CADENCES}
     log(f"graph-20k: scatter launches {launches['scatter_add_rows']} ({per_step} per step, replays included); "
         f"{phase_s:.0f} s")
     return {"keys": out, "launches": launches, "phase_s": phase_s}
@@ -4543,7 +4664,7 @@ def main() -> int:
         for key, trainer_c in a20_trainers.items():
             cadences_20k[key] = cadence_numbers(
                 trainer_c, f"train-textsage-20k {key}",
-                profile_steps=trainer_c.num_batches if key == "dask" else 2 * CADENCE_BLOCK)
+                profile_steps=trainer_c.num_batches if key == "dask" else 2 * CADENCE_BLOCK, eager=True)
         del a20_trainers, trainer_c
     tr100 = Trainer(cfg_ts.replace(relin_every=CADENCE_BLOCK), ts_ds, _textsage_model(ts_ds, ts_fs, SEED + 1),
                     logger=MetricLogger(quiet=True), ddp_recipe=True, device=dev)

@@ -13,7 +13,7 @@ Pallas kernel computes them.
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,11 +58,16 @@ class MemmapNumeric:
             yield self.chunk(lo, min(lo + chunk, n))
 
 
-def stream_project(mm: MemmapNumeric, w: torch.Tensor, b: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+def stream_project(mm: MemmapNumeric, w: torch.Tensor, b: torch.Tensor, chunk: int = CHUNK,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[N, d] = X @ w + b on w's device, over row chunks of X; chunk i + 1 is
-    read and copied while chunk i's product runs."""
+    read and copied while chunk i's product runs. ``out``: the [N, d]
+    float32 tensor to write into (a new one otherwise)."""
     n = mm.shape[0]
-    out = torch.empty((n, w.shape[1]), dtype=torch.float32, device=w.device)
+    if out is None:
+        out = torch.empty((n, w.shape[1]), dtype=torch.float32, device=w.device)
+    elif tuple(out.shape) != (n, w.shape[1]) or out.dtype != torch.float32:
+        raise ValueError(f"out is {tuple(out.shape)} {out.dtype}, the projection ({n}, {w.shape[1]}) float32")
     lo = 0
     for xc in prefetch_to_device(mm.iter_chunks(min(chunk, n)), size=2, device=w.device):
         hi = lo + xc.shape[0]

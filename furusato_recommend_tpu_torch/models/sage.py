@@ -413,11 +413,12 @@ class SAGE(PairwiseModel):
     @torch.no_grad()
     def refresh_ooc_proj(self, chunk: int = CHUNK) -> Dict[str, torch.Tensor]:
         """Stream each out-of-core side's X @ W + b with the current numeric
-        linear onto the parameters' device (``data/ooc.py``)."""
-        self._ooc_proj = {
-            side: stream_project(mm, getattr(self, f"{side}_numeric_w"), getattr(self, f"{side}_numeric_b"), chunk)
-            for side, mm in self.ooc_numeric.items()
-        }
+        linear onto the parameters' device (``data/ooc.py``). After the first
+        call each side's projection is written into the same tensor, which a
+        captured linearization reads (``train/graphed.py``)."""
+        for side, mm in self.ooc_numeric.items():
+            w, b = getattr(self, f"{side}_numeric_w"), getattr(self, f"{side}_numeric_b")
+            self._ooc_proj[side] = stream_project(mm, w, b, chunk, out=self._ooc_proj.get(side))
         return self._ooc_proj
 
     def _head(self, x: torch.Tensor, side: str) -> torch.Tensor:

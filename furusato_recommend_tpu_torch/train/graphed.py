@@ -1,95 +1,143 @@
-"""A training step captured once as a CUDA graph and replayed for every batch
+"""A training step captured once as CUDA graphs and replayed for every batch
 (the port's counterpart of the JAX trainer's one-dispatch epoch,
 ``train/trainer.py::_build_train_epoch``: the optimizer step folded over the
-epoch's batches by ``lax.scan``, one program a dispatch).
+epoch's batches by ``lax.scan``, one program a dispatch, for every cadence).
 
 ``StepGraph`` holds the static inputs of a step, a ``BPRBatch`` of B rows,
-and runs the Trainer's own step on them (``Trainer.train_step``:
-``loss_backward`` then ``adam_step``), so the graph records exactly the eager
+and the graphs of the Trainer's cadence. A cadence's step is made of parts,
+each a Trainer method (``PARTS``), so the graphs record exactly the eager
 step's math:
 
-- after a capture is dropped (and at the start), the first ``WARMUP_STEPS``
-  steps run eagerly on the capture stream. They are real steps of the
-  epoch, and they set up what a capture may not: cuSPARSE's handle and
-  workspace, cuBLAS's workspace on that stream, the scatter kernel's
-  shared-memory limit (``ops/scatter.py::_prepare``) and the allocator's
-  blocks;
-- the next step is captured (capture executes nothing) and replayed at once;
+- the fresh cadence (R = 1, T = 1): ``train_step`` (``loss_backward`` then
+  ``adam_step``), one graph;
+- R >= 2, R = 0 and ``dask``: ``_linearize`` (the feature parameters copied
+  into the snapshot, the tables computed from it with their graph kept, and
+  copied into the leaves) once a block, and ``_cached_step`` (the direct step
+  on the leaves, the pullback through the tables' kept graph, Adam) a step;
+- T > 1: ``_linearize`` at the top of each super-step (once an epoch at R =
+  0), ``_inner_step`` a step and ``_outer_step`` (the pullback of the mean
+  table gradient, the feature parameters' Adam) at the super-step's end.
+
+One graph launch a step, and one a block for the linearization (under T > 1
+also one for the super-step's end). ``dask``'s memmap reads stay on the
+host and eager: the streamed projection at the epoch's start
+(``refresh_ooc_proj``, written into the tensor the linearization reads) and
+the X^T G update at its end.
+
+- After a capture is dropped (and at the start), the parts run eagerly on
+  the capture stream until ``WARMUP_STEPS`` steps and every other part have
+  run: real steps of the epoch, which set up what a capture may not
+  (cuSPARSE's handle and workspace, cuBLAS's workspace on that stream, the
+  scatter kernel's shared-memory limit, ``ops/scatter.py::_prepare``, the
+  Adams' states and the allocator's blocks) and make the cadence's static
+  tensors (``trainer.py::_CachedTables``);
+- at the next step every part is captured (capture executes nothing), into
+  one memory pool. The step's graph reads what the linearization's graph
+  wrote: the leaves and snapshot (static tensors), and the tables' saved
+  activations, which stay alive in the pool (their graph is kept,
+  ``retain_graph``). A capture in the middle of a block first replays the
+  linearization once with the feature parameters set to the block's
+  snapshot, so the tables are the block's; then the step is replayed;
 - every later step copies its batch into the static inputs (4 device copies)
-  and replays the graph; the loss stays on the device.
+  and replays the step's graph; a linearization replays its own. The loss
+  stays on the device.
 
 The random draws of a step (the sampler's trees, dropout, lgn's edge
-dropout) come from the Trainer's generator, registered with the graph: a
-replay draws what an eager step would have drawn, and leaves the generator
-where an eager step leaves it. The hand-written ``scatter_add_rows`` kernel is
-launched through ctypes on the current stream, so the capture records it; the
-wrapper counts a launch under capture apart (``ops/scatter.py::captured``),
-and a replay counts the launches its capture recorded
-(``ops/scatter.py::count_replay``).
+dropout) come from the Trainer's generator, registered with each graph that
+draws (the step's): a replay draws what an eager step would have drawn, and
+leaves the generator where an eager step leaves it. The hand-written
+``scatter_add_rows`` kernel is launched through ctypes on the current
+stream, so the capture records it; the wrapper counts a launch under
+capture apart (``ops/scatter.py::captured``), and a replay counts the
+launches its capture recorded (``ops/scatter.py::count_replay``).
 
 Which configurations are captured (``captured``): every model of the
-registry (mf, the LightGCN family, the SAGE family with all its convs, heads
-and losses, sasrec and asage) under the fresh cadence (R = 1, T = 1, no
-dask), on one process (no mesh), on a CUDA device. The Trainer makes a
-``StepGraph`` for those alone; the CPU, the R / T / dask cadences and the
-mesh run their steps eagerly through ``Trainer.train_step``. A failed capture
-or replay raises; nothing falls back to eager steps.
+registry under every cadence, on one process (no mesh), on a CUDA device.
+The Trainer makes a ``StepGraph`` for those alone; the CPU and the mesh run
+their parts eagerly, and so does a step given presampled draws. A failed
+capture or replay raises; nothing falls back to eager steps.
 
-The Trainer drops the graph (``drop``) whenever it replaces a tensor the
-graph reads: new Adam states (``init_state``, ``restore``); the next step
-warms up and captures again. ``drop`` releases the graph's memory pool (the
-parameters' gradients, which the graph wrote, go with it) to the caching
-allocator, and so does dropping the Trainer: the ``StepGraph`` holds its
-Trainer by a weak reference, so no cycle keeps a dropped Trainer's pool until
-the collector runs.
+The Trainer drops the graphs (``drop``) whenever it replaces a tensor they
+read: new Adam states (``init_state``, ``restore``), with which it makes the
+cadence's static tensors anew; the next steps warm up and capture again.
+``drop`` releases the graphs' memory pool (the parameters' gradients and the
+tables' saved activations, which the graphs wrote, go with it) to the
+caching allocator, and so does dropping the Trainer: the ``StepGraph``
+holds its Trainer by a weak reference, so no cycle keeps a dropped
+Trainer's pool until the collector runs.
 """
 
 from __future__ import annotations
 
+import collections
 import time
 import weakref
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from ..ops import scatter
 from ..sampling.bpr import BPRBatch
 
-__all__ = ["WARMUP_STEPS", "StepGraph", "captured"]
+__all__ = ["PARTS", "WARMUP_STEPS", "StepGraph", "captured"]
 
 #: eager steps on the capture stream before a capture
 WARMUP_STEPS = 3
 
+#: a cadence's parts in capture order: the Trainer method, and whether it
+#: takes the step's batch (one such part a cadence)
+PARTS = {
+    "fresh": {"train_step": True},
+    "relin": {"_linearize": False, "_cached_step": True},
+    "ooc": {"_linearize": False, "_cached_step": True},
+    "super": {"_linearize": False, "_inner_step": True, "_outer_step": False},
+}
+
 
 def captured(cadence: str, mesh, device) -> bool:
-    """Whether a step of this configuration is replayed as a CUDA graph:
-    the fresh cadence, without a mesh, on a CUDA device."""
-    return cadence == "fresh" and mesh is None and torch.device(device).type == "cuda"
+    """Whether the steps of this configuration are replayed as CUDA graphs:
+    any cadence, without a mesh, on a CUDA device."""
+    return cadence in PARTS and mesh is None and torch.device(device).type == "cuda"
 
 
 class StepGraph:
-    """The Trainer's step on static inputs, captured on CUDA (module
+    """The Trainer's cadence on static inputs, captured on CUDA (module
     docstring). ``stats``: warm-up, capture and instantiate host ms of the
-    last capture, its pool's MiB, and the captures and replays so far."""
+    last capture (every part), its pool's MiB, and the captures and steps
+    replayed so far."""
 
     def __init__(self, trainer):
         self.trainer = weakref.proxy(trainer)  # the Trainer holds this
+        self.parts: Dict[str, bool] = dict(PARTS[trainer.cadence])
+        self.step_part = next(part for part, batched in self.parts.items() if batched)
         self.batch: Optional[BPRBatch] = None  # the static inputs
         self.loss: Optional[torch.Tensor] = None  # the static loss slot
-        self.graph = None
+        self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
         self.stream = None  # the capture stream, made at the first step
-        self.warm = 0  # eager steps since the last drop
-        self.scatter_launches = 0  # the scatter kernel's launches a replay adds
+        self.warm = collections.Counter()  # eager calls of each part since the last drop
+        self.launches: Dict[str, int] = {}  # the scatter kernel's launches a replay of each part adds
         self.stats = {"warmup_ms": 0.0, "capture_ms": None, "instantiate_ms": None, "pool_mib": None,
                       "captures": 0, "replays": 0}
 
+    @property
+    def graph(self):
+        """The step's graph (None before a capture)."""
+        return self.graphs.get(self.step_part)
+
+    @property
+    def scatter_launches(self) -> int:
+        """The scatter kernel's launches a replayed step adds."""
+        return self.launches.get(self.step_part, 0)
+
     def drop(self) -> None:
-        """Forget the captured graph and release its memory pool; the next
+        """Forget the captured graphs and release their memory pool; the next
         steps warm up and capture anew."""
-        if self.graph is not None:
-            self.graph = self.loss = None
+        if self.graphs:
+            self.graphs, self.loss = {}, None
             self.trainer.model.zero_grad(set_to_none=True)  # the pool's last tensors
-        self.warm = 0
+            if self.trainer.cached is not None:  # the tables' saved activations
+                self.trainer.cached.tables = self.trainer.cached.inputs = None
+        self.warm.clear()
         self.stats["warmup_ms"] = 0.0
 
     def _load(self, batch: BPRBatch) -> BPRBatch:
@@ -106,46 +154,87 @@ class StepGraph:
             dst.copy_(src)
         return self.batch
 
+    def _warm(self) -> bool:
+        """Whether every part has run eagerly enough to be captured."""
+        return all(self.warm[part] >= (WARMUP_STEPS if batched else 1) for part, batched in self.parts.items())
+
     def step(self, batch: BPRBatch) -> torch.Tensor:
-        """One step on ``batch``; its loss, on the device (after the capture:
-        the static loss slot, which the next step overwrites)."""
+        """One step on ``batch`` (``run`` of the step's part)."""
+        return self.run(self.step_part, batch)
+
+    def run(self, part: str, batch: Optional[BPRBatch] = None):
+        """One call of the Trainer's ``part`` (on ``batch`` for the step);
+        the step's loss, on the device (after the capture: the static loss
+        slot, which the next step overwrites)."""
+        batched = self.parts[part]
+        if (batch is not None) != batched:
+            raise ValueError(f"{part}: {'a batch' if batched else 'no batch'} expected")
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.trainer.device)
-        if self.graph is None and self.warm < WARMUP_STEPS:
+        if not self.graphs and not (batched and self._warm()):
             t0 = time.perf_counter()
             here = torch.cuda.current_stream(self.trainer.device)
             self.stream.wait_stream(here)
             with torch.cuda.stream(self.stream):
-                loss = self.trainer.train_step(self._load(batch))
+                out = getattr(self.trainer, part)(*((self._load(batch),) if batched else ()))
             here.wait_stream(self.stream)
-            self.warm += 1
+            self.warm[part] += 1
             self.stats["warmup_ms"] += 1e3 * (time.perf_counter() - t0)
-            return loss
-        self._load(batch)
-        if self.graph is None:
+            return out
+        if batched:
+            self._load(batch)
+        if not self.graphs:
             self._capture()
-        self.graph.replay()
-        scatter.count_replay(self.scatter_launches)
-        self.stats["replays"] += 1
-        return self.loss
+        self.graphs[part].replay()
+        scatter.count_replay(self.launches[part])
+        if batched:
+            self.stats["replays"] += 1
+            return self.loss
+        return None
 
     def _capture(self) -> None:
-        """Capture one step on the static inputs (executing nothing)."""
+        """Capture every part on the static inputs into one pool (executing
+        nothing), then fill the linearization's tables with the block's."""
         dev = self.trainer.device
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        graph.register_generator_state(self.trainer.generator)
-        before = scatter.captured
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
-            loss = self.trainer.train_step(self.batch)
-        t1 = time.perf_counter()
-        graph.instantiate()
-        t2 = time.perf_counter()
-        self.scatter_launches = scatter.captured - before
-        self.graph, self.loss = graph, loss
-        self.stats.update(capture_ms=1e3 * (t1 - t0), instantiate_ms=1e3 * (t2 - t1),
+        pool = torch.cuda.graph_pool_handle()
+        capture_ms = instantiate_ms = 0.0
+        for part, batched in self.parts.items():
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            if batched:  # the step draws the trees and dropout
+                graph.register_generator_state(self.trainer.generator)
+            before = scatter.captured
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, pool=pool, stream=self.stream, capture_error_mode="thread_local"):
+                out = getattr(self.trainer, part)(*((self.batch,) if batched else ()))
+            t1 = time.perf_counter()
+            graph.instantiate()
+            capture_ms += 1e3 * (t1 - t0)
+            instantiate_ms += 1e3 * (time.perf_counter() - t1)
+            self.launches[part] = scatter.captured - before
+            self.graphs[part] = graph
+            if batched:
+                self.loss = out
+        if "_linearize" in self.parts:
+            self._fill()
+        self.stats.update(capture_ms=capture_ms, instantiate_ms=instantiate_ms,
                           pool_mib=(torch.cuda.memory_reserved(dev) - reserved) / 2**20,
                           captures=self.stats["captures"] + 1)
+
+    @torch.no_grad()
+    def _fill(self) -> None:
+        """Replay the linearization once from the block's snapshot: the
+        feature parameters, moved by the block's eager steps, are set to it
+        for the replay (which copies them into the snapshot) and set back."""
+        trainer = self.trainer
+        named = dict(trainer.model.named_parameters())
+        feats = [(named[k], trainer.cached.snap[k]) for k in trainer.feature_names]
+        held = [p.detach().clone() for p, _ in feats]
+        for p, s in feats:
+            p.copy_(s)
+        self.graphs["_linearize"].replay()
+        scatter.count_replay(self.launches["_linearize"])
+        for (p, _), h in zip(feats, held):
+            p.copy_(h)

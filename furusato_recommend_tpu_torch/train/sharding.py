@@ -79,14 +79,16 @@ def build_kernels_once(mesh: Mesh) -> None:
 
 def adam(params, config: Config, capturable: bool = False) -> torch.optim.Adam:
     """``optax.adam(config.lr)``'s counterpart: torch's default Adam, or,
-    where the step is captured as a CUDA graph (``train/graphed.py``), the
-    fused Adam that a graph can record (one kernel a step for every
-    parameter, its step counts on the card). Only the captured configurations
-    take the fused one: it rounds its update otherwise than the default
-    Adam, and where a SAGE step's ReLU input is within rounding of 0 that
-    turns the gate within a few steps and moves parameters by a share of lr
-    (``tests/test_torch_cadence.py`` holds the default Adam's steps to
-    JAX's within rtol 1e-4, which the fused one misses)."""
+    where the steps are captured as CUDA graphs (``train/graphed.py``: every
+    cadence without a mesh on CUDA, both Adams under T > 1), the fused Adam
+    that a graph can record (one kernel a step for every parameter, its step
+    counts on the card). Only the captured configurations take the fused
+    one: it rounds its update otherwise than the default Adam, and where a
+    SAGE step's ReLU input is within rounding of 0 that can turn the gate
+    within a few steps and move parameters by a share of lr (the fresh
+    cadence's run in ``tests/test_torch_cadence.py``, which holds the
+    default Adam's steps to JAX's within rtol 1e-4, misses it under the fused
+    one). The CPU and the mesh keep the default Adam for every cadence."""
     return torch.optim.Adam(params, lr=config.lr, betas=(0.9, 0.999), eps=1e-8,
                             **({"fused": True, "capturable": True} if capturable else {}))
 

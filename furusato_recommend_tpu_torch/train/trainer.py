@@ -29,7 +29,10 @@ their epochs not rounded to blocks):
   loss reads the tables as detached leaves, and its gradient is the direct one
   plus the snapshot's pullback of the table gradient, then one Adam step. (The
   snapshot is a copy: Adam updates the live parameters in place, which a graph
-  built on them would refuse.) Epochs round up to whole blocks;
+  built on them would refuse.) The snapshot, the leaves and the sums are
+  tensors made once and written in place (``_CachedTables``), so that a
+  captured step reads them where the captured linearization wrote them.
+  Epochs round up to whole blocks;
 - T > 1: two Adams over disjoint groups. The other parameters step every step
   on their direct gradient; the feature parameters stay put for T steps, then
   take one step on the pullback of the mean table gradient plus the mean of
@@ -56,10 +59,11 @@ model axis spans processes; every rank of the port is a process.) Only the
 primary prints and logs.
 
 The JAX package's one-dispatch epoch (``_build_train_epoch``'s scan) has its
-counterpart on the card for every model of the registry under the fresh
-cadence without a mesh: the step is captured once as a CUDA graph and
-replayed for every batch (``train/graphed.py``), with the fused Adam. The
-R / T / dask cadences, the mesh and the CPU run their steps eagerly. The rest
+counterpart on the card for every model of the registry under every cadence
+without a mesh: each part of the cadence's step (the step; the
+linearization, and under T > 1 the super-step's end) is captured once as a
+CUDA graph and replayed (``train/graphed.py``), with the fused Adams. The
+mesh, the CPU and steps given presampled ``draws`` run eagerly. The rest
 of the JAX package's XLA machinery (the compile cache, ``pipeline_dispatch``'s
 next-epoch sampling) has no counterpart here.
 """
@@ -105,22 +109,57 @@ __all__ = ["OPTIMIZER_PREFIXES", "Trainer"]
 OPTIMIZER_PREFIXES = ("adam", "feat_adam")
 
 
-class _Linearization:
-    """The initial tables computed from a snapshot of the feature parameters
-    (and of the out-of-core projections), with their graph kept: ``leaves``
-    are the tables as a step reads them, ``pullback`` maps a table gradient
-    onto the snapshot."""
+class _CachedTables:
+    """The cached cadences' state, in tensors made once (at the first
+    linearization, eager) and written in place after: the snapshot of the
+    feature parameters, ``leaves`` (the tables as a step reads them, each
+    with its gradient, zeroed in place a step), the projections' table
+    gradients summed over a ``dask`` epoch (``acc``), and under T > 1 the
+    super-step's sums of the table gradients (``acc_t``), of the feature
+    parameters' direct gradients (``acc_p``) and its step count. ``tables``
+    (computed from the snapshot with their graph kept) and ``inputs`` are the
+    last linearization's; ``pullback`` maps a table gradient onto the
+    snapshot through them. A captured cadence's graphs read these tensors
+    across one another (``train/graphed.py``)."""
 
-    def __init__(self, model, names: Sequence[str], with_proj: bool):
-        params = dict(model.named_parameters())
+    def __init__(self, names: Sequence[str], proj_sides: Sequence[str]):
         self.names = list(names)
-        snap = {k: params[k].detach().clone().requires_grad_(True) for k in self.names}
-        self.proj_sides = sorted(model.ooc_numeric) if with_proj else []
+        self.proj_sides = list(proj_sides)
+        self.snap: Optional[Dict[str, torch.Tensor]] = None
+        self.leaves: Optional[tuple] = None
+        self.acc: Dict[str, torch.Tensor] = {}
+        self.acc_t: Optional[list] = None
+        self.acc_p: Optional[Dict[str, torch.Tensor]] = None
+        self.count: Optional[torch.Tensor] = None
+        self.tables = self.inputs = None
+
+    def linearize(self, model) -> None:
+        """Copy the feature parameters into the snapshot, compute the tables
+        from it (and from the streamed projections) with their graph, and
+        copy them into the leaves."""
+        params = dict(model.named_parameters())
+        with torch.no_grad():
+            if self.snap is None:
+                self.snap = {k: torch.empty_like(params[k]) for k in self.names}
+            for k in self.names:
+                self.snap[k].copy_(params[k])
+        # the graph's inputs: new leaves over the snapshot's and the
+        # projections' memory, whose gradient accumulators are made on this
+        # linearization's stream (a leaf kept from an earlier one keeps its
+        # accumulator's stream, which a capture on another stream refuses)
+        snap = {k: x.detach().requires_grad_(True) for k, x in self.snap.items()}
         proj = {s: model._ooc_proj[s].detach().requires_grad_(True) for s in self.proj_sides}
         with torch.enable_grad():
-            self.tables = model.tables_at(snap, proj if with_proj else None)
+            self.tables = model.tables_at(snap, proj if self.proj_sides else None)
         self.inputs = list(snap.values()) + [proj[s] for s in self.proj_sides]
-        self.leaves = tuple(t.detach() for t in self.tables)
+        with torch.no_grad():
+            if self.leaves is None:
+                self.leaves = tuple(torch.empty_like(t).requires_grad_(True) for t in self.tables)
+                for leaf in self.leaves:
+                    leaf.grad = torch.zeros_like(leaf)
+                self.acc = {s: torch.zeros_like(proj[s]) for s in self.proj_sides}
+            for leaf, t in zip(self.leaves, self.tables):
+                leaf.copy_(t)
 
     def pullback(self, g_tables):
         """({name: gradient of each feature parameter}, {side: gradient of
@@ -271,9 +310,12 @@ class Trainer:
         apart = set(self.feature_names) if self.cadence == "super" else set()
         self.optimizer = adam([p for k, p in named.items() if k not in frozen | apart], self.config,
                               capturable=self.captured)
-        self.opt_feat = adam([named[k] for k in self.feature_names], self.config) if apart else None
+        self.opt_feat = (adam([named[k] for k in self.feature_names], self.config, capturable=self.captured)
+                         if apart else None)
         if self.step_graph is not None:  # its Adam states are gone
             self.step_graph.drop()
+        #: the cached cadences' tables and sums, made anew with the Adams
+        self.cached = _CachedTables(self.feature_names, sorted(self.ooc)) if self.cadence != "fresh" else None
 
     def init_state(self, seed: Optional[int] = None) -> None:
         """Fresh parameters (drawn from ``seed``, default config.seed), fresh
@@ -298,93 +340,128 @@ class Trainer:
         adam_step(self.optimizer, self.shards)
         return loss
 
-    def _direct_step(self, batch: BPRBatch, draws: Optional[dict], lin: _Linearization):
-        """Zero the gradients, then forward and backward of the loss on the
-        linearization's tables as leaves: (loss, the tables' gradients); the
-        parameters hold their direct gradients."""
-        leaves = tuple(t.detach().requires_grad_(True) for t in lin.leaves)
-        loss = loss_backward(self.model, self.graph, batch, self.generator, draws, self.shards, tables=leaves)
-        return loss, tuple(torch.zeros_like(t) if t.grad is None else t.grad for t in leaves)
+    def _direct_step(self, batch: BPRBatch, draws: Optional[dict], lin: _CachedTables):
+        """Zero the gradients (the leaves' in place), then forward and
+        backward of the loss on the linearization's leaves: (loss, the
+        tables' gradients); the parameters hold their direct gradients."""
+        for leaf in lin.leaves:
+            leaf.grad.zero_()
+        loss = loss_backward(self.model, self.graph, batch, self.generator, draws, self.shards, tables=lin.leaves)
+        return loss, tuple(leaf.grad for leaf in lin.leaves)
 
-    def _linearize(self) -> _Linearization:
+    def _linearize(self) -> _CachedTables:
+        """The linearization at the top of a block (a super-step, or an
+        epoch at R = 0 and under dask); the first call also makes the
+        super-step's sums."""
         with self._whole():
-            return _Linearization(self.model, self.feature_names, with_proj=bool(self.ooc))
+            self.cached.linearize(self.model)
+        if self.cadence == "super" and self.cached.acc_p is None:
+            named = dict(self.model.named_parameters())
+            self.cached.acc_t = [torch.zeros_like(x) for x in self.cached.leaves]
+            self.cached.acc_p = {k: torch.zeros_like(named[k]) for k in self.feature_names}
+            self.cached.count = torch.zeros((), device=self.device)
+        return self.cached
+
+    def _cached_step(self, batch: BPRBatch, draws: Optional[dict] = None) -> torch.Tensor:
+        """A step of R >= 2, R = 0 or dask: the direct step on the leaves, the
+        pullback of their gradient added to the feature parameters' direct
+        gradients (and to the projections' sums), one Adam step."""
+        lin = self.cached
+        loss, g_t = self._direct_step(batch, draws, lin)
+        g_feat, g_proj = lin.pullback(g_t)
+        named = dict(self.model.named_parameters())
+        for k, g in g_feat.items():
+            p, g = named[k], self._own(k, g)
+            if p.grad is None:
+                p.grad = g
+            else:
+                p.grad.add_(g)
+        for side, g in g_proj.items():
+            lin.acc[side].add_(g)
+        adam_step(self.optimizer, self.shards)
+        return loss
+
+    def _inner_step(self, batch: BPRBatch, draws: Optional[dict] = None) -> torch.Tensor:
+        """A step inside a super-step (T > 1): the direct step, its table and
+        feature-parameter gradients added to the super-step's sums, one step
+        of the non-feature parameters; the feature parameters stay put."""
+        lin = self.cached
+        loss, g_t = self._direct_step(batch, draws, lin)
+        for a, g in zip(lin.acc_t, g_t):
+            a.add_(g)
+        named = dict(self.model.named_parameters())
+        for k, a in lin.acc_p.items():
+            if named[k].grad is not None:
+                a.add_(named[k].grad)
+        lin.count.add_(1.0)
+        adam_step(self.optimizer, self.shards)
+        return loss
+
+    def _outer_step(self) -> None:
+        """A super-step's end: one step of the feature parameters on the
+        pullback of the mean table gradient plus the mean of their direct
+        gradients (the means over the super-step's steps); the sums zeroed."""
+        lin = self.cached
+        named = dict(self.model.named_parameters())
+        g_feat, _ = lin.pullback(tuple(a / lin.count for a in lin.acc_t))
+        for k, g in g_feat.items():  # opt_feat reads these alone
+            named[k].grad = self._own(k, g) + lin.acc_p[k] / lin.count
+        adam_step(self.opt_feat, self.shards)
+        for a in (*lin.acc_t, *lin.acc_p.values(), lin.count):
+            a.zero_()
 
     def train_epoch(self, batches: Sequence[BPRBatch], draws: Optional[Sequence[dict]] = None) -> torch.Tensor:
         """The steps of one epoch over ``batches`` under the configured
         cadence (module docstring); ``draws``: per batch, the loss's
         presampled keyword arguments (the (user, pos, neg) fanout trees as
         ``trees``, ASAGE's attribute trees as ``attr_trees``), else drawn from
-        the generator. Returns the per-step losses, on the device."""
+        the generator. A captured trainer (``step_graph``) replays its
+        cadence's graphs unless ``draws`` are given. Returns the per-step
+        losses, on the device."""
         losses = self._train_epoch(batches, draws)
         self._average([losses])  # the ranks' shares: the whole batches' losses
         return losses
 
     def _train_epoch(self, batches: Sequence[BPRBatch], draws: Optional[Sequence[dict]]) -> torch.Tensor:
         n = len(batches)
-        draw = (lambda b: None) if draws is None else (lambda b: draws[b])
         losses = torch.empty(n, device=self.device)
+        graph = self.step_graph if draws is None else None
+
+        def run(part: str, b: Optional[int] = None):
+            """One call of the cadence's ``part`` (a Trainer method; on
+            batch b for a step): a replay, or an eager call."""
+            if graph is not None:
+                return graph.run(part, None if b is None else batches[b])
+            return getattr(self, part)(*(() if b is None else (batches[b], None if draws is None else draws[b])))
+
         if self.cadence == "fresh":
             for b in range(n):
-                if self.step_graph is not None and draws is None:
-                    losses[b] = self.step_graph.step(batches[b])
-                else:
-                    losses[b] = self.train_step(batches[b], draw(b))
+                losses[b] = run("train_step", b)
             return losses
         if self.cadence == "super":
             t = self.feat_every
-            epoch_lin = self._linearize() if self.relin_every == 0 else None
             for s in range(0, n, t):
-                steps = range(s, min(s + t, n))
-                losses[s : s + len(steps)] = self._super_step(
-                    [batches[b] for b in steps], [draw(b) for b in steps], epoch_lin or self._linearize()
-                )
+                if s == 0 or self.relin_every != 0:  # R = 0: once an epoch
+                    run("_linearize")
+                for b in range(s, min(s + t, n)):
+                    losses[b] = run("_inner_step", b)
+                run("_outer_step")  # a super-step cut short ends all the same
             return losses
         if self.ooc:
             with self._whole():
                 self.model.refresh_ooc_proj()
         # one linearization a block of R steps, or an epoch (R = 0, dask)
         span = self.relin_every if self.cadence == "relin" and self.relin_every > 0 else n
-        named = dict(self.model.named_parameters())
-        acc: Dict[str, torch.Tensor] = {}
         for b in range(n):
             if b % span == 0:
-                lin = self._linearize()
-            losses[b], g_t = self._direct_step(batches[b], draw(b), lin)
-            g_feat, g_proj = lin.pullback(g_t)
-            for k, g in g_feat.items():  # the direct gradient plus the pullback
-                p, g = named[k], self._own(k, g)
-                p.grad = g if p.grad is None else p.grad + g
-            for side, g in g_proj.items():
-                acc[side] = g if side not in acc else acc[side] + g
-            adam_step(self.optimizer, self.shards)
+                run("_linearize")
+            losses[b] = run("_cached_step", b)
         if self.ooc:
+            acc = self.cached.acc
             self._average(acc[side] for side in sorted(acc))
             self._apply_ooc_update(acc, n)
-        return losses
-
-    def _super_step(self, batches, draws, lin: _Linearization) -> torch.Tensor:
-        """T steps of the non-feature parameters with the feature parameters
-        held, then one step of the feature parameters on the pullback of the
-        mean table gradient plus the mean of their direct gradients."""
-        t = len(batches)
-        named = dict(self.model.named_parameters())
-        acc_t = [torch.zeros_like(x) for x in lin.leaves]
-        acc_p = {k: torch.zeros_like(named[k]) for k in self.feature_names}
-        losses = torch.empty(t, device=self.device)
-        for i, (batch, dr) in enumerate(zip(batches, draws)):
-            losses[i], g_t = self._direct_step(batch, dr, lin)
-            for a, g in zip(acc_t, g_t):
-                a += g
-            for k, a in acc_p.items():
-                if named[k].grad is not None:
-                    a += named[k].grad
-            adam_step(self.optimizer, self.shards)
-        self.model.zero_grad(set_to_none=True)
-        g_feat, _ = lin.pullback(tuple(a / t for a in acc_t))
-        for k, g in g_feat.items():
-            named[k].grad = self._own(k, g) + acc_p[k] / t
-        adam_step(self.opt_feat, self.shards)
+            for a in acc.values():
+                a.zero_()
         return losses
 
     @torch.no_grad()

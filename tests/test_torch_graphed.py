@@ -17,7 +17,8 @@ eagerly through ``Trainer.train_step``, the plain version of the graph.
   that the card's captured Adam is held against, against optax itself;
 - that every registry key and every ``gnn --conv`` trains under the fresh
   cadence, which the rule captures on the card (``dask`` under its own, which
-  it does not), the rule that picks the captured configurations, the CPU
+  it captures too), the rule that picks the captured configurations (every
+  cadence, without a mesh, on CUDA), the CPU
   Trainer's eager steps and default Adam, and the graph dropped when the
   Adam states are replaced;
 - that a step draws only from the trainer's generator, the one a graph
@@ -428,10 +429,11 @@ def test_every_fresh_key_is_captured_on_the_card(key, over, tmp_path):
     cadence by default, which the rule captures on a CUDA device (mf, the
     LightGCN family, the SAGE family with all its convs, heads and losses,
     sasrec and asage); dask, whose numeric projections stream from the host,
-    trains under its own cadence, which the rule does not capture."""
+    trains under its own cadence, which the rule captures too (the streamed
+    passes stay eager, ``train/graphed.py``)."""
     t = _key_trainer(key, tmp_path, **over)
     assert t.cadence == ("ooc" if key == "dask" else "fresh")
-    assert captured(t.cadence, None, "cuda") is (key != "dask")
+    assert captured(t.cadence, None, "cuda") is True
     assert not t.captured and t.step_graph is None
 
 @pytest.mark.parametrize("key,over", _CONFIGS, ids=_IDS)
@@ -482,10 +484,13 @@ _MESH = object()  # any mesh: a configuration with one is never captured
     ("fresh", None, "cpu", False),
     ("fresh", None, torch.device("cpu"), False),
     ("fresh", _MESH, "cuda", False),
-    ("relin", None, "cuda", False),
-    ("super", None, "cuda", False),
-    ("ooc", None, "cuda", False),
+    ("relin", None, "cuda", True),
+    ("super", None, "cuda", True),
+    ("ooc", None, "cuda", True),
     ("relin", _MESH, "cpu", False),
+    ("relin", None, "cpu", False),
+    ("super", _MESH, "cuda", False),
+    ("ooc", _MESH, "cuda", False),
 ])
 def test_the_rule_picks_the_captured_configurations(cadence, mesh, device, want):
     assert captured(cadence, mesh, device) is want

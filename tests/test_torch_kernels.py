@@ -449,18 +449,20 @@ def test_cuda_table_gather_gradient_runs_the_kernel():
     np.testing.assert_array_equal(grads[1], grads[0])
 
 
-def _graph_trainer(dropout: bool, key: str = "lgn", **over):
-    """A Trainer on the card whose fresh step is captured: mf or a LightGCN
+def _graph_trainer(dropout: bool, key: str = "lgn", tmp=None, **over):
+    """A Trainer on the card whose steps are captured: mf or a LightGCN
     key (d 32, B 1024), or a SAGE-family key at the textsage flagship cut to
     d 32, fanout 3, B 512 (features n / w / t, asage's n / c / t / w; the edge
     times and relation labels drawn with them; sasrec with its item
-    sequences); ``over``: config fields (gnn's conv, rsage's combine).
+    sequences; dask with its numeric matrices on disk under ``tmp``);
+    ``over``: config fields (gnn's conv, rsage's combine, the cadence).
     Module-level imports stay free of the trainer's."""
     import dataclasses
 
     from furusato_recommend_tpu_torch.config import Config, ddp_flagship_config
     from furusato_recommend_tpu_torch.data.dataset import synthetic_dataset
     from furusato_recommend_tpu_torch.data.features import synthetic_features
+    from furusato_recommend_tpu_torch.data.ooc import MemmapNumeric
     from furusato_recommend_tpu_torch.data.sequence import build_sequences
     from furusato_recommend_tpu_torch.models.registry import SAGE_KEYS, build_model
     from furusato_recommend_tpu_torch.obs.log import MetricLogger
@@ -478,6 +480,13 @@ def _graph_trainer(dropout: bool, key: str = "lgn", **over):
         inputs = {"features": synthetic_features(ds, cfg, seed=1, with_edge_time=True, with_edge_label=True)}
         if key == "sasrec":
             inputs["sequences"] = build_sequences(ds)
+        if key == "dask":
+            fs = inputs["features"]
+            inputs["ooc_numeric"] = {side: MemmapNumeric.write(str(tmp / f"{side}_numeric.npy"),
+                                                               getattr(fs, side).numeric.numpy())
+                                     for side in ("user", "item")}
+            inputs["features"] = dataclasses.replace(fs, user=dataclasses.replace(fs.user, numeric=None),
+                                                     item=dataclasses.replace(fs.item, numeric=None))
         model = build_model(key, cfg, ds.graph, **inputs)
     else:
         cfg = Config(model=key, latent_dim=32, n_layers=2, bpr_batch_size=1024, lr=1e-3, eval_user_batch=256,
@@ -735,6 +744,181 @@ def test_cuda_dropped_trainer_frees_its_graph_pool():
 
     t = _graph_trainer(False, "textsage")
     t.train_one_epoch()
+    pool = t.step_graph.stats["pool_mib"] * 2**20
+    assert pool > 0
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    gc.disable()
+    try:
+        del t
+        torch.cuda.empty_cache()
+        assert reserved - torch.cuda.memory_reserved() >= pool
+    finally:
+        gc.enable()
+
+
+# the cached cadences the trainer captures since slice 19: textsage at R = 8,
+# R = 0 and T = 8, and dask (R = 0 with the streamed projections); each
+# epoch cut to CADENCE_STEPS steps, two whole blocks of 8
+_CADENCES = {"R8": ("textsage", {"relin_every": 8}), "R0": ("textsage", {"relin_every": 0}),
+             "T8": ("textsage", {"feature_update_every": 8}), "dask": ("dask", {})}
+CADENCE_STEPS = 16
+
+
+def _cadence_trainer(case: str, tmp_path):
+    key, over = _CADENCES[case]
+    t = _graph_trainer(False, key, tmp=tmp_path, **over)
+    t.num_batches, t.samples_per_epoch = CADENCE_STEPS, CADENCE_STEPS * t.config.bpr_batch_size
+    return t
+
+
+def _adam_states(trainer) -> list:
+    """The states of every parameter both Adams step, in order."""
+    return [opt.state[p] for opt in (trainer.optimizer, trainer.opt_feat) if opt is not None
+            for g in opt.param_groups for p in g["params"]]
+
+
+def _cadence_state(trainer):
+    """(parameters on the host, both Adams' state tensors, the generator
+    state), copied."""
+    params = {k: p.detach().cpu().numpy().copy() for k, p in trainer.model.named_parameters()}
+    return params, [{k: v.clone() for k, v in st.items()} for st in _adam_states(trainer)], trainer.generator.get_state()
+
+
+@torch.no_grad()
+def _set_cadence_state(trainer, state):
+    params, adam, gen = state
+    for k, p in trainer.model.named_parameters():
+        p.copy_(torch.from_numpy(params[k]))
+    for st, saved in zip(_adam_states(trainer), adam, strict=True):
+        for k, v in saved.items():
+            st[k].copy_(v)
+    trainer.generator.set_state(gen)
+
+
+def _host_syncs(fn):
+    """(fn's result, the messages of torch's sync debug mode while it ran:
+    one per operation that made the host wait for the card)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [str(w.message).splitlines()[0] for w in caught
+                 if "synchroniz" in str(w.message) and "prototype feature" not in str(w.message)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["R8", "R0", "T8", "dask"])
+def test_cuda_replayed_cadence_epoch_equals_the_eager_epoch(case, tmp_path):
+    """A cached cadence's epoch of 16 steps by replays (one graph launch a
+    step, one a linearization, under T = 8 one a super-step's end; dask's
+    streamed passes eager) against the trainer's eager epoch from the same
+    state on the same batches: no host sync in the replayed epoch, as many
+    scatter launches as the eager epoch, the generator states equal, the
+    first losses within 1e-6 relative, the losses within rtol 1e-3 and
+    every parameter within 2 lr (the scatter kernel's atomic adds sum in no
+    fixed order, and a ReLU gate within rounding of 0 may turn on it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from furusato_recommend_tpu_torch.train.graphed import PARTS
+
+    t = _cadence_trainer(case, tmp_path)
+    n, bs = t.num_batches, t.config.bpr_batch_size
+    t.train_one_epoch()  # the warm-up steps and parts, the capture, replays
+    graph = t.step_graph
+    assert t.captured and list(graph.graphs) == list(PARTS[t.cadence]) and graph.stats["captures"] == 1
+    assert graph.scatter_launches == 2
+    start = _cadence_state(t)
+    batches = t.sample_epoch()
+    sc.launches, replays = 0, graph.stats["replays"]
+    replayed, syncs = _host_syncs(lambda: t.train_epoch([batches.slice(b * bs, (b + 1) * bs) for b in range(n)]))
+    assert not syncs, syncs
+    assert graph.stats["replays"] == replays + n and graph.stats["captures"] == 1
+    launches = sc.launches
+    got = (replayed.cpu().numpy(), *_cadence_state(t)[::2])
+    _set_cadence_state(t, start)
+    batches = t.sample_epoch()
+    t.step_graph = None  # the same epoch, each part called eagerly
+    try:
+        sc.launches = 0
+        eager = t.train_epoch([batches.slice(b * bs, (b + 1) * bs) for b in range(n)])
+    finally:
+        t.step_graph = graph
+    assert launches == sc.launches == 2 * n, (launches, sc.launches)
+    want = (eager.cpu().numpy(), *_cadence_state(t)[::2])
+    assert torch.equal(got[2], want[2])
+    np.testing.assert_allclose(got[0][0], want[0][0], rtol=1e-6)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-3)
+    for k, w in want[1].items():
+        assert np.abs(got[1][k] - w).max() <= 2 * t.config.lr, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["R8", "T8"])
+def test_cuda_cadence_captured_adam_matches_optax(case, tmp_path):
+    """The fused, capturable Adams of a captured cadence, its parts driven
+    one by one (R = 8: a block of 8 steps, 3 eager, the capture in the
+    block, 5 replays; T = 8: two super-steps of 8, the first eager, the
+    second replayed), against optax.adam's rule in float64
+    (``tests/torch_oracle.py::OptaxAdam``) fed each step's gradients as the
+    card computed them: the parameters within rtol 1e-4 / atol 1e-6, the
+    moments within rtol 1e-4 (atol 1e-9 / 1e-12), each Adam's step count
+    (T = 8: 16 steps of the others, 2 of the feature parameters)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from torch_oracle import OptaxAdam
+
+    t = _cadence_trainer(case, tmp_path)
+    graph, bs = t.step_graph, t.config.bpr_batch_size
+    opts = [o for o in (t.optimizer, t.opt_feat) if o is not None]
+    assert all(g["fused"] and g["capturable"] for o in opts for g in o.param_groups)
+    params = {id(o): [p for g in o.param_groups for p in g["params"]] for o in opts}
+    refs = {id(o): OptaxAdam([p.detach().cpu().numpy() for p in params[id(o)]], t.config.lr) for o in opts}
+
+    def feed(opt):
+        assert all(p.grad is not None for p in params[id(opt)])
+        refs[id(opt)].step([p.grad.cpu().numpy() for p in params[id(opt)]])
+
+    steps = 8 if case == "R8" else 16
+    batches = t.sample_epoch()
+    for b in range(steps):
+        if b % 8 == 0:
+            graph.run("_linearize")
+        graph.run(graph.step_part, batches.slice(b * bs, (b + 1) * bs))
+        feed(t.optimizer)
+        if case == "T8" and b % 8 == 7:
+            graph.run("_outer_step")
+            feed(t.opt_feat)
+    assert graph.stats["captures"] == 1 and graph.stats["replays"] == (5 if case == "R8" else 8)
+    for o in opts:
+        ref = refs[id(o)]
+        assert ref.count == (2 if o is t.opt_feat else steps)
+        for i, p in enumerate(params[id(o)]):
+            state = o.state[p]
+            assert float(state["step"]) == ref.count
+            np.testing.assert_allclose(p.detach().cpu().numpy(), ref.params[i], rtol=1e-4, atol=1e-6, err_msg=str(i))
+            np.testing.assert_allclose(state["exp_avg"].cpu().numpy(), ref.mu[i], rtol=1e-4, atol=1e-9)
+            np.testing.assert_allclose(state["exp_avg_sq"].cpu().numpy(), ref.nu[i], rtol=1e-4, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_cuda_dropped_cadence_trainer_frees_its_graph_pool(tmp_path):
+    """A captured T = 8 trainer (three graphs in one pool, the tables' saved
+    activations among its tensors) dropped without a collector run gives
+    the pool back: the card's reserved memory falls by at least the pool."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import gc
+
+    t = _cadence_trainer("T8", tmp_path)
+    t.train_one_epoch()
+    assert len(t.step_graph.graphs) == 3
     pool = t.step_graph.stats["pool_mib"] * 2**20
     assert pool > 0
     torch.cuda.synchronize()

@@ -61,7 +61,17 @@ Phases (any failure raises and exits non-zero):
                the card: train/graphed.py); the scatter kernel launched at least once per step and
                masked_topk once per evaluation tile; the loss of the last
                epoch below the first's; recall@20 above its value at
-               initialisation
+               initialisation. The first evaluation is eager, the second
+               captures the whole evaluation and replays it
+               (eval/graphed.py); then replayed and eager evaluations from
+               the same parameters in turns (EVAL_TURNS, 3 of each): host
+               ms each, device ms and idle share of each kind, a replayed
+               evaluation's ids and metrics against an eager one's
+               (evaluation_rule: bit-equal, or where cuSPARSE's SpMM parts
+               them, phase 7's rule), one host sync a replayed evaluation
+               (the copy), masked_topk n_tiles launches an evaluation (a
+               replay counted as its capture recorded), the capture's
+               warm-up, capture and instantiate ms and pool MiB
   7. card/CPU  two steps on the card and two on the CPU (plain versions) from
                the same parameters on the same batches (sampled on the card):
                losses within rtol 1e-5 (step 1) and 1e-4 (step 2); after two
@@ -96,8 +106,10 @@ Phases (any failure raises and exits non-zero):
                captured step after its warm-up steps), an evaluation;
                the loss of the epoch's last tenth below its first tenth's;
                scatter_add_rows launched twice a step (one tree gather per
-               side), masked_topk once per evaluation tile; one evaluation
-               through the kernel against the plain version (phase 7's rule);
+               side), masked_topk once per evaluation tile; the
+               evaluations' replays against eager ones as in phase 6; one
+               evaluation through the kernel against the plain version
+               (phase 7's rule);
                one --inference sample pass over all 130000 entities, timed;
                one step on the card and on the CPU from the same parameters on
                the same batch and trees, dropout 0: losses within rtol 1e-4,
@@ -455,13 +467,22 @@ Phases (any failure raises and exits non-zero):
                share of replays and of eager epochs in turns for lgn,
                textsage and one key of each family (GRAPH_TIMED), and every
                capture's cost (warm-up steps, capture, instantiate, the graph
-               pool's MiB) (a {"graph": ...} line)
+               pool's MiB); then the key's evaluation (graph_evaluations):
+               the first eager, one eager under the sync debug mode's
+               "error", the capture, a replay with exactly one host sync
+               held against the first (evaluation_rule); also lgn with AUC
+               and cold start, textsage under --inference sample and mf at
+               k = 200 (the radix select inside the graph) by an Evaluator
+               of their own (GRAPH_EVAL_CASES); masked_topk n_tiles launches
+               an evaluation, counted over the phase (a {"graph": ...} line)
 
 Every Trainer these phases build on the card without a mesh trains by
 replays of its cadence's captured parts (train/graphed.py): every registry
 key under the fresh cadence, and the R / T / dask cadences; phase 19's mesh
-ranks step eagerly. Phases 13-15 and 20 free each trainer's graph after its
-evaluation and capture again before its numbers, which time replays.
+ranks step eagerly. Its evaluations, from the second on, are replays of the
+captured evaluation (eval/graphed.py); the mesh's are eager. Phases 13-15
+and 20 free each trainer's graph after its evaluation and capture again
+before its numbers, which time replays.
 
 Kernel cases at TextSAGE's shapes join phase 3: masked_topk at d = 32, M =
 30000, B in {1, 64, 512, 1024}, k in {10, 20}, and at phase 12's evaluation
@@ -550,6 +571,7 @@ from furusato_recommend_tpu_torch.data.features import (
 )
 from furusato_recommend_tpu_torch.data.graph import CSR, build_relational_graph
 from furusato_recommend_tpu_torch.data.ooc import MemmapNumeric, stream_project, stream_project_grad
+from furusato_recommend_tpu_torch.eval.evaluate import Evaluator
 from furusato_recommend_tpu_torch.eval.metrics import batch_metric_sums
 from furusato_recommend_tpu_torch.eval.sharded import item_block, local_mask, sharded_masked_topk
 from furusato_recommend_tpu_torch.data.sequence import build_sequences
@@ -1383,6 +1405,148 @@ def host_syncs(fn) -> list:
     # torch's notice that the mode is a prototype (once a process) is no sync
     return [str(w.message).splitlines()[0] for w in caught
             if "synchroniz" in str(w.message) and "prototype feature" not in str(w.message)]
+
+
+class _EagerEvaluation:
+    """An Evaluator's graph set aside: every evaluation runs eagerly."""
+
+    def __init__(self, evaluator):
+        self.evaluator = evaluator
+
+    def run(self, data):
+        self.evaluator.seed()
+        return self.evaluator.program(data)
+
+
+@contextlib.contextmanager
+def eager_evaluation(evaluator):
+    """Within, ``evaluator`` runs each evaluation eagerly (its captured graph
+    set aside, kept for after): the eager evaluation a replayed one is held
+    against."""
+    graphed, evaluator.graphed = evaluator.graphed, _EagerEvaluation(evaluator)
+    try:
+        yield
+    finally:
+        evaluator.graphed = graphed
+
+
+# where two evaluations from the same parameters part (evaluation_rule): the
+# scores at each rank, and the ties inside which ids may swap, within this
+# relative distance (textsage-100k's replayed and eager scores parted by up
+# to 2.5e-5 relative at two swapped ranks, on the H100: PERF.md §6), and
+# every metric within EVAL_METRIC_RTOL
+EVAL_RTOL, EVAL_METRIC_RTOL = 1e-4, 1e-3
+
+
+def evaluation_rule(got, want, ev, data) -> dict:
+    """A replayed evaluation's (results, top-K ids) against an eager one's
+    from the same parameters. The capture records the eager kernels in their
+    order, so both are bit-equal where the propagation is. It is not
+    everywhere: cuSPARSE's CSR product (``torch.sparse.mm``, the SpMM of the
+    LightGCN and SAGE propagations) sums in no fixed order on the H100
+    (``tools/spmm_spread.py`` measures it), so two eager evaluations part
+    too. Where they part: the scores of both id lists under the eager
+    embeddings equal at each rank within EVAL_RTOL (atol ATOL), the ids
+    equal wherever neighbouring scores differ by more than that (but at the
+    last rank, whose neighbour past the list neither shows), and every
+    metric within EVAL_METRIC_RTOL (phase 7's rule at the propagation's own
+    spread)."""
+    (gres, gids), (wres, wids) = got, want
+    assert set(gres) == set(wres), (sorted(gres), sorted(wres))
+    moved = int((gids != wids).sum())
+    off = sorted(k for k in wres if gres[k] != wres[k])
+    score_rel = 0.0
+    if moved or off:
+        U, I = (x.detach().float().contiguous() for x in ev.embeddings())
+        g = ev.graph
+        users = data.users.reshape(-1)[data.valid.reshape(-1)]
+        mask = (g.user_pos.indptr, g.user_pos.indices)
+        gv, wv = (masked_values(U, I, users, torch.from_numpy(ids).to(U.device), mask).cpu().numpy()
+                  for ids in (gids, wids))
+        np.testing.assert_allclose(gv, wv, rtol=EVAL_RTOL, atol=ATOL)
+        score_rel = float(np.max(np.abs(gv - wv) / np.maximum(np.abs(wv), ATOL)))
+        # neighbours apart by more than the value check allows either of them;
+        # the last rank may tie with the first item past the list, which
+        # neither list shows (the value check holds its score)
+        gap = np.abs(np.diff(wv, axis=1)) > EVAL_RTOL * np.maximum(np.abs(wv[:, 1:]), np.abs(wv[:, :-1])) + ATOL
+        sep = np.ones(wids.shape, dtype=bool)
+        sep[:, 1:] &= gap
+        sep[:, :-1] &= gap
+        sep[:, -1] = False
+        np.testing.assert_array_equal(gids[sep], wids[sep])
+        for k in wres:
+            np.testing.assert_allclose(gres[k], wres[k], rtol=EVAL_METRIC_RTOL, err_msg=k)
+    rel = max((abs(gres[k] - wres[k]) / abs(wres[k]) for k in wres if wres[k]), default=0.0)
+    return {"ids_moved": moved, "metrics_off": off, "max_rel": rel, "score_max_rel": score_rel}
+
+
+# phases 6 and 10: replayed and eager evaluations from the same parameters,
+# in turns
+EVAL_TURNS = ("replays", "eager", "eager", "replays", "replays", "eager")
+
+
+def evaluation_numbers(trainer, label) -> dict:
+    """Phases 6 and 10, after the trainer's first two evaluations (the eager
+    warm-up; the capture and a replay): replayed and eager evaluations from
+    the same parameters in turns (EVAL_TURNS), host ms each (the host clock
+    around ``Trainer.test``, which ends in its one copy to the host), the
+    device ms of each kind (``split_profile``) and the idle share of an
+    unprofiled one (1 - device / host); a replayed evaluation's ids and
+    results against an eager one's (``evaluation_rule``); the host syncs of
+    a replayed evaluation, exactly one; n_tiles masked_topk launches an
+    evaluation, replays counted as their capture recorded; the capture's
+    warm-up, capture and instantiate ms and its pool's MiB."""
+    ev, data = trainer.evaluator, trainer.eval_data
+    graph = ev.graphed
+    assert graph is not None and graph.graph is not None and graph.stats["captures"] == 1, \
+        f"{label}: the evaluation was not captured"
+    n_tiles = int(data.users.shape[0])
+    assert graph.launches == (n_tiles, 0), (label, graph.launches)
+    st.launches = 0
+    host = {"replays": [], "eager": []}
+    for kind in EVAL_TURNS:
+        with eager_evaluation(ev) if kind == "eager" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.test()
+            host[kind].append(1e3 * (time.perf_counter() - t0))
+    replayed = ev(data)
+    with eager_evaluation(ev):
+        eager = [ev(data), ev(data)]
+    rule = evaluation_rule(replayed, eager[0], ev, data)
+    spread = evaluation_rule(eager[1], eager[0], ev, data)  # the card's own
+    syncs = host_syncs(trainer.test)
+    assert len(syncs) == 1, f"{label}: {len(syncs)} host syncs in a replayed evaluation: {syncs}"
+    launches = st.launches
+    evaluations = len(EVAL_TURNS) + 4
+    assert launches == evaluations * n_tiles, (label, launches, n_tiles)
+    out = {"tiles": n_tiles, "host_ms": host, "host_syncs_replay": syncs, "vs_eager": rule, "eager_spread": spread,
+           "capture": {k: graph.stats[k] for k in ("warmup_ms", "capture_ms", "instantiate_ms", "pool_mib")},
+           "launches": launches}
+    for kind in ("replays", "eager"):
+        with eager_evaluation(ev) if kind == "eager" else contextlib.nullcontext():
+            prof = split_profile(trainer.test, n=1)
+        ms = float(np.median(host[kind]))
+        out[kind] = {"host_ms": ms}
+        if prof is not None:
+            out[kind].update(device_ms=prof["device_ms"], device_ops=prof["device_ops_per_call"],
+                             idle_share=1.0 - prof["device_ms"] / ms, split_ms=prof["split_ms"])
+    # and the two profiled evaluations, counted
+    out["launches"] = st.launches
+    assert out["launches"] == (evaluations + 2) * n_tiles, (label, out["launches"], n_tiles)
+    cap = out["capture"]
+    log(f"{label} evaluation: " + "; ".join(
+        f"{kind} {out[kind]['host_ms']:.2f} ms on the host ({', '.join(f'{x:.2f}' for x in host[kind])}), "
+        f"{out[kind].get('device_ms', float('nan')):.3f} ms on the device in "
+        f"{out[kind].get('device_ops', float('nan')):.0f} operations, idle {out[kind].get('idle_share', float('nan')):.3f}"
+        for kind in ("replays", "eager"))
+        + f"; {len(syncs)} host sync a replayed evaluation ({syncs[0][:40]}...); capture: warm-up "
+        f"{cap['warmup_ms']:.1f} ms, capture {cap['capture_ms']:.1f} ms, instantiate {cap['instantiate_ms']:.1f} "
+        f"ms, pool {cap['pool_mib']:.1f} MiB; replayed against eager: {rule['ids_moved']} ids moved, metrics off "
+        f"{rule['metrics_off']} (scores {rule['score_max_rel']:.3g}, metrics {rule['max_rel']:.3g} relative; "
+        f"eager twice: {spread['ids_moved']} ids moved, scores {spread['score_max_rel']:.3g}, metrics "
+        f"{spread['max_rel']:.3g}); masked_topk launches {out['launches']} ({n_tiles} tiles per evaluation)")
+    return out
 
 
 def train_config() -> Config:
@@ -3004,6 +3168,9 @@ GRAPH_TWO_STEP_RULE = {label: (1e-5, 4, 1e-2) if label == "tgsrec" else _PHASE7_
 # the other timed keys' 8, every other key's 2
 GRAPH_PROFILE_STEPS = {"lgn": 20, "textsage": 20, **{label: 8 for label in GRAPH_TIMED[2:]}}
 GRAPH_CHECK_STEPS = 2
+# replayed training steps between an evaluation's capture and its replay
+# against an eager evaluation of the moved parameters (graph_evaluations)
+GRAPH_EVAL_STEPS = 2
 GRAPH_FIRST_LOSS_RTOL = 1e-6
 # name parts of torch's own scatter kernels (index_add_, scatter_add_): a
 # replayed step must hold none that the eager step does not
@@ -3097,6 +3264,93 @@ def step_kernels(fn, n: int) -> dict:
             "device_ops": len(inside) / n, "idle_share_profiled": 1.0 - busy / wall_us, "pad_kept": pad_kept}
 
 
+# phase 21's evaluations besides each trainer's own: lgn with AUC and cold
+# start, textsage under --inference sample (its trees drawn inside the
+# graph), mf at k = 200 (the radix select inside the graph)
+GRAPH_EVAL_CASES = {"lgn": ("auc_cold", {"compute_auc": True, "cold_start": True}),
+                    "textsage": ("sample", {"inference": "sample"}),
+                    "mf": ("k200", {"topks": (20, ATT_K)})}
+
+
+def graph_evaluations(tr, label, move) -> dict:
+    """Phase 21, after a key's epochs, for its trainer's evaluator (and
+    GRAPH_EVAL_CASES' one more, an Evaluator of its own): the first
+    evaluation (eager, the warm-up), an eager one under the sync debug
+    mode's "error", the capture (and a replay), then a replay whose host
+    syncs must be exactly one (the copy), held against the first
+    (``evaluation_rule``). Then ``move()`` moves the parameters by replayed
+    training steps (it returns their number), and each captured evaluation
+    is replayed again and held against an eager one from the moved
+    parameters: a graph that read a tensor the steps had rebound would
+    part here. n_tiles masked_topk launches an evaluation, the radix
+    select's where k > 128, replays counted as their capture recorded.
+    Returns {case: facts}; the extra Evaluator and its pool are freed here."""
+    data = tr.eval_data
+    n_tiles = int(data.users.shape[0])
+    evaluators = {"trainer": tr.evaluator}
+    if label in GRAPH_EVAL_CASES:
+        case, over = GRAPH_EVAL_CASES[label]
+        evaluators[case] = Evaluator(tr.model, tr.graph, tr.config.replace(**over),
+                                     max_train_degree=tr.evaluator.max_train_degree)
+    out = {}
+    for case, ev in evaluators.items():
+        before = (st.launches, st.wide_launches)
+        first = ev(data)
+        with eager_evaluation(ev):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ev.evaluate(data)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        ev(data, with_topk=False)  # the capture, then a replay
+        got = []
+        syncs = host_syncs(lambda: got.append(ev(data)))
+        assert len(syncs) == 1, f"{label} {case}: {len(syncs)} host syncs in a replayed evaluation: {syncs}"
+        graph = ev.graphed
+        assert graph.stats["captures"] == 1 and graph.stats["replays"] == 2, (label, case, graph.stats)
+        rule = evaluation_rule(got[0], first, ev, data)
+        wide = n_tiles if ev.kmax > st.MAX_K else 0
+        launches = (st.launches - before[0], st.wide_launches - before[1])
+        assert graph.launches == (n_tiles, wide) and launches == (4 * n_tiles, 4 * wide), \
+            (label, case, graph.launches, launches)
+        out[case] = {"vs_eager": rule, "host_syncs": syncs, "tiles": n_tiles, "kmax": ev.kmax,
+                     "launches": launches[0], "wide_launches": launches[1],
+                     "capture": {k: graph.stats[k] for k in ("warmup_ms", "capture_ms", "instantiate_ms", "pool_mib")}}
+        log(f"graph-20k {label} evaluation ({case}): eager under \"error\" without a host sync; the replay against "
+            f"the eager warm-up: {rule['ids_moved']} ids moved, metrics off {rule['metrics_off']} (scores "
+            f"{rule['score_max_rel']:.3g}, metrics {rule['max_rel']:.3g} relative); 1 host sync a replay; masked_topk "
+            f"{launches[0]} launches ({launches[1]} "
+            f"through the radix select) over 4 evaluations of {n_tiles} tiles; capture "
+            f"{graph.stats['capture_ms']:.1f} ms, instantiate {graph.stats['instantiate_ms']:.1f} ms, pool "
+            f"{graph.stats['pool_mib']:.1f} MiB")
+    # the captured evaluations replayed after the parameters moved
+    held = [p.detach().clone() for p in tr.model.parameters()]
+    steps = move()
+    assert any(not torch.equal(h, p) for h, p in zip(held, tr.model.parameters())), \
+        f"{label}: {steps} replayed steps moved no parameter"
+    del held
+    if tr.ooc:  # dask's projections, streamed in place as Trainer.test does
+        tr.model.refresh_ooc_proj()
+    for case, ev in evaluators.items():
+        before = (st.launches, st.wide_launches)
+        later = ev(data)
+        with eager_evaluation(ev):
+            eager = ev(data)
+        assert ev.graphed.stats["captures"] == 1 and ev.graphed.stats["replays"] == 3, (label, case, ev.graphed.stats)
+        rule = evaluation_rule(later, eager, ev, data)
+        launches = (st.launches - before[0], st.wide_launches - before[1])
+        wide = n_tiles if ev.kmax > st.MAX_K else 0
+        assert launches == (2 * n_tiles, 2 * wide), (label, case, launches)
+        out[case].update(after_steps={"steps": steps, "vs_eager": rule}, launches=out[case]["launches"] + launches[0],
+                         wide_launches=out[case]["wide_launches"] + launches[1])
+        log(f"graph-20k {label} evaluation ({case}) after {steps} replayed training steps: the first capture "
+            f"replayed against an eager evaluation of the moved parameters: {rule['ids_moved']} ids moved, metrics "
+            f"off {rule['metrics_off']} (scores {rule['score_max_rel']:.3g}, metrics {rule['max_rel']:.3g} relative)")
+    del evaluators, ev, graph
+    return out
+
+
 def graph_trainer(ds, fs, name: str, dev, steps=None, ooc=None, **over) -> Trainer:
     """A key's trainer from fresh parameters; ``steps``: an epoch's steps
     (the depth cut), else the whole epoch's; ``ooc``: dask's numeric
@@ -3116,10 +3370,11 @@ def graph_trainer(ds, fs, name: str, dev, steps=None, ooc=None, **over) -> Train
 
 
 def release(trainer) -> None:
-    """Free a captured trainer's graph and its memory pool (the next epoch
-    captures again)."""
+    """Free a captured trainer's graphs and their memory pools (the next
+    epoch captures again, and the evaluation after the next)."""
     if trainer.step_graph is not None:
         trainer.step_graph.drop()
+    trainer.evaluator.drop()
 
 
 def graph_key(ds, fs, name: str, over: dict, dev, tmp, ooc=None) -> tuple:
@@ -3198,6 +3453,14 @@ def graph_key(ds, fs, name: str, over: dict, dev, tmp, ooc=None) -> tuple:
     vs_restored = _epoch_rule((tr2.epoch_losses.cpu().numpy(), whole_params(tr2), tr2.generator.get_state()),
                               replayed, lr, label)
     del tr2
+    # (f) the evaluation after the epochs: eager, captured, replayed; again
+    # after replayed steps
+    def move():
+        for _ in range(GRAPH_EVAL_STEPS):
+            graph.step(batch)
+        return GRAPH_EVAL_STEPS
+
+    evaluations = graph_evaluations(tr, label, move)
     # (e) numbers: replays and eager epochs in turns (GRAPH_TIMED), then a
     # profile of each step
     epochs = {"replays": [], "eager": []}
@@ -3210,8 +3473,8 @@ def graph_key(ds, fs, name: str, over: dict, dev, tmp, ooc=None) -> tuple:
     assert prof["replays"]["scatter_add_rows"] == prof["eager"]["scatter_add_rows"] == per_step, (label, prof)
     assert prof["replays"]["library_scatter"] == prof["eager"]["library_scatter"] == 0, (label, prof)
     # the 2 steps of (0), epochs 1 and 2, 2 eager epochs, 2 x 2 steps, the
-    # restored epoch, the timed epochs, 2 profiles
-    steps = (2 + 5 * n + 4 + 4 * n * timed + 2 * (prof_n + 1)) * per_step
+    # restored epoch, (f)'s steps, the timed epochs, 2 profiles
+    steps = (2 + 5 * n + 4 + GRAPH_EVAL_STEPS + 4 * n * timed + 2 * (prof_n + 1)) * per_step
     numbers = {}
     for kind in ("replays", "eager") if timed else ():
         s = float(np.median(epochs[kind]))
@@ -3241,7 +3504,7 @@ def graph_key(ds, fs, name: str, over: dict, dev, tmp, ooc=None) -> tuple:
     facts = {"steps_per_epoch": n, "B": tr.config.bpr_batch_size, "d": tr.config.latent_dim,
              "first_epoch_s": first_s, "capture": capture, "host_syncs_epoch_2": syncs, "rule": GRAPH_EPOCH_RULE[label],
              "vs_eager": vs_eager, "eager_spread": eager_spread, "two_steps": two_steps,
-             "vs_restored": vs_restored, "profiles": prof, "numbers": numbers}
+             "vs_restored": vs_restored, "profiles": prof, "numbers": numbers, "evaluations": evaluations}
     del tr, graph
     torch.cuda.empty_cache()
     facts["reserved_mib_after_release"] = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
@@ -3254,7 +3517,7 @@ def graph_20k(inputs, dev, tmp) -> dict:
     same state (``graph_key``), each trainer and its graph pool freed before
     the next is built; ``inputs(name)``: the (dataset, features) of a key."""
     t0 = time.perf_counter()
-    st.launches = sc.launches = 0
+    st.launches = st.wide_launches = sc.launches = 0
     out, steps = {}, {}
     for name, over in GRAPH_KEYS + GRAPH_CADENCES:
         label = key_label(name, over)
@@ -3264,12 +3527,16 @@ def graph_20k(inputs, dev, tmp) -> dict:
             ooc = {side: MemmapNumeric.write(os.path.join(tmp, f"{side}_numeric.npy"), getattr(fs, side).numeric.numpy())
                    for side in ("user", "item")}
         out[label], steps[label] = graph_key(ds, fs, name, over, dev, tmp, ooc)
-    launches = {"masked_topk": st.launches, "scatter_add_rows": sc.launches}
-    assert launches == {"masked_topk": 0, "scatter_add_rows": sum(steps.values())}, (launches, steps)
+    launches = {"masked_topk": st.launches, "masked_topk_wide": st.wide_launches, "scatter_add_rows": sc.launches}
+    evaluated = [case for facts in out.values() for case in facts["evaluations"].values()]
+    assert launches == {"masked_topk": sum(c["launches"] for c in evaluated),
+                        "masked_topk_wide": sum(c["wide_launches"] for c in evaluated),
+                        "scatter_add_rows": sum(steps.values())}, (launches, steps)
     phase_s = time.perf_counter() - t0
     per_step = {key_label(name, over): scatter_per_step(name) for name, over in GRAPH_KEYS + GRAPH_CADENCES}
     log(f"graph-20k: scatter launches {launches['scatter_add_rows']} ({per_step} per step, replays included); "
-        f"{phase_s:.0f} s")
+        f"masked_topk launches {launches['masked_topk']} ({launches['masked_topk_wide']} through the radix select) "
+        f"over {len(evaluated)} evaluators' 6 evaluations each, replays included; {phase_s:.0f} s")
     return {"keys": out, "launches": launches, "phase_s": phase_s}
 
 
@@ -4584,6 +4851,9 @@ def main() -> int:
     # 6. the training path at full width
     trainer, train = train_path(ds, dev)
 
+    # the evaluation: replays against eager evaluations, in turns
+    train["evaluation"] = evaluation_numbers(trainer, "train")
+
     # 7. the card against the CPU, and the evaluation against the plain top-k
     train["card_vs_cpu"] = card_vs_cpu(ds, trainer)
     train["eval_vs_plain"] = eval_kernel_vs_plain(trainer)
@@ -4616,6 +4886,7 @@ def main() -> int:
 
     # 10. train-textsage-100k
     ts_trainer, ts_train = train_textsage(ts_ds, ts_fs, dev)
+    ts_train["evaluation"] = evaluation_numbers(ts_trainer, "train-textsage")
     ts_train["eval_vs_plain"] = eval_kernel_vs_plain(ts_trainer)
     ts_train["card_vs_cpu"] = card_vs_cpu_textsage(ts_ds, ts_fs, ts_trainer)
 
@@ -4733,13 +5004,15 @@ def main() -> int:
     # select (attention-20k's three requests at k = 200, production-20k's
     # k = 200 batch), every other one csrc/streaming_topk.cu
     wide_by_path = {"attention_20k": att["launches"]["masked_topk_wide"],
-                    "production_20k": prod["launches"]["masked_topk_wide"]}
+                    "production_20k": prod["launches"]["masked_topk_wide"],
+                    "graph_20k": graphed["launches"]["masked_topk_wide"]}
     calls = (serve_launches + train["launches"]["masked_topk"] + ts_serve_launches
              + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]
              + att["launches"]["masked_topk"] + edge["launches"]["masked_topk"]
              + seq["launches"]["masked_topk"] + prod_launches + rank_launches["masked_topk"]
              + pre["launches"]["masked_topk"] + mesh["launches"]["masked_topk"]
-             + reg["launches"]["masked_topk"])
+             + reg["launches"]["masked_topk"] + train["evaluation"]["launches"]
+             + ts_train["evaluation"]["launches"] + graphed["launches"]["masked_topk"])
     att_k200_wide = att_k200["kernel_profile"] or {}
     kernels = [{
         "name": "masked_topk",
@@ -4758,7 +5031,10 @@ def main() -> int:
                              "rank_20k": rank_launches["masked_topk"],
                              "preprocess_20k": pre["launches"]["masked_topk"],
                              "mesh_20k": mesh["launches"]["masked_topk"],
-                             "registry_20k": reg["launches"]["masked_topk"]},
+                             "registry_20k": reg["launches"]["masked_topk"],
+                             "train_evaluations": train["evaluation"]["launches"],
+                             "train_textsage_evaluations": ts_train["evaluation"]["launches"],
+                             "graph_20k": graphed["launches"]["masked_topk"]},
         "launches_per_call": f"1 (k <= {st.MAX_K}; above it the radix select, masked_topk_wide)",
         "mesh_shapes": {"evaluation": [dict(zip(("B_rank", "M_block", "d", "k"), x)) for x in MESH_TOPK_SHAPES],
                         "launched": {kind: mesh["launch_shapes"][kind]["masked_topk"] for kind in MESH_CASES},

@@ -12,8 +12,16 @@ Metrics are divided by the number of test users; coverage is corpus-level;
 ``config.compute_auc`` scores the full [B, M] matrix per tile with
 ``torch.matmul`` (off the main path, as the JAX package leaves it to XLA).
 ``--inference sample`` encodes every entity through its sampled fanout tree
-(``propagate_sampled``, drawn from a generator seeded with config.seed) for
-the models that have it, the SAGE family; the others propagate as usual.
+(``propagate_sampled``, drawn from the Evaluator's generator, seeded with
+config.seed before each evaluation) for the models that have it, the SAGE
+family; the others propagate as usual.
+
+No step of an evaluation waits for the card (the train positives masked in
+the AUC matrix through an extra column that is dropped, as the JAX package
+drops them; the coverage bitmap written by ``index_fill_``), so on one CUDA
+device the whole evaluation is captured once as a CUDA graph and replayed
+(``eval/graphed.py``), the counterpart of the JAX package's one program. Its
+results reach the host in one copy, in ``__call__``.
 
 Under a (data, model) mesh every rank propagates (``--inference sample``
 splits its seeds over ``data``), then each tile's users are split over
@@ -40,6 +48,7 @@ from ..data.graph import BipartiteGraph
 from ..models.base import PairwiseModel
 from ..ops.csr_search import csr_gather_padded
 from ..ops.streaming_topk import masked_topk
+from .graphed import EvalGraph, captured
 from .metrics import batch_auc_sum, batch_metric_sums, unexpectedness_from_pmi
 from .sharded import item_block, local_mask, sharded_masked_topk
 
@@ -112,27 +121,64 @@ class Evaluator:
         self.kmax = max(self.topks)
         self.max_train_degree = int(max_train_degree)
         self.graph = graph
+        #: --inference sample's generator, made at its first evaluation
+        self.generator: Optional[torch.Generator] = None
+        #: the captured evaluation (``eval/graphed.py``), made at the first
+        #: evaluation where ``captured`` holds
+        self.graphed: Optional[EvalGraph] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.graph.user_pos.indptr.device
+
+    @property
+    def sampled(self) -> bool:
+        """Whether the embeddings come from ``propagate_sampled``."""
+        return self.config.inference == "sample" and hasattr(self.model, "propagate_sampled")
+
+    def seed(self) -> None:
+        """Seed the generator of --inference sample with config.seed (made
+        at the first call), before each evaluation; nothing otherwise."""
+        if self.sampled:
+            if self.generator is None:
+                self.generator = torch.Generator(device=self.device)
+            self.generator.manual_seed(self.config.seed)
 
     @torch.no_grad()
     def embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The (user, item) embeddings the evaluation scores with."""
-        if self.config.inference == "sample" and hasattr(self.model, "propagate_sampled"):
-            gen = torch.Generator(device=self.graph.user_pos.indptr.device)
-            gen.manual_seed(self.config.seed)
+        self.seed()
+        return self._embeddings()
+
+    def _embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The embeddings, --inference sample's drawn from the generator
+        where it stands."""
+        if self.sampled:
             if self.mesh is not None:
-                return self.model.propagate_sampled(self.graph, gen, mesh=self.mesh)
-            return self.model.propagate_sampled(self.graph, gen)
+                return self.model.propagate_sampled(self.graph, self.generator, mesh=self.mesh)
+            return self.model.propagate_sampled(self.graph, self.generator)
         return self.model.propagate(self.graph)
 
+    def drop(self) -> None:
+        """Drop the captured evaluation and release its memory pool (the
+        next evaluation warms up, the one after captures anew)."""
+        if self.graphed is not None:
+            self.graphed.drop()
+
     def _scores(self, user_emb, item_emb, users) -> torch.Tensor:
-        """The full [B, M] masked score matrix (for AUC)."""
+        """The full [B, M] masked score matrix (for AUC): every train
+        positive set to the sentinel through an extra column m, which padded
+        slots take and which is dropped (the JAX package's scatter with
+        mode="drop")."""
+        m = item_emb.shape[0]
         s = (user_emb[users.long()] @ item_emb.T).float()
         if self.model.score_sigmoid:
             s = torch.sigmoid(s)
         pos, mask = csr_gather_padded(self.graph.user_pos, users, self.max_train_degree)
-        rows = torch.arange(users.shape[0], device=s.device)[:, None].expand_as(pos)
-        s[rows[mask], pos[mask].long()] = float(MASK_SENTINEL)
-        return s
+        cols = torch.where(mask, pos.long(), m)
+        s = torch.nn.functional.pad(s, (0, 1))
+        s.scatter_(1, cols, float(MASK_SENTINEL))
+        return s[:, :m]
 
     def _sums(self, topk, users, valid, data, scores):
         g = self.graph
@@ -149,9 +195,24 @@ class Evaluator:
     @torch.no_grad()
     def evaluate(self, data: EvalData):
         """(sums, cold_sums, coverage counts [nk], top-K ids [nb, B, Kmax]) as
-        device tensors; cold_sums is None unless config.cold_start."""
+        device tensors; cold_sums is None unless config.cold_start. Where
+        ``captured`` holds (one CUDA device, no mesh) the first call runs
+        eagerly and every later one replays the captured evaluation
+        (``eval/graphed.py``); the tensors are then the graph's outputs,
+        which the next evaluation overwrites."""
+        if self.graphed is None and captured(self.mesh, self.device):
+            self.graphed = EvalGraph(self)
+        if self.graphed is not None:
+            return self.graphed.run(data)
+        self.seed()
+        return self.program(data)
+
+    def program(self, data: EvalData):
+        """One evaluation as ``evaluate`` returns it, with --inference
+        sample's generator where it stands: what the captured graph
+        records."""
         with torch.profiler.record_function("evaluate"):
-            user_emb, item_emb = self.embeddings()
+            user_emb, item_emb = self._embeddings()
             user_emb = user_emb.detach().float().contiguous()
             item_emb = item_emb.detach().float().contiguous()
             g = self.graph
@@ -189,7 +250,7 @@ class Evaluator:
                 for i, k in enumerate(self.topks):
                     # padding rows write to the extra column m, dropped below
                     ids = torch.where(valid[:, None], topk[:, :k], m)
-                    cov[i, ids.reshape(-1)] = True
+                    cov[i].index_fill_(0, ids.reshape(-1), True)
             topks = torch.stack(topks)
             if self.mesh is not None:
                 return self._reduce(sums, cold_sums, cov, topks)
@@ -237,20 +298,29 @@ class Evaluator:
         when ``pmi`` [M, M] is given, else 1 / #users as the reference stubs
         it), and cold_{metric}@{k} when config.cold_start."""
         sums, cold_sums, cov_counts, topks = self.evaluate(data)
-        sums = {k: v.cpu().numpy() for k, v in sums.items()}
-        n = float(sums.pop("count"))
+        parts = [sums] + ([cold_sums] if self.config.cold_start else [])
+        pieces = [v.reshape(-1) for part in parts for v in part.values()] + [cov_counts]
+        with_ids = with_topk or pmi is not None
+        if with_ids:
+            pieces += [data.users.reshape(-1), data.valid.reshape(-1), topks.reshape(-1)]
+        # the evaluation's one copy to the host: float64 holds every sum and id exactly
+        flat = torch.cat([p.double() for p in pieces]).cpu().numpy()
+        chunks = iter(np.split(flat, np.cumsum([p.numel() for p in pieces])[:-1]))
+        sums, *cold = [{k: next(chunks) for k in part} for part in parts]
+        n = float(sums.pop("count")[0])
         results: Dict[str, float] = {}
         for name, vals in sums.items():
             for i, k in enumerate(self.topks):
                 results[f"{name}@{k}"] = float(vals[i]) / max(n, 1.0)
-        cov_counts = cov_counts.cpu().numpy()
+        cov_counts = next(chunks)
         for i, k in enumerate(self.topks):
             results[f"coverage@{k}"] = float(cov_counts[i]) / self.model.m_items
         shown = None
-        if with_topk or pmi is not None:
-            valid_np = data.valid.cpu().numpy().reshape(-1)
-            users_np = data.users.cpu().numpy().reshape(-1)[valid_np]
-            shown = topks.cpu().numpy().reshape(-1, self.kmax)[valid_np]
+        if with_ids:
+            users_np, valid_np, ids = (next(chunks) for _ in range(3))
+            valid_np = valid_np.astype(bool)
+            users_np = users_np[valid_np].astype(np.int64)
+            shown = ids.astype(np.int64).reshape(-1, self.kmax)[valid_np]
         for k in self.topks:
             if pmi is not None:
                 results[f"unexpectedness@{k}"] = unexpectedness_from_pmi(
@@ -259,8 +329,8 @@ class Evaluator:
             else:
                 results[f"unexpectedness@{k}"] = 1.0 / max(n, 1.0)
         if self.config.cold_start:
-            cold_sums = {k: v.cpu().numpy() for k, v in cold_sums.items()}
-            cn = float(cold_sums.pop("count"))
+            cold_sums = cold[0]
+            cn = float(cold_sums.pop("count")[0])
             for name, vals in cold_sums.items():
                 for i, k in enumerate(self.topks):
                     results[f"cold_{name}@{k}"] = float(vals[i]) / max(cn, 1.0)

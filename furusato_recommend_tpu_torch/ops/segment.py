@@ -170,7 +170,11 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: in
     give 0 (``ops/segment.py::segment_mean``)."""
     ids = segment_ids.long()
     s = segment_sum(data, ids, num_segments)
-    cnt = torch.bincount(ids, minlength=num_segments).to(data.dtype).clamp_min(1.0)
+    # counted by a float32 segment sum of ones (exact to 2^24, then rounded as
+    # bincount's integers would be): bincount reads the largest id on the
+    # host, which waits for the card
+    ones = torch.ones(ids.shape, dtype=torch.float32, device=data.device)
+    cnt = segment_sum(ones, ids, num_segments).to(data.dtype).clamp_min(1.0)
     return s / cnt.reshape((num_segments,) + (1,) * (data.dim() - 1))
 
 

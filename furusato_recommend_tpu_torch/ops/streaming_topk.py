@@ -34,6 +34,13 @@ Semantics, shared by both and by the JAX package:
   ``ValueError``).
 
 Scores that are NaN have no defined rank.
+
+Counting: each call on CUDA tensors adds one to ``launches`` (and a call
+that takes the radix select one to ``wide_launches``) where it launches its
+kernel. A call made while a CUDA graph is being captured executes nothing:
+it adds to ``captured`` (and ``wide_captured``) instead, and each replay of
+that graph adds the launches its capture recorded (``count_replay``), as
+``ops/scatter.py`` counts its kernel.
 """
 
 from __future__ import annotations
@@ -49,8 +56,8 @@ from . import _cuda
 from .csr_search import csr_gather_padded
 
 __all__ = [
-    "masked_topk", "masked_topk_wide", "masked_topk_reference", "wide_topk_model", "plan_tiles",
-    "MASK_SENTINEL", "MAX_K",
+    "count_replay", "masked_topk", "masked_topk_wide", "masked_topk_reference", "wide_topk_model",
+    "plan_tiles", "MASK_SENTINEL", "MAX_K",
 ]
 
 MASK_SENTINEL = -(1 << 10)
@@ -63,10 +70,16 @@ WIDE_FILTER = 8192  # candidates a row of the radix select may write while it co
 WIDE_MAX_SEGMENT = 511 * ITEM_TILE  # its 16-bit shared counts hold a segment's items
 
 #: kernel launches since the count was last set to 0: one per masked_topk or
-#: masked_topk_wide call on CUDA tensors, whichever kernel it takes
+#: masked_topk_wide call on CUDA tensors, whichever kernel it takes, and those
+#: of every replay of a CUDA graph that recorded them (``count_replay``)
 launches = 0
 #: of those, the calls that took the radix select (csrc/streaming_topk_wide.cu)
 wide_launches = 0
+#: launches recorded into CUDA graphs being captured, which execute nothing
+#: (a capture's count is the difference across it), and of those the radix
+#: select's
+captured = 0
+wide_captured = 0
 
 
 def _check(user_emb, item_emb, users, k, mask_indptr, mask_indices) -> None:
@@ -365,9 +378,27 @@ def _prepare(user_emb, item_emb, users, mask_indptr, mask_indices):
     return users, idx, sms
 
 
+def _count(wide: bool) -> None:
+    """Count one launch: a capture's apart (module docstring)."""
+    global launches, wide_launches, captured, wide_captured
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+        wide_captured += wide
+    else:
+        launches += 1
+        wide_launches += wide
+
+
+def count_replay(n: int, wide: int = 0) -> None:
+    """Count the ``n`` launches a replayed CUDA graph's capture recorded,
+    ``wide`` of them the radix select's."""
+    global launches, wide_launches
+    launches += n
+    wide_launches += wide
+
+
 def _launch(user_emb, item_emb, users, k, mask_indptr, mask_indices, sigmoid):
     """One launch of the k <= MAX_K kernel."""
-    global launches
     if k > MAX_K:
         raise ValueError(f"csrc/streaming_topk.cu takes k <= {MAX_K}, got k={k}")
     users, idx, sms = _prepare(user_emb, item_emb, users, mask_indptr, mask_indices)
@@ -391,7 +422,7 @@ def _launch(user_emb, item_emb, users, k, mask_indptr, mask_indices, sigmoid):
     )
     if err != 0:
         raise RuntimeError(f"masked_topk kernel launch failed: CUDA error {err}")
-    launches += 1
+    _count(wide=False)
     return out_v, out_i
 
 
@@ -419,7 +450,6 @@ def wide_stride(k: int, m: int) -> int:
 
 def _launch_wide(user_emb, item_emb, users, k, mask_indptr, mask_indices, sigmoid):
     """One call of the radix select (any 1 <= k <= M)."""
-    global launches, wide_launches
     users, idx, sms = _prepare(user_emb, item_emb, users, mask_indptr, mask_indices)
     n, d = user_emb.shape
     m, b = item_emb.shape[0], users.shape[0]
@@ -444,8 +474,7 @@ def _launch_wide(user_emb, item_emb, users, k, mask_indptr, mask_indices, sigmoi
     )
     if err != 0:
         raise RuntimeError(f"masked_topk_wide kernel launch failed: CUDA error {err}")
-    launches += 1
-    wide_launches += 1
+    _count(wide=True)
     return out_v, out_i
 
 

@@ -102,6 +102,10 @@ def _load_run(args):
 
 
 def cmd_evaluate(args):
+    """``tools evaluate``: one evaluation of a checkpoint, printed (and
+    written with ``--save_result``). It is its Evaluator's first call, so it
+    runs eagerly: the warm-up after which a second call would capture the
+    evaluation (``eval/graphed.py``)."""
     from .eval.evaluate import Evaluator, build_eval_data
     from .obs.log import step_timer
 

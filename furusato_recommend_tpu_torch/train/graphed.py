@@ -51,8 +51,9 @@ stream, so the capture records it; the wrapper counts a launch under
 capture apart (``ops/scatter.py::captured``), and a replay counts the
 launches its capture recorded (``ops/scatter.py::count_replay``).
 
-Which configurations are captured (``captured``): every model of the
-registry under every cadence, on one process (no mesh), on a CUDA device.
+Which configurations are captured (``core/graphs.py::captured``, the
+evaluation's rule too): every model of the registry under every cadence, on
+one process (no mesh), on a CUDA device.
 The Trainer makes a ``StepGraph`` for those alone; the CPU and the mesh run
 their parts eagerly, and so does a step given presampled draws. A failed
 capture or replay raises; nothing falls back to eager steps.
@@ -76,6 +77,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..core.graphs import captured, new_stats, on_capture_stream, pool_measured
 from ..ops import scatter
 from ..sampling.bpr import BPRBatch
 
@@ -94,12 +96,6 @@ PARTS = {
 }
 
 
-def captured(cadence: str, mesh, device) -> bool:
-    """Whether the steps of this configuration are replayed as CUDA graphs:
-    any cadence, without a mesh, on a CUDA device."""
-    return cadence in PARTS and mesh is None and torch.device(device).type == "cuda"
-
-
 class StepGraph:
     """The Trainer's cadence on static inputs, captured on CUDA (module
     docstring). ``stats``: warm-up, capture and instantiate host ms of the
@@ -116,8 +112,7 @@ class StepGraph:
         self.stream = None  # the capture stream, made at the first step
         self.warm = collections.Counter()  # eager calls of each part since the last drop
         self.launches: Dict[str, int] = {}  # the scatter kernel's launches a replay of each part adds
-        self.stats = {"warmup_ms": 0.0, "capture_ms": None, "instantiate_ms": None, "pool_mib": None,
-                      "captures": 0, "replays": 0}
+        self.stats = new_stats()
 
     @property
     def graph(self):
@@ -172,14 +167,10 @@ class StepGraph:
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.trainer.device)
         if not self.graphs and not (batched and self._warm()):
-            t0 = time.perf_counter()
-            here = torch.cuda.current_stream(self.trainer.device)
-            self.stream.wait_stream(here)
-            with torch.cuda.stream(self.stream):
-                out = getattr(self.trainer, part)(*((self._load(batch),) if batched else ()))
-            here.wait_stream(self.stream)
+            out, ms = on_capture_stream(self.stream, self.trainer.device,
+                                        lambda: getattr(self.trainer, part)(*((self._load(batch),) if batched else ())))
             self.warm[part] += 1
-            self.stats["warmup_ms"] += 1e3 * (time.perf_counter() - t0)
+            self.stats["warmup_ms"] += ms
             return out
         if batched:
             self._load(batch)
@@ -195,33 +186,28 @@ class StepGraph:
     def _capture(self) -> None:
         """Capture every part on the static inputs into one pool (executing
         nothing), then fill the linearization's tables with the block's."""
-        dev = self.trainer.device
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
         pool = torch.cuda.graph_pool_handle()
         capture_ms = instantiate_ms = 0.0
-        for part, batched in self.parts.items():
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            if batched:  # the step draws the trees and dropout
-                graph.register_generator_state(self.trainer.generator)
-            before = scatter.captured
-            t0 = time.perf_counter()
-            with torch.cuda.graph(graph, pool=pool, stream=self.stream, capture_error_mode="thread_local"):
-                out = getattr(self.trainer, part)(*((self.batch,) if batched else ()))
-            t1 = time.perf_counter()
-            graph.instantiate()
-            capture_ms += 1e3 * (t1 - t0)
-            instantiate_ms += 1e3 * (time.perf_counter() - t1)
-            self.launches[part] = scatter.captured - before
-            self.graphs[part] = graph
-            if batched:
-                self.loss = out
-        if "_linearize" in self.parts:
-            self._fill()
-        self.stats.update(capture_ms=capture_ms, instantiate_ms=instantiate_ms,
-                          pool_mib=(torch.cuda.memory_reserved(dev) - reserved) / 2**20,
-                          captures=self.stats["captures"] + 1)
+        with pool_measured(self.trainer.device, self.stats):
+            for part, batched in self.parts.items():
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                if batched:  # the step draws the trees and dropout
+                    graph.register_generator_state(self.trainer.generator)
+                before = scatter.captured
+                t0 = time.perf_counter()
+                with torch.cuda.graph(graph, pool=pool, stream=self.stream, capture_error_mode="thread_local"):
+                    out = getattr(self.trainer, part)(*((self.batch,) if batched else ()))
+                t1 = time.perf_counter()
+                graph.instantiate()
+                capture_ms += 1e3 * (t1 - t0)
+                instantiate_ms += 1e3 * (time.perf_counter() - t1)
+                self.launches[part] = scatter.captured - before
+                self.graphs[part] = graph
+                if batched:
+                    self.loss = out
+            if "_linearize" in self.parts:
+                self._fill()
+        self.stats.update(capture_ms=capture_ms, instantiate_ms=instantiate_ms)
 
     @torch.no_grad()
     def _fill(self) -> None:

@@ -62,10 +62,11 @@ The JAX package's one-dispatch epoch (``_build_train_epoch``'s scan) has its
 counterpart on the card for every model of the registry under every cadence
 without a mesh: each part of the cadence's step (the step; the
 linearization, and under T > 1 the super-step's end) is captured once as a
-CUDA graph and replayed (``train/graphed.py``), with the fused Adams. The
-mesh, the CPU and steps given presampled ``draws`` run eagerly. The rest
-of the JAX package's XLA machinery (the compile cache, ``pipeline_dispatch``'s
-next-epoch sampling) has no counterpart here.
+CUDA graph and replayed (``train/graphed.py``), with the fused Adams. So is
+its one-program evaluation (``eval/graphed.py``): from the second ``test``
+on, a replay. The mesh, the CPU and steps given presampled ``draws`` run
+eagerly. The rest of the JAX package's XLA machinery (the compile cache,
+``pipeline_dispatch``'s next-epoch sampling) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -266,10 +267,18 @@ class Trainer:
                 w = popularity_positive_edge_weights(dataset, config.sample_pow)
             self.edge_alias = edge_alias_from_weights(w).to(self.device)
 
+        max_deg = int(np.max(np.bincount(dataset.train_user, minlength=dataset.n_users)))
+        #: replays its captured evaluation on one CUDA device (``eval/graphed.py``)
+        self.evaluator = Evaluator(self.model, self.graph, config, max_train_degree=max_deg, mesh=self.mesh)
+        self.eval_data: EvalData = build_eval_data(
+            dataset, config.eval_user_batch, item_categories=item_categories,
+            max_batches=config.test_count if ddp_recipe else None, device=self.device,
+        )
+
         #: the parameters the initial tables depend on (cached cadences)
         self.feature_names = sorted(model.initial_param_keys()) if self.cadence != "fresh" else []
         #: the fresh step is replayed as a CUDA graph (``train/graphed.py``)
-        self.captured = captured(self.cadence, self.mesh, self.device)
+        self.captured = captured(self.mesh, self.device)
         self.step_graph: Optional[StepGraph] = None
         self._new_optimizers()
         #: the sampler's stream (and edge dropout's); saved and restored with
@@ -278,13 +287,6 @@ class Trainer:
         self.generator.manual_seed(config.seed)
         if self.captured:
             self.step_graph = StepGraph(self)
-
-        max_deg = int(np.max(np.bincount(dataset.train_user, minlength=dataset.n_users)))
-        self.evaluator = Evaluator(model, self.graph, config, max_train_degree=max_deg, mesh=self.mesh)
-        self.eval_data: EvalData = build_eval_data(
-            dataset, config.eval_user_batch, item_categories=item_categories,
-            max_batches=config.test_count if ddp_recipe else None, device=self.device,
-        )
 
     def _whole(self):
         """Inside, the model reads its row-sharded tables whole (a mesh)."""
@@ -314,6 +316,9 @@ class Trainer:
                          if apart else None)
         if self.step_graph is not None:  # its Adam states are gone
             self.step_graph.drop()
+        # and the evaluation's graph with it: init_state and restore evaluate
+        # their state by a capture of its own
+        self.evaluator.drop()
         #: the cached cadences' tables and sums, made anew with the Adams
         self.cached = _CachedTables(self.feature_names, sorted(self.ooc)) if self.cadence != "fresh" else None
 
@@ -493,6 +498,10 @@ class Trainer:
         return float(losses.mean())
 
     def test(self) -> Dict[str, float]:
+        """One evaluation of the current parameters (``eval/evaluate.py``;
+        on one CUDA device, from the second on, a replay of the captured
+        evaluation); ``dask`` first streams its numeric projections, eagerly,
+        into the tensors the evaluation reads."""
         with self._whole():
             if self.ooc:
                 self.model.refresh_ooc_proj()

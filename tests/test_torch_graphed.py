@@ -74,7 +74,7 @@ from furusato_recommend_tpu_torch.obs.log import MetricLogger
 from furusato_recommend_tpu_torch.sampling.bpr import BPRBatch
 from furusato_recommend_tpu_torch.sampling.neighbor import SampledNeighbors
 from furusato_recommend_tpu_torch.train import trainer as trainer_module
-from furusato_recommend_tpu_torch.train.graphed import StepGraph, captured
+from furusato_recommend_tpu_torch.train.graphed import PARTS, StepGraph, captured
 from furusato_recommend_tpu_torch.train.trainer import Trainer
 from torch_oracle import OptaxAdam
 
@@ -433,7 +433,7 @@ def test_every_fresh_key_is_captured_on_the_card(key, over, tmp_path):
     passes stay eager, ``train/graphed.py``)."""
     t = _key_trainer(key, tmp_path, **over)
     assert t.cadence == ("ooc" if key == "dask" else "fresh")
-    assert captured(t.cadence, None, "cuda") is True
+    assert captured(None, "cuda") is True
     assert not t.captured and t.step_graph is None
 
 @pytest.mark.parametrize("key,over", _CONFIGS, ids=_IDS)
@@ -493,7 +493,10 @@ _MESH = object()  # any mesh: a configuration with one is never captured
     ("ooc", _MESH, "cuda", False),
 ])
 def test_the_rule_picks_the_captured_configurations(cadence, mesh, device, want):
-    assert captured(cadence, mesh, device) is want
+    """Every cadence is captured alike: the rule reads the mesh and the
+    device alone."""
+    assert cadence in PARTS
+    assert captured(mesh, device) is want
 
 
 @pytest.mark.parametrize("key,kw", [

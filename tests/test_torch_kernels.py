@@ -16,6 +16,10 @@ atomic adds take another order than the plain version's, and it changes from
 run to run.
 """
 
+import functools
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -930,3 +934,143 @@ def test_cuda_dropped_cadence_trainer_frees_its_graph_pool(tmp_path):
         assert reserved - torch.cuda.memory_reserved() >= pool
     finally:
         gc.enable()
+
+
+# the captured evaluation (eval/graphed.py): a key of each family, every
+# metric the evaluator computes on the card (AUC, cold start), textsage also
+# under --inference sample (its trees drawn in the graph)
+_EVAL_CASES = {"mf": ("mf", {}), "lgn": ("lgn", {}), "textsage": ("textsage", {}),
+               "textsage_sample": ("textsage", {"inference": "sample"}), "sasrec": ("sasrec", {}),
+               "asage": ("asage", {})}
+
+
+def _eval_trainer(case: str):
+    key, over = _EVAL_CASES[case]
+    return _graph_trainer(False, key, compute_auc=True, cold_start=True, **over)
+
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    """``chip_smoke.py`` as a module: its rule for two evaluations from the
+    same parameters (``evaluation_rule``) and its eager evaluation
+    (``eager_evaluation``), which these tests share with it."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_kernels", Path(__file__).parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _held_evaluation(got, want, ev, data):
+    """A replayed evaluation (results, top-K ids) against an eager one from
+    the same parameters, under ``chip_smoke.py::evaluation_rule``: bit-equal,
+    or where cuSPARSE's SpMM (the propagation's, which sums in no fixed
+    order on the H100) parts them, scores, ids outside ties and metrics
+    within its limits. mf propagates nothing and is held bit-equal."""
+    rule = _chip_smoke().evaluation_rule(got, want, ev, data)
+    if ev.model.name == "mf":
+        assert rule["ids_moved"] == 0 and not rule["metrics_off"], rule
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_EVAL_CASES))
+def test_cuda_replayed_evaluation_equals_eager(case):
+    """The evaluator's first call runs eagerly (the warm-up), the second
+    captures the whole evaluation and replays it, the third replays: both
+    replays equal to the eager one (results and top-K ids, under
+    ``_held_evaluation``: the capture records the eager kernels in their
+    order), one capture, each evaluation n_tiles masked_topk launches (a
+    replay counted as its capture recorded)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    t = _eval_trainer(case)
+    ev, data = t.evaluator, t.eval_data
+    n_tiles = data.users.shape[0]
+    st.launches = 0
+    eager = ev(data)
+    assert ev.graphed is not None and ev.graphed.graph is None
+    replays = [ev(data), ev(data)]
+    assert ev.graphed.stats["captures"] == 1 and ev.graphed.stats["replays"] == 2
+    assert ev.graphed.launches == (n_tiles, 0) and st.launches == 3 * n_tiles
+    for got in replays:
+        _held_evaluation(got, eager, ev, data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["lgn", "textsage_sample"])
+def test_cuda_evaluation_replay_never_waits(case):
+    """A replayed evaluation and an eager one (once the first call has built
+    what the models keep) make no host sync under the sync debug mode's
+    "error"; ``__call__`` adds its one copy to the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    t = _eval_trainer(case)
+    ev, data = t.evaluator, t.eval_data
+    ev(data)
+    ev(data)  # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ev.evaluate(data)  # a replay
+        ev.seed()
+        ev.program(data)  # the eager evaluation
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _, syncs = _host_syncs(lambda: ev(data, with_topk=False))
+    assert len(syncs) == 1, syncs
+
+
+@pytest.mark.cuda
+def test_cuda_evaluation_graph_freed_with_its_trainer():
+    """A trainer whose evaluation is captured, dropped without a collector
+    run, gives the graph's memory pool back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import gc
+
+    t = _eval_trainer("textsage")
+    t.test()
+    t.test()
+    pool = t.evaluator.graphed.stats["pool_mib"] * 2**20
+    assert pool > 0
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    gc.disable()
+    try:
+        del t
+        torch.cuda.empty_cache()
+        assert reserved - torch.cuda.memory_reserved() >= pool
+    finally:
+        gc.enable()
+
+
+@pytest.mark.cuda
+def test_cuda_evaluation_recaptures_after_restore(tmp_path):
+    """restore (and init_state) drop the evaluation's graph: the next
+    evaluation is eager, the one after it a new capture, and both equal the
+    evaluation of the saved state; an evaluation after training replays the
+    first capture with the trained parameters, held against an eager
+    evaluation of them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    t = _eval_trainer("lgn")
+    t.test()
+    saved = t.test()
+    assert t.evaluator.graphed.stats["captures"] == 1
+    t.save(tmp_path / "a.ckpt")
+    t.train_one_epoch()
+    ev, data = t.evaluator, t.eval_data
+    trained = ev(data)
+    assert ev.graphed.stats["captures"] == 1 and trained[0] != saved
+    with _chip_smoke().eager_evaluation(ev):
+        eager = ev(data)
+    _held_evaluation(trained, eager, ev, data)
+    t.restore(tmp_path / "a.ckpt")
+    assert t.evaluator.graphed.graph is None
+    for _ in range(2):  # eager, then a new capture
+        got = t.test()
+        assert set(got) == set(saved)
+        for k in saved:  # the propagation's SpMM sums in no fixed order (_held_evaluation)
+            np.testing.assert_allclose(got[k], saved[k], rtol=1e-3, err_msg=k)
+    assert t.evaluator.graphed.stats["captures"] == 2
+    t.init_state()
+    assert t.evaluator.graphed.graph is None

@@ -52,7 +52,20 @@ Phases (any failure raises and exits non-zero):
                the plain version under rule 3(b); propagation held against a
                float64 CPU propagation on the same rounded inputs
   5. numbers   the serve path's timings (printed at the end), and masked_topk
-               at the evaluation's tile (B = 1024, k = 20)
+               at the evaluation's tile (B = 1024, k = 20); then the
+               Recommender's two programs (serve.py: the refresh and each
+               request tile captured once as a CUDA graph and replayed;
+               serving_numbers): replayed and eager refreshes in turns (host
+               ms, device ms, operations, idle share of each kind), a replay
+               against an eager refresh under phase 4's rule (refresh_rule);
+               requests of 1 / 8 / 64 / 512 / 513 / 1024 users at k = 10 and
+               20, each padded to its power-of-two tile: the eager answer, the
+               capture, a replay bit-equal to it (ids and scores), one host
+               sync and one masked_topk launch a replay, the graph's pool MiB,
+               replays and eager requests in turns; POST /reload twice over
+               HTTP (moved parameters, then the first ones), each one replay
+               of the captured refresh, the HTTP answer equal to the direct
+               one, the refresh against an eager one
   6. train     Trainer for lgn, d=64, L=2, bfloat16 SpMM, B=8192, lr 1e-3 on the
                same graph: test(), one warm-up epoch, two timed epochs,
                test() (the epochs by replays of the captured step after its
@@ -71,7 +84,11 @@ Phases (any failure raises and exits non-zero):
                them, phase 7's rule), one host sync a replayed evaluation
                (the copy), masked_topk n_tiles launches an evaluation (a
                replay counted as its capture recorded), the capture's
-               warm-up, capture and instantiate ms and pool MiB
+               warm-up, capture and instantiate ms and pool MiB; after phase
+               8, epochs with --pipeline_dispatch and without in turns
+               (pipeline_numbers: host ms an epoch, and the card's time
+               between an epoch's last step and the next's first, by CUDA
+               events)
   7. card/CPU  two steps on the card and two on the CPU (plain versions) from
                the same parameters on the same batches (sampled on the card):
                losses within rtol 1e-5 (step 1) and 1e-4 (step 2); after two
@@ -98,7 +115,9 @@ Phases (any failure raises and exits non-zero):
                the card held against a CPU propagation of the same parameters
                (rtol 2e-2, atol 2e-3 x the largest magnitude: both round the
                SpMM operands to bfloat16, and a float32 sum on the other side of
-               a rounding boundary moves an element by a bfloat16 step)
+               a rounding boundary moves an element by a bfloat16 step); then
+               the Recommender's two programs as in phase 5 at k = 20, the
+               refresh under phase 9's rule
  10. train-textsage-100k
                Trainer(ddp_recipe=True), B=5000, lr 1e-3: an evaluation, a
                warm-up of 10 eager steps, one timed epoch (421 steps of alias-sampled
@@ -115,7 +134,9 @@ Phases (any failure raises and exits non-zero):
                the same batch and trees, dropout 0: losses within rtol 1e-4,
                every parameter within 2 x lr, all but 1e-3 of them within 1e-6
                + 1e-5 |p| (Adam's first step is +-lr, so a gradient within
-               rounding of 0 may take the other sign)
+               rounding of 0 may take the other sign); after phase 11's
+               numbers, one epoch a turn with --pipeline_dispatch and without
+               (pipeline_numbers)
  11. numbers   one JSON line of kernels (time, plain time, library time,
                bound, launches on the main paths; masked_topk also at the
                evaluation's tile and at TextSAGE's d = 32 over 30000 items;
@@ -182,7 +203,9 @@ Phases (any failure raises and exits non-zero):
                held against the plain top-k (phase 7's rule); 4 tgrec steps on
                the card and on the CPU (phase 12's step-by-step rule); then the refresh's
                times, masked_topk at B = 512, k = 200 beside the library call
-               and the bound, and each key's step numbers beside phase 12's
+               and the bound, the Recommender's two programs as in phase 5 at
+               k = 200 (the radix select inside each request graph), and
+               each key's step numbers beside phase 12's
                TextSAGE R = 1 (a {"train_attention": ...} line)
  14. edge-20k  the edge-feature SAGE models on phase 12's graph and features:
                seeded relation sets (favourites: 30% of the train pairs drawn
@@ -208,7 +231,8 @@ Phases (any failure raises and exits non-zero):
                rsage steps on the card and on the CPU (phase 12's
                step-by-step rule); the
                recency conv's first-maximum slot on the card as on the CPU
-               over tied times; then the refresh times, each key's step
+               over tied times; then the refresh times, a replayed refresh
+               against an eager one (held_refresh), each key's step
                numbers beside phase 12's TextSAGE R = 1 and phase 13's tgrec,
                and the relation-row scatter at (3, 450000, 32) and (3, 75000,
                32) from a step's labels: kernel, row mode, index_add_ and plain
@@ -238,7 +262,9 @@ Phases (any failure raises and exits non-zero):
                evaluation tile;
                every evaluation held against the plain top-k (phase 7's
                rule); 4 steps of each key on the card and on the CPU (phase
-               12's step-by-step rule); then the refresh times, each key's step numbers
+               12's step-by-step rule); then the refresh times, each key's
+               replayed refresh against an eager one (held_refresh), each
+               key's step numbers
                beside phase 12's TextSAGE R = 1, and the new scatter shapes
                at the ids that one step's table gathers record (sasrec's
                item rows (10000, 106496, 64), their pad id included, and
@@ -423,7 +449,8 @@ Phases (any failure raises and exits non-zero):
                those phase 3 checked; every evaluation held against the plain
                top-k (phase 7's rule); 2 steps of each key on the card and on
                the CPU (phase 12's step-by-step rule); then each refresh's
-               host and device times, each key's step numbers, and the
+               host and device times and its replay against an eager refresh
+               (held_refresh), each key's step numbers, and the
                scatter at the ids of one textsage_id step's tree gathers at
                node width 64 (a {"registry": ...} line with the card's name
                and power limit)
@@ -438,7 +465,8 @@ Phases (any failure raises and exits non-zero):
                after phase 20); then the cached cadences (GRAPH_CADENCES):
                textsage at R = 8, R = 0 and T = 8, dask, and tgrec, rsage add
                and asage at R = 8; every key after lgn and textsage cut to
-               GRAPH_STEPS steps an epoch (its checks the same). For each: an
+               GRAPH_STEPS (8) steps an epoch, the cadences to
+               GRAPH_CADENCE_STEPS (16) (its checks the same). For each: an
                eager step (a cached cadence: a one-step epoch of its eager
                parts), then another under torch's sync debug mode "error";
                epoch 1 (the eager warm-up steps, the capture, replays), its
@@ -474,7 +502,17 @@ Phases (any failure raises and exits non-zero):
                and cold start, textsage under --inference sample and mf at
                k = 200 (the radix select inside the graph) by an Evaluator
                of their own (GRAPH_EVAL_CASES); masked_topk n_tiles launches
-               an evaluation, counted over the phase (a {"graph": ...} line)
+               an evaluation, counted over the phase; for lgn and textsage
+               (GRAPH_PIPELINED) an epoch that takes its prefetch against
+               the synchronous epoch from the same state (pipeline_vs_sync):
+               the triplets drawn ahead bit-equal to those the synchronous
+               trainer draws, the losses, parameters and generator states
+               under the key's epoch rule (a {"graph": ...} line)
+
+Every Trainer these phases build pipelines its epochs (--pipeline_dispatch,
+on by default; dask draws synchronously). Every Recommender on the card
+replays its refresh from its second on and each request tile from that
+tile's second request on (serve.py).
 
 Every Trainer these phases build on the card without a mesh trains by
 replays of its cadence's captured parts (train/graphed.py): every registry
@@ -551,7 +589,7 @@ from furusato_recommend_tpu_torch.convert import (
     params_from_jax,
     params_to_numpy,
 )
-from furusato_recommend_tpu_torch.core.checkpoint import load_checkpoint
+from furusato_recommend_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from furusato_recommend_tpu_torch.core.distributed import initialize_multihost, shutdown
 from furusato_recommend_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, Mesh, make_mesh
 from furusato_recommend_tpu_torch.data import synthetic_dataset
@@ -594,7 +632,7 @@ from furusato_recommend_tpu_torch.preprocessing.synthetic import synthetic_raw_t
 from furusato_recommend_tpu_torch.rank.pipeline import _compact_rows, _dedup_rows
 from furusato_recommend_tpu_torch.rank.ranker import NeuralRanker, epoch_batches
 from furusato_recommend_tpu_torch.sampling.bpr import sample_bpr
-from furusato_recommend_tpu_torch.serve import Recommender, make_server
+from furusato_recommend_tpu_torch.serve import Recommender, make_server, request_tile
 from furusato_recommend_tpu_torch.train import graphed as gr
 from furusato_recommend_tpu_torch.train.trainer import Trainer
 
@@ -1549,6 +1587,190 @@ def evaluation_numbers(trainer, label) -> dict:
     return out
 
 
+# the serving tier's two programs (serve.py): replays against eager calls
+SERVE_TILES = (1, 8, 64, 512, 513, 1024)  # users a request, the padding's edges among them
+SERVE_PROFILED = (1, 1024)  # the request sizes whose replays and eager calls are also profiled
+SERVE_TURNS = ("replays", "eager", "eager", "replays", "replays", "eager")
+
+
+@contextlib.contextmanager
+def eager_serving(rec):
+    """Within, the Recommender refreshes and answers eagerly, as on the CPU
+    (its graphs kept for after; an eager refresh makes new embeddings, so it
+    drops the request graphs, and the next replayed refresh serves the
+    graph's own again)."""
+    rec.captured = False
+    try:
+        yield
+    finally:
+        rec.captured = True
+
+
+def refresh_rule(name: str) -> tuple:
+    """(rtol, atol as a share of the largest magnitude) under which two
+    refreshes of the same parameters agree on the card: mf and the LightGCN
+    keys under phase 4's rule (rtol 2e-3; its atol 1e-5 at that phase's 0.1
+    scale), sasrec at rtol 1e-4, every other SAGE key under phase 9's rule
+    (cuSPARSE's CSR product and the convs' index_add_ sum in no fixed
+    order)."""
+    if name not in SAGE_KEYS:
+        return 2e-3, 1e-4
+    return (1e-4, 1e-5) if name == "sasrec" else (2e-2, 2e-3)
+
+
+def _embeddings(rec) -> np.ndarray:
+    return torch.cat([rec._user_emb, rec._item_emb]).cpu().numpy()
+
+
+def held_refresh(rec, name: str, label: str) -> dict:
+    """A replayed refresh (the graph captured first if need be) against an
+    eager one of the same parameters, under ``refresh_rule``; then a replay
+    again, which serves the graph's outputs."""
+    rec.refresh()
+    rec.refresh()
+    assert rec.refresh_graph is not None, f"{label}: the refresh was not captured"
+    got = _embeddings(rec)
+    with eager_serving(rec):
+        rec.refresh()
+        want = _embeddings(rec)
+    rec.refresh()
+    assert np.isfinite(got).all() and got.shape == want.shape
+    rtol, atol = refresh_rule(name)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol * scale)
+    stats = rec.refresh_stats
+    out = {"bit_equal": bool(np.array_equal(got, want)), "max_abs_diff": float(np.abs(got - want).max()),
+           "scale": scale, "rule": [rtol, atol], "captures": stats["captures"],
+           "capture": {k: stats[k] for k in ("warmup_ms", "capture_ms", "instantiate_ms", "pool_mib")}}
+    log(f"{label} refresh: a replay against an eager refresh: "
+        + ("bit-equal" if out["bit_equal"] else f"max abs diff {out['max_abs_diff']:.3g} of {scale:.3g}")
+        + f" (rule rtol {rtol:g}, atol {atol:g} x max |x|); {stats['captures']} capture(s), pool "
+        f"{stats['pool_mib']:.1f} MiB, capture {stats['capture_ms']:.1f} ms, instantiate "
+        f"{stats['instantiate_ms']:.1f} ms")
+    return out
+
+
+def _kinds_profile(rec, fn, n, profiled=True) -> dict:
+    """host ms (median of SERVE_TURNS) and, if ``profiled``, a device
+    profile of each kind."""
+    host = {"replays": [], "eager": []}
+    for kind in SERVE_TURNS:
+        with eager_serving(rec) if kind == "eager" else contextlib.nullcontext():
+            host[kind].append(host_ms(fn, reps=n, warmup=1))
+    out = {}
+    for kind in ("replays", "eager"):
+        with eager_serving(rec) if kind == "eager" else contextlib.nullcontext():
+            prof = device_profile(fn, n=n) if profiled else None
+        ms = float(np.median(host[kind]))
+        out[kind] = {"host_ms": ms, "host_ms_turns": host[kind]}
+        if prof is not None:
+            out[kind].update(device_ms=prof["device_ms"], device_ops=prof["device_ops_per_call"],
+                             idle_share=1.0 - prof["device_ms"] / ms, by_kernel_ms=prof["by_kernel_ms"])
+    return out
+
+
+def _kinds_line(out) -> str:
+    return "; ".join(f"{kind} {out[kind]['host_ms']:.3f} ms on the host" + (
+        f", {out[kind]['device_ms']:.3f} ms on the device in {out[kind]['device_ops']:.0f} operations, idle "
+        f"{out[kind]['idle_share']:.2f}" if "device_ms" in out[kind] else "") for kind in ("replays", "eager"))
+
+
+def _post(base: str, path: str, obj):
+    req = urllib.request.Request(f"{base}{path}", data=json.dumps(obj).encode(), method="POST")
+    return json.load(urllib.request.urlopen(req, timeout=120))
+
+
+def serving_numbers(rec, name: str, label: str, ks, seed: int) -> dict:
+    """Phases 4-5, 9 and 13: the Recommender's two programs on the card.
+    Replayed and eager refreshes in turns (SERVE_TURNS: host ms each, device
+    ms, operations and idle share of each kind), a replay held against an
+    eager refresh (``held_refresh``); then for each request shape (SERVE_TILES
+    users at each of ``ks``) the eager answer, the capture, a replay
+    bit-equal to the eager answer (ids and scores), one host sync a replay,
+    the launches a replay adds, the graph's pool MiB, and replayed and eager
+    requests in turns (host ms; device ms, operations and idle share at
+    SERVE_PROFILED's sizes); then ``POST /reload`` twice over HTTP (moved
+    parameters, then the first ones again), each one graph replay, the HTTP
+    answer equal to the direct one and the refresh held against an eager one.
+    The launches of the request replays are counted apart (``launches``)."""
+    out = {"refresh": _kinds_profile(rec, rec.refresh, 5)}
+    rec.refresh()
+    out["refresh_vs_eager"] = held_refresh(rec, name, label)
+    log(f"{label} refresh: {_kinds_line(out['refresh'])}")
+    replay_launches = replay_wide = 0
+    requests = {}
+    for k in ks:
+        for b in SERVE_TILES:
+            users = np.random.default_rng(seed + b).choice(rec.n_users, size=b, replace=False)
+            with eager_serving(rec):
+                want = rec.recommend(users, k=k)
+            while rec.requests.get((request_tile(b), k)) is None or rec.requests[(request_tile(b), k)].graph is None:
+                rec.recommend(users, k=k)  # the shape's eager warm-up, then its capture
+            req = rec.requests[(request_tile(b), k)]
+            before = (st.launches, st.wide_launches)
+            got = rec.recommend(users, k=k)
+            replay_launches += st.launches - before[0]
+            replay_wide += st.wide_launches - before[1]
+            assert (st.launches - before[0], st.wide_launches - before[1]) == (1, int(k > st.MAX_K)), \
+                (label, b, k, req.launches)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+            before = (st.launches, st.wide_launches)
+            syncs = host_syncs(lambda: rec.recommend(users, k=k))
+            replay_launches += st.launches - before[0]
+            replay_wide += st.wide_launches - before[1]
+            assert len(syncs) == 1, f"{label} B={b} k={k}: {len(syncs)} host syncs in a replayed request: {syncs}"
+            before = (st.launches, st.wide_launches, req.stats["replays"])
+            kinds = _kinds_profile(rec, lambda: rec.recommend(users, k=k), 10, profiled=b in SERVE_PROFILED)
+            replays = req.stats["replays"] - before[2]
+            replay_launches += replays
+            replay_wide += replays * int(k > st.MAX_K)
+            requests[f"B{b}_k{k}"] = {"tile": request_tile(b), "bit_equal": True, "host_syncs_replay": syncs,
+                                      "pool_mib": req.stats["pool_mib"], "capture_ms": req.stats["capture_ms"],
+                                      "instantiate_ms": req.stats["instantiate_ms"], **kinds}
+            log(f"{label} request B={b} k={k} (tile {request_tile(b)}): a replay bit-equal to the eager answer, "
+                f"{len(syncs)} host sync ({syncs[0][:40]}...), pool {req.stats['pool_mib']:.1f} MiB; "
+                + _kinds_line(kinds))
+    out["requests"] = requests
+    # POST /reload twice: moved parameters, then the first ones again
+    first = flatten_params(params_to_numpy(rec.model))
+    rng = np.random.default_rng(seed)
+    moved = {k: (v + 0.01 * rng.standard_normal(v.shape)).astype(v.dtype) for k, v in first.items()}
+    users = np.random.default_rng(seed + 64).choice(rec.n_users, size=64, replace=False)
+    before_ids, _ = rec.recommend(users, k=ks[0])
+    reloads = []
+    srv = make_server(rec, host="127.0.0.1", port=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        with tempfile.TemporaryDirectory() as tmp:
+            for i, params in enumerate((moved, first)):
+                path = os.path.join(tmp, f"reload_{i}.npz")
+                save_checkpoint(path, params, rec.config)
+                stats = dict(rec.refresh_stats)
+                assert _post(base, "/reload", {"ckpt": path}) == {"ok": True}
+                assert rec.refresh_stats["captures"] == stats["captures"], f"{label}: /reload captured anew"
+                assert rec.refresh_stats["replays"] == stats["replays"] + 1, f"{label}: /reload not one replay"
+                before = st.launches
+                got = _post(base, "/recommend", {"users": users.tolist(), "k": ks[0]})
+                replay_launches += st.launches - before
+                ids, _ = rec.recommend(users, k=ks[0])
+                replay_launches += 1
+                assert [r["items"] for r in got] == ids.tolist(), f"{label}: the HTTP answer after /reload"
+                if i == 0:
+                    assert not np.array_equal(ids, before_ids), f"{label}: /reload moved nothing"
+                reloads.append(held_refresh(rec, name, f"{label} /reload {i + 1}"))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    assert not th.is_alive()
+    out["reloads"] = reloads
+    out["launches"] = {"masked_topk": replay_launches, "masked_topk_wide": replay_wide}
+    return out
+
+
 def train_config() -> Config:
     return Config(
         model="lgn", latent_dim=D, n_layers=2, compute_dtype="bfloat16",
@@ -1801,7 +2023,9 @@ def serve_textsage(ds, fs, dev, host_s) -> dict:
         u = torch.from_numpy(np.random.default_rng(SEED + 20 + b).choice(ds.n_users, b, replace=False)).to(dev)
         tiles.append(topk_numbers(U, I, u, TS_K, mask, pos_csr, dev,
                                   request=(lambda u=u: rec.recommend(u.cpu().numpy(), k=TS_K))))
+    graphs = serving_numbers(rec, "textsage", "serve-textsage", (TS_K,), SEED + 41)
     return {
+        "graphs": graphs,
         **host_s,
         "first_refresh_s": first_refresh_s,
         "refresh_ms": refresh_ms,
@@ -2093,6 +2317,62 @@ def _timed_epoch(trainer) -> tuple:
     t0 = time.perf_counter()
     mean = trainer.train_one_epoch()  # ends in the epoch's one host sync
     return time.perf_counter() - t0, mean, trainer.epoch_losses.cpu().numpy()
+
+
+# phases 6 and 10: epochs with --pipeline_dispatch and without, in turns
+PIPELINE_TURNS = ("pipelined", "sync", "sync", "pipelined")
+
+
+def pipeline_numbers(trainer, label, epochs=2, turns=PIPELINE_TURNS) -> dict:
+    """Phases 6 and 10: the trainer's epochs with ``pipeline_dispatch`` and
+    without it, in ``turns`` (PIPELINE_TURNS, the same trainer with its
+    ``pipeline`` switched; a turn is a lead-in epoch and ``epochs`` more,
+    back to back with nothing between them): host ms an epoch (from one
+    ``train_one_epoch`` return to the next: the steps, the draw, the loss
+    read, the next epoch's start), and the card's time between epochs:
+    from the end of an epoch's last step to the start of the next epoch's
+    first (CUDA events recorded around ``train_epoch``'s steps), which holds
+    the sampler's device time (phase 8's ``sampler_profile``) and the card's
+    idle wait for the host."""
+    host = {"pipelined": [], "sync": []}
+    gap = {"pipelined": [], "sync": []}
+    steps = trainer.train_epoch
+    marks = []
+
+    def marked(batches, draws=None):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = steps(batches, draws)
+        b.record()
+        marks.append((a, b))
+        return out
+
+    trainer.train_epoch = marked
+    try:
+        for kind in turns:
+            trainer.pipeline = kind == "pipelined"
+            trainer._prefetch = None  # the lead-in draws its own triplets
+            marks.clear()
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            for _ in range(epochs + 1):
+                trainer.train_one_epoch()
+                t.append(time.perf_counter())
+            torch.cuda.synchronize()
+            host[kind] += [1e3 * (b - a) for a, b in zip(t[1:], t[2:])]
+            gap[kind] += [marks[i][1].elapsed_time(marks[i + 1][0]) for i in range(len(marks) - 1)]
+    finally:
+        del trainer.train_epoch
+        trainer.pipeline = True
+    out = {kind: {"epoch_host_ms": float(np.median(host[kind])), "epoch_host_ms_all": host[kind],
+                  "between_epochs_ms": float(np.median(gap[kind])), "between_epochs_ms_all": gap[kind]}
+           for kind in ("pipelined", "sync")}
+    log(f"{label} --pipeline_dispatch: " + "; ".join(
+        f"{kind} epochs {out[kind]['epoch_host_ms']:.2f} ms on the host "
+        f"({', '.join(f'{x:.2f}' for x in host[kind])}), the card {out[kind]['between_epochs_ms']:.3f} ms "
+        f"between an epoch's last step and the next's first ({', '.join(f'{x:.3f}' for x in gap[kind])})"
+        for kind in ("pipelined", "sync")))
+    return out
 
 
 def _falls(losses) -> tuple:
@@ -2774,6 +3054,7 @@ def attention_20k(ds, fs, dev, textsage_r1) -> dict:
         f"{(serve['refresh_profile'] or {}).get('device_ms')} ms on the device; masked_topk B=512 k={ATT_K}: "
         f"call {k200['ms']:.4f} ms, device {(k200['kernel_profile'] or {}).get('device_ms')} ms, library "
         f"{k200['library_ms']:.4f} ms, plain {k200['plain_ms']:.4f} ms, bound {k200['bound_ms']:.5f} ms")
+    serve["graphs"] = serving_numbers(rec, "tgrec", "serve-tgrec-20k", (ATT_K,), SEED + 42)
     numbers = {label: cadence_numbers(tr, f"attention-20k {label}", profile_steps=ATT_PROFILE_STEPS)
                for label, tr in trainers.items()}
     del trainers, tg
@@ -2929,6 +3210,7 @@ def edge_20k(ds, fs, dev, textsage_r1, tgrec) -> dict:
     serve["refresh_profile"] = device_profile(lambda: rec.refresh(None), n=5)
     log(f"serve-rsage-20k: refresh {serve['refresh_ms']:.3f} ms on the host, "
         f"{(serve['refresh_profile'] or {}).get('device_ms')} ms on the device")
+    serve["refresh_vs_eager"] = held_refresh(rec, "rsage", "serve-rsage-20k")
     numbers = {label: cadence_numbers(tr, f"edge-20k {label}", profile_steps=ATT_PROFILE_STEPS)
                for label, tr in trainers.items()}
     rel_ids = [ids for n, _, ids in step_gathers(rs, batches[0], draws[0]) if n == rel_fs.n_relations]
@@ -3014,6 +3296,7 @@ def sequence_attr_20k(ds, fs, dev, textsage_r1) -> dict:
         serve[name]["refresh_profile"] = device_profile(lambda: rec.refresh(None), n=5)
         log(f"serve-{name}-20k: refresh {serve[name]['refresh_ms']:.3f} ms on the host, "
             f"{(serve[name]['refresh_profile'] or {}).get('device_ms')} ms on the device")
+        serve[name]["refresh_vs_eager"] = held_refresh(rec, name, f"serve-{name}-20k")
     numbers = {label: cadence_numbers(tr, f"sequence-attr-20k {label}", profile_steps=ATT_PROFILE_STEPS)
                for label, tr in trainers.items()}
     # the ids of one real step's gathers: sasrec's all, asage's but its tree
@@ -3088,6 +3371,7 @@ def registry_20k(ds, fs, dev, scatter_held, topk_held) -> dict:
         serve[label]["refresh_profile"] = device_profile(lambda: rec.refresh(None), n=5)
         log(f"serve-registry-20k {label}: refresh {serve[label]['refresh_ms']:.3f} ms on the host, "
             f"{(serve[label]['refresh_profile'] or {}).get('device_ms')} ms on the device")
+        serve[label]["refresh_vs_eager"] = held_refresh(rec, rec.config.model, f"serve-registry-20k {label}")
     numbers = {label: cadence_numbers(tr, f"registry-20k {label}", profile_steps=ATT_PROFILE_STEPS)
                for label, tr in trainers.items()}
     first_id = REG_ID_KEYS[0]
@@ -3113,7 +3397,7 @@ GRAPH_KEYS = ((("lgn", {}), ("textsage", {})) + tuple(k for k in REG_KEYS if k[0
 # the cached cadences, captured since slice 19: textsage at R = 8, R = 0 and
 # T = 8, dask (its numeric matrices on disk, R = 0), and at R = 8 one key of
 # each other family whose loss takes the cached tables (tgrec, rsage add,
-# asage); each GRAPH_STEPS steps an epoch, two whole blocks
+# asage); each GRAPH_CADENCE_STEPS steps an epoch, two whole blocks
 GRAPH_CADENCES = (("textsage", {"relin_every": CADENCE_BLOCK}), ("textsage", {"relin_every": 0}),
                   ("textsage", {"feature_update_every": CADENCE_BLOCK}), ("dask", {}),
                   ("tgrec", {"relin_every": CADENCE_BLOCK}),
@@ -3123,8 +3407,12 @@ GRAPH_CADENCES = (("textsage", {"relin_every": CADENCE_BLOCK}), ("textsage", {"r
 # one of each family
 GRAPH_TIMED = ("lgn", "textsage", "mf", "radj", "pinsage", "nssage", "tgrec", "rsage add", "sasrec", "asage")
 # the depth cut: an epoch of every key after lgn and textsage (whole: 28 and 84
-# steps) takes its first GRAPH_STEPS steps; its checks are the same
-GRAPH_STEPS = 16
+# steps) takes its first GRAPH_STEPS steps under the fresh cadence (16 until
+# the serving graphs and pipelined epochs came in; 8 keeps the script's
+# time: 3 warm-up steps, the capture and 4 replays in epoch 1), and
+# GRAPH_CADENCE_STEPS under the cached cadences (a T = 8 super-step warms
+# up whole before the capture); its checks are the same
+GRAPH_STEPS, GRAPH_CADENCE_STEPS = 8, 16
 # phase 21's epoch rule a key, (loss rtol, parameters within that many lr,
 # the share of them allowed outside 1e-6 + 1e-5 |p|), each set from the
 # readings on the H100 of four whole runs (replays against eager, the eager
@@ -3248,6 +3536,49 @@ def _two_steps(trainer, snap: dict, replays: bool) -> tuple:
         with eager_parts(trainer):
             losses = trainer.train_epoch(batches)
     return losses.cpu().numpy(), whole_params(trainer)
+
+
+# phase 21's configurations held pipelined (--pipeline_dispatch) against synchronous
+GRAPH_PIPELINED = ("lgn", "textsage")
+
+
+def pipeline_vs_sync(tr, snap: dict, label: str) -> dict:
+    """From ``snap`` a pipelined epoch by replays, which draws the next
+    epoch's triplets ahead; from the state after it (``start``) the next
+    epoch twice: pipelined, taking the prefetch (the generator set past its
+    draw, which the replays' own draws, dropout and the trees, then read),
+    and synchronous, drawing its triplets itself. The triplets bit-equal;
+    the two epochs' losses, parameters and generator states under the key's
+    GRAPH_EPOCH_RULE (``_epoch_rule``: the replays' atomic adds sum in no
+    fixed order)."""
+    _reset(tr, snap)
+    tr._prefetch = None
+    tr.pipeline = True
+    _timed_epoch(tr)
+    b = tr.prefetched
+    ahead = [x.clone() for x in (b.user, b.pos, b.neg, b.valid)]
+    start = _snapshot(tr)
+    _timed_epoch(tr)
+    got = (tr.epoch_losses.cpu().numpy(), whole_params(tr), tr.generator.get_state())
+    _reset(tr, start)
+    tr._prefetch = None
+    tr.pipeline = False
+    state = tr.generator.get_state()
+    b = tr.sample_epoch()
+    tr.generator.set_state(state)
+    drawn = [b.user, b.pos, b.neg, b.valid]
+    _timed_epoch(tr)
+    want = (tr.epoch_losses.cpu().numpy(), whole_params(tr), tr.generator.get_state())
+    tr.pipeline = True
+    equal = all(torch.equal(x, y) for x, y in zip(ahead, drawn))
+    assert equal, f"{label}: the prefetched triplets differ from the synchronous draw"
+    rule = _epoch_rule(got, want, tr.config.lr, label)
+    log(f"graph-20k {label} --pipeline_dispatch: an epoch taking its prefetch against the synchronous epoch "
+        f"from the same state: the {ahead[0].numel()} triplets drawn ahead bit-equal, generator state equal, "
+        f"first loss within {rule['first_loss_rel']:.3g} relative, losses {rule['loss_max_rel']:.3g}, "
+        f"parameters within 1e-6 + 1e-5 |p| but {rule['off']} of {rule['total']} (max abs diff "
+        f"{rule['max_abs_diff']:.3g})")
+    return {"triplets_equal": equal, "triplets": int(ahead[0].numel()), **rule}
 
 
 def step_kernels(fn, n: int) -> dict:
@@ -3387,7 +3718,8 @@ def graph_key(ds, fs, name: str, over: dict, dev, tmp, ooc=None) -> tuple:
     eager one's; for GRAPH_TIMED's keys replay and eager epochs in turns.
     Returns (facts, the scatter launches its steps made)."""
     label = key_label(name, over)
-    cut = None if label in ("lgn", "textsage") else GRAPH_STEPS
+    cut = (None if label in ("lgn", "textsage")
+           else GRAPH_CADENCE_STEPS if (name, over) in GRAPH_CADENCES else GRAPH_STEPS)
     timed = label in GRAPH_TIMED
     reserved = torch.cuda.memory_reserved(dev)
     tr = graph_trainer(ds, fs, name, dev, cut, ooc, **over)
@@ -3443,6 +3775,8 @@ def graph_key(ds, fs, name: str, over: dict, dev, tmp, ooc=None) -> tuple:
     np.testing.assert_allclose(rl[1], el[1], rtol=1e-4)
     _, two_lrs, two_share = GRAPH_TWO_STEP_RULE[label]
     two_steps = {"losses": [rl.tolist(), el.tolist()], **_params_rule(rp, ep, two_lrs * lr, two_share)}
+    pipelined = label in GRAPH_PIPELINED
+    vs_sync = pipeline_vs_sync(tr, snap, label) if pipelined else None
     # (d) epoch 1's checkpoint restored into a new trainer, epoch 2 by its
     # own capture and replays
     tr2 = graph_trainer(ds, fs, name, dev, cut, ooc, **over)
@@ -3473,8 +3807,9 @@ def graph_key(ds, fs, name: str, over: dict, dev, tmp, ooc=None) -> tuple:
     assert prof["replays"]["scatter_add_rows"] == prof["eager"]["scatter_add_rows"] == per_step, (label, prof)
     assert prof["replays"]["library_scatter"] == prof["eager"]["library_scatter"] == 0, (label, prof)
     # the 2 steps of (0), epochs 1 and 2, 2 eager epochs, 2 x 2 steps, the
-    # restored epoch, (f)'s steps, the timed epochs, 2 profiles
-    steps = (2 + 5 * n + 4 + GRAPH_EVAL_STEPS + 4 * n * timed + 2 * (prof_n + 1)) * per_step
+    # restored epoch, (f)'s steps, the timed epochs, 3 epochs of
+    # pipeline_vs_sync, 2 profiles
+    steps = (2 + 5 * n + 4 + GRAPH_EVAL_STEPS + 4 * n * timed + 3 * n * pipelined + 2 * (prof_n + 1)) * per_step
     numbers = {}
     for kind in ("replays", "eager") if timed else ():
         s = float(np.median(epochs[kind]))
@@ -3504,7 +3839,8 @@ def graph_key(ds, fs, name: str, over: dict, dev, tmp, ooc=None) -> tuple:
     facts = {"steps_per_epoch": n, "B": tr.config.bpr_batch_size, "d": tr.config.latent_dim,
              "first_epoch_s": first_s, "capture": capture, "host_syncs_epoch_2": syncs, "rule": GRAPH_EPOCH_RULE[label],
              "vs_eager": vs_eager, "eager_spread": eager_spread, "two_steps": two_steps,
-             "vs_restored": vs_restored, "profiles": prof, "numbers": numbers, "evaluations": evaluations}
+             "vs_restored": vs_restored, "profiles": prof, "numbers": numbers, "evaluations": evaluations,
+             "pipelined_vs_sync": vs_sync}
     del tr, graph
     torch.cuda.empty_cache()
     facts["reserved_mib_after_release"] = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
@@ -4759,6 +5095,7 @@ def main() -> int:
     max_err = max(max_err, mesh_topk_cases(dev))
     sc_max_err, sc_held = scatter_cases(dev)
 
+    log(f"phase 4 starts at {time.perf_counter() - t_start:.0f} s")
     # 4. the serve path at full width
     t0 = time.perf_counter()
     ds = synthetic_dataset(n_users=50_000, m_items=20_000, avg_degree=30, seed=SEED)
@@ -4847,7 +5184,10 @@ def main() -> int:
                                   request=lambda b=b, k=k: rec.recommend(request_users[b], k=k)))
     head = next(t for t in tiles if t["B"] == 512 and t["k"] == 20)
     eval_tile = next(t for t in tiles if t["B"] == EVAL_TILE)
+    # the refresh and the request programs: replays against eager calls
+    serve_graphs = serving_numbers(rec, "lgn", "serve", (10, 20), SEED + 40)
 
+    log(f"phase 6 starts at {time.perf_counter() - t_start:.0f} s")
     # 6. the training path at full width
     trainer, train = train_path(ds, dev)
 
@@ -4878,12 +5218,15 @@ def main() -> int:
         train["idle_share_unprofiled"] = 1.0 - train["step_profile"]["device_ms"] / train["step_ms"]
     sc_shapes = scatter_numbers(trainer, dev)
     sc_head = sc_shapes[0]
+    train["pipeline"] = pipeline_numbers(trainer, "train")
     del trainer, rec
 
+    log(f"phase 9 starts at {time.perf_counter() - t_start:.0f} s")
     # 9. serve-textsage-100k
     ts_ds, ts_fs, ts_host = textsage_data()
     ts_serve = serve_textsage(ts_ds, ts_fs, dev, ts_host)
 
+    log(f"phase 10 starts at {time.perf_counter() - t_start:.0f} s")
     # 10. train-textsage-100k
     ts_trainer, ts_train = train_textsage(ts_ds, ts_fs, dev)
     ts_train["evaluation"] = evaluation_numbers(ts_trainer, "train-textsage")
@@ -4916,7 +5259,9 @@ def main() -> int:
         [(TS_USERS, user_ids), (TS_ITEMS, item_ids), (TS_SCATTER[2][0], cat_ids)], dev, TS_D,
         rows_seed=SEED + 7)
     ts_head = next(t for t in ts_serve["tiles"] if t["B"] == 512)
+    ts_train["pipeline"] = pipeline_numbers(ts_trainer, "train-textsage", epochs=1, turns=("pipelined", "sync"))
 
+    log(f"phase 12 starts at {time.perf_counter() - t_start:.0f} s")
     # 12. train-textsage-20k: the cadences on the anchor20k shape, and their
     # numbers beside R = 1, and the 100k flagship at R = 8 beside phase 10's R = 1
     with tempfile.TemporaryDirectory() as tmp:
@@ -4951,23 +5296,28 @@ def main() -> int:
     }
     del tr100
 
+    log(f"phase 13 starts at {time.perf_counter() - t_start:.0f} s")
     # 13. attention-20k: tgrec, tgrec2, gnn --conv gat / transformer on the
     # anchor20k graph, served and trained
     att = attention_20k(a20_ds, a20_fs, dev, cadences_20k["R1"])
     att_k200 = att["serve"]["topk"][f"k{ATT_K}"]
 
+    log(f"phase 14 starts at {time.perf_counter() - t_start:.0f} s")
     # 14. edge-20k: rsage (add, sum, prod), tgsrec and sasgnn on the anchor20k
     # graph (rsage over its relational message graph), served and trained
     edge = edge_20k(a20_ds, a20_fs, dev, cadences_20k["R1"], att["numbers"]["tgrec"])
 
+    log(f"phase 15 starts at {time.perf_counter() - t_start:.0f} s")
     # 15. sequence-attr-20k: sasrec and asage on the anchor20k graph, served
     # and trained
     seq = sequence_attr_20k(a20_ds, a20_fs, dev, cadences_20k["R1"])
 
+    log(f"phase 20 starts at {time.perf_counter() - t_start:.0f} s")
     # 20. registry-20k: the registry keys that no other phase drives, served
     # and trained on the anchor20k graph, each launch at a shape phase 3 held
     reg = registry_20k(a20_ds, a20_fs, dev, sc_held, topk_held)
 
+    log(f"phase 21 starts at {time.perf_counter() - t_start:.0f} s")
     # 21. graph-20k: every captured configuration by replays of its step,
     # against the eager loop, on the anchor20k graph (rsage on phase 14's
     # relational graph, tgsrec and sasgnn with its purchase times)
@@ -4976,10 +5326,12 @@ def main() -> int:
         graphed = graph_20k(lambda name: edge_inputs(name) if name in ("rsage", "tgsrec", "sasgnn")
                             else (a20_ds, a20_fs), dev, tmp)
 
+    log(f"phase 16 starts at {time.perf_counter() - t_start:.0f} s")
     # 16. production-20k: phase 12's checkpoint through tools evaluate / infer
     # / recommend, production inference over the inference edge set
     prod = production_20k(a20_ds, a20_fs, dev, prod_ckpt, prod_dir.name, smi)
 
+    log(f"phase 17 starts at {time.perf_counter() - t_start:.0f} s")
     # 17. rank-20k: the two-stage ranker on the anchor20k graph from phase
     # 16's data directory; the tools from phase 12's checkpoint
     rank = rank_20k(a20_ds, a20_fs, dev, prod_dir.name, prod_ckpt, smi)
@@ -4988,10 +5340,12 @@ def main() -> int:
     prod_launches = prod["launches"]["evaluate"] + prod["launches"]["infer_k20"] + prod["launches"][
         "infer_k200"] + prod["launches"]["recommend"]
 
+    log(f"phase 18 starts at {time.perf_counter() - t_start:.0f} s")
     # 18. preprocess-20k: raw tables -> tools preprocess -> the flagship
     # trained and evaluated on the artifact directory
     pre = preprocess_20k(dev, smi, (ds.train_user, ds.train_item))
 
+    log(f"phase 19 starts at {time.perf_counter() - t_start:.0f} s")
     # 19. mesh-20k: the DDP flagship and lgn on a (2, 2) mesh of 4 processes on
     # the card, from phase 16's data directory, against one process
     with tempfile.TemporaryDirectory() as mesh_root:
@@ -5003,16 +5357,20 @@ def main() -> int:
     # masked_topk calls on the main paths; those above k = 128 took the radix
     # select (attention-20k's three requests at k = 200, production-20k's
     # k = 200 batch), every other one csrc/streaming_topk.cu
+    # the request replays of phases 4-5, 9 and 13 (serving_numbers), counted apart
+    replays = [serve_graphs["launches"], ts_serve["graphs"]["launches"], att["serve"]["graphs"]["launches"]]
+    serve_replays = sum(x["masked_topk"] for x in replays)
     wide_by_path = {"attention_20k": att["launches"]["masked_topk_wide"],
                     "production_20k": prod["launches"]["masked_topk_wide"],
-                    "graph_20k": graphed["launches"]["masked_topk_wide"]}
+                    "graph_20k": graphed["launches"]["masked_topk_wide"],
+                    "serve_replays": sum(x["masked_topk_wide"] for x in replays)}
     calls = (serve_launches + train["launches"]["masked_topk"] + ts_serve_launches
              + ts_train_launches["masked_topk"] + a20["launches"]["masked_topk"]
              + att["launches"]["masked_topk"] + edge["launches"]["masked_topk"]
              + seq["launches"]["masked_topk"] + prod_launches + rank_launches["masked_topk"]
              + pre["launches"]["masked_topk"] + mesh["launches"]["masked_topk"]
              + reg["launches"]["masked_topk"] + train["evaluation"]["launches"]
-             + ts_train["evaluation"]["launches"] + graphed["launches"]["masked_topk"])
+             + ts_train["evaluation"]["launches"] + graphed["launches"]["masked_topk"] + serve_replays)
     att_k200_wide = att_k200["kernel_profile"] or {}
     kernels = [{
         "name": "masked_topk",
@@ -5034,7 +5392,8 @@ def main() -> int:
                              "registry_20k": reg["launches"]["masked_topk"],
                              "train_evaluations": train["evaluation"]["launches"],
                              "train_textsage_evaluations": ts_train["evaluation"]["launches"],
-                             "graph_20k": graphed["launches"]["masked_topk"]},
+                             "graph_20k": graphed["launches"]["masked_topk"],
+                             "serve_replays": serve_replays},
         "launches_per_call": f"1 (k <= {st.MAX_K}; above it the radix select, masked_topk_wide)",
         "mesh_shapes": {"evaluation": [dict(zip(("B_rank", "M_block", "d", "k"), x)) for x in MESH_TOPK_SHAPES],
                         "launched": {kind: mesh["launch_shapes"][kind]["masked_topk"] for kind in MESH_CASES},
@@ -5145,7 +5504,7 @@ def main() -> int:
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
-        "serve": {"propagate_ms": propagate_ms, "first_refresh_s": first_refresh_s,
+        "serve": {"propagate_ms": propagate_ms, "first_refresh_s": first_refresh_s, "graphs": serve_graphs,
                   "propagate_profile": propagate_profile,
                   "request_ms": {f"B{t['B']}_k{t['k']}": t["request_ms"] for t in tiles}}
     }))

@@ -17,9 +17,11 @@ categorical columns), and ``dask``, whose numeric matrices stay on disk), on
 the reference's feature artifacts under
 ``--data_path`` (``data/features.py::load_reference_features``), with
 ``--ddp_recipe``, ``--sample_pow``, ``--inference sample`` and
-``--feature_update_every``. ``--a_fold``, ``--compile_cache`` and
-``--pipeline_dispatch`` concern the TPU layout and XLA: each prints a notice
-and is ignored. ``--wandb NAME`` logs to a wandb run and ``--tensorboard 1``
+``--feature_update_every``. ``--pipeline_dispatch`` (on by default, as in
+the JAX package; ``--no-pipeline_dispatch`` turns it off) draws each next
+epoch's triplets before the epoch's loss is read (``train/trainer.py``).
+``--a_fold`` and ``--compile_cache`` concern the TPU layout and XLA: each
+prints a notice and is ignored. ``--wandb NAME`` logs to a wandb run and ``--tensorboard 1``
 to ``{path}/{model}/tb``, each falling back to the JSONL file and stdout when
 its package is missing (``obs/log.py``); ``--ckpt_backend orbax`` raises.
 
@@ -215,8 +217,6 @@ _IGNORED = {
     "a_fold": "the port's SpMM needs no folding of the adjacency",
     "compile_cache": "the port compiles no XLA program; the CUDA graph of a captured step is made in "
                      "the run and kept by no cache",
-    "pipeline_dispatch": "the port draws an epoch's triplets before its steps, not during the last epoch's "
-                         "(a captured step is one CUDA-graph replay on the card)",
 }
 
 

@@ -2,11 +2,12 @@
 the eager warm-up on the capture stream, and the capture's memory pool
 measured.
 
-A training step (``train/graphed.py``) and an evaluation
-(``eval/graphed.py``) are captured alike: without a mesh (whose gloo
-collectives a capture cannot record), on a CUDA device. Each graph holds
-``stats``: warm-up, capture and instantiate host ms of its last capture, its
-pool's MiB, and the captures and replays so far.
+A training step (``train/graphed.py``), an evaluation
+(``eval/graphed.py``) and the serving tier's refresh and request tiles
+(``serve.py``) are captured alike: without a mesh (whose gloo collectives a
+capture cannot record), on a CUDA device. Each graph holds ``stats``:
+warm-up, capture and instantiate host ms of its last capture, its pool's
+MiB, and the captures and replays so far.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ __all__ = ["captured", "new_stats", "on_capture_stream", "pool_measured"]
 
 
 def captured(mesh, device) -> bool:
-    """Whether the steps and evaluations of this configuration are replayed
-    as CUDA graphs: without a mesh, on a CUDA device."""
+    """Whether the steps, evaluations and serving programs of this
+    configuration are replayed as CUDA graphs: without a mesh, on a CUDA
+    device."""
     return mesh is None and torch.device(device).type == "cuda"
 
 

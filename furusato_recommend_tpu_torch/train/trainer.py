@@ -65,8 +65,24 @@ linearization, and under T > 1 the super-step's end) is captured once as a
 CUDA graph and replayed (``train/graphed.py``), with the fused Adams. So is
 its one-program evaluation (``eval/graphed.py``): from the second ``test``
 on, a replay. The mesh, the CPU and steps given presampled ``draws`` run
-eagerly. The rest of the JAX package's XLA machinery (the compile cache,
-``pipeline_dispatch``'s next-epoch sampling) has no counterpart here.
+eagerly. The JAX package's compile cache has no counterpart here.
+
+``pipeline_dispatch`` (on by default; off under ``dask``, as in the JAX
+trainer) draws the next epoch's triplets once an epoch's steps are enqueued
+and before its loss is read, the epoch's one host sync. On the card the draw
+runs on a stream of its own, so the loss read waits for the steps alone (as
+JAX's ``float(loss)`` waits for its buffer, not for the sampling program
+dispatched after it): the card samples while the host reads the loss and
+starts the next epoch, whose steps wait for the draw. ``fit`` draws none
+after its last epoch. The draw is made from a copy
+of the generator, so the trainer's generator stands where a synchronous
+trainer's stands at every point (``save`` writes it, a direct
+``sample_epoch`` or ``train_epoch`` draws from it); the next
+``train_one_epoch`` takes the drawn triplets, and moves the generator past
+their draw, only while the generator stands where they were drawn from.
+Every path thus draws the stream a synchronous trainer draws. ``init_state``,
+``restore``, ``sample_epoch`` and ``train_epoch`` drop a prefetch; under a
+mesh every rank draws the same, as its epochs do.
 """
 
 from __future__ import annotations
@@ -285,6 +301,13 @@ class Trainer:
         #: the checkpoint so a resumed run draws what an uninterrupted one would
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
+        #: --pipeline_dispatch (module docstring)
+        self.pipeline = bool(config.pipeline_dispatch) and not self.ooc
+        #: the prefetch: (the generator's state before the draw, after it,
+        #: samples_per_epoch, the triplets), or None
+        self._prefetch = None
+        self._draw_generator: Optional[torch.Generator] = None  # the copy it draws from
+        self._draw_stream: Optional[torch.cuda.Stream] = None  # the stream it draws on (CUDA)
         if self.captured:
             self.step_graph = StepGraph(self)
 
@@ -333,6 +356,7 @@ class Trainer:
             self.shards = shard_params(self.model, self.mesh)
         self._new_optimizers()
         self.generator.manual_seed(seed)
+        self._prefetch = None
         self.step = 0
 
     def train_step(self, batch: BPRBatch, draws: Optional[dict] = None) -> torch.Tensor:
@@ -422,7 +446,9 @@ class Trainer:
         ``trees``, ASAGE's attribute trees as ``attr_trees``), else drawn from
         the generator. A captured trainer (``step_graph``) replays its
         cadence's graphs unless ``draws`` are given. Returns the per-step
-        losses, on the device."""
+        losses, on the device. Drops an outstanding prefetch (the steps
+        draw from the generator)."""
+        self._prefetch = None
         losses = self._train_epoch(batches, draws)
         self._average([losses])  # the ranks' shares: the whole batches' losses
         return losses
@@ -481,21 +507,79 @@ class Trainer:
             getattr(self.model, f"{side}_numeric_w").sub_(scale * self._own(f"{side}_numeric_w", gw))
             getattr(self.model, f"{side}_numeric_b").sub_(scale * gb)
 
-    def sample_epoch(self):
-        """The epoch's triplets, drawn on the device."""
+    def _draw(self, generator: torch.Generator) -> BPRBatch:
         return sample_bpr(
-            self.generator, self.graph, self.samples_per_epoch, self.config.neg_candidates,
+            generator, self.graph, self.samples_per_epoch, self.config.neg_candidates,
             edge_alias=self.edge_alias, neg_alias=self.neg_alias,
         )
 
-    def train_one_epoch(self) -> float:
-        """One epoch; returns its mean loss (the epoch's one host sync)."""
+    def sample_epoch(self) -> BPRBatch:
+        """The epoch's triplets, drawn on the device from the trainer's
+        generator (an outstanding prefetch is dropped)."""
+        self._prefetch = None
+        return self._draw(self.generator)
+
+    @property
+    def prefetched(self) -> Optional[BPRBatch]:
+        """The next epoch's triplets, drawn ahead (``pipeline_dispatch``), or
+        None; the current stream is ordered after their draw."""
+        if self._prefetch is None:
+            return None
+        return self._after_draw(self._prefetch[3])
+
+    def _after_draw(self, batches: BPRBatch) -> BPRBatch:
+        """Order the current stream after the draw of ``batches`` (on the
+        card), and keep their memory from the draw stream's reuse until the
+        current stream is done with them."""
+        if self._draw_stream is not None:
+            here = torch.cuda.current_stream(self.device)
+            here.wait_stream(self._draw_stream)
+            for t in (batches.user, batches.pos, batches.neg, batches.valid):
+                t.record_stream(here)
+        return batches
+
+    def _prefetch_next(self) -> None:
+        """Draw the next epoch's triplets from a copy of the generator, which
+        itself stays where it is; on the card on the draw stream."""
+        if self._draw_generator is None:
+            self._draw_generator = torch.Generator(device=self.device)
+            if self.device.type == "cuda":
+                self._draw_stream = torch.cuda.Stream(self.device)
+        before = self.generator.get_state()
+        self._draw_generator.set_state(before)
+        with torch.cuda.stream(self._draw_stream) if self._draw_stream is not None else contextlib.nullcontext():
+            batches = self._draw(self._draw_generator)
+        self._prefetch = (before, self._draw_generator.get_state(), self.samples_per_epoch, batches)
+
+    def _take_prefetch(self) -> Optional[BPRBatch]:
+        """The prefetched triplets, the generator set past their draw, if the
+        generator still stands where they were drawn from (and the epoch's
+        size is theirs); else None. The prefetch is gone either way."""
+        prefetch, self._prefetch = self._prefetch, None
+        if prefetch is None:
+            return None
+        before, after, samples, batches = prefetch
+        if samples != self.samples_per_epoch or not torch.equal(self.generator.get_state(), before):
+            return None
+        self.generator.set_state(after)
+        return self._after_draw(batches)
+
+    def train_one_epoch(self, prefetch_next: bool = True) -> float:
+        """One epoch; returns its mean loss (the epoch's one host sync). Its
+        triplets are the prefetched ones when there are (``pipeline_dispatch``,
+        module docstring), else drawn now; under ``pipeline_dispatch`` and
+        ``prefetch_next`` the next epoch's are drawn before the loss is read."""
         bs = self.config.bpr_batch_size
-        batches = self.sample_epoch()
+        batches = self._take_prefetch()
+        if batches is None:
+            batches = self._draw(self.generator)
         losses = self.train_epoch([batches.slice(b * bs, (b + 1) * bs) for b in range(self.num_batches)])
+        mean = losses.mean()
+        if self.pipeline and prefetch_next:
+            self._prefetch_next()
         self.step += 1
         self.epoch_losses = losses
-        return float(losses.mean())
+        return float(mean)
 
     def test(self) -> Dict[str, float]:
         """One evaluation of the current parameters (``eval/evaluate.py``;
@@ -521,7 +605,7 @@ class Trainer:
         self.logger.log(results, step=self.step)
         while self.step < epochs:
             t0 = time.perf_counter()
-            loss = self.train_one_epoch()
+            loss = self.train_one_epoch(prefetch_next=self.step + 1 < epochs)
             dt = time.perf_counter() - t0
             self.logger.log(
                 {
@@ -551,7 +635,9 @@ class Trainer:
 
     def save(self, path=None) -> None:
         """Write parameters, each Adam's moments and step count, the
-        sampler's generator state, the epoch count and the best recall.
+        sampler's generator state (with a prefetch outstanding, the state
+        before its draw: the generator's own), the epoch count and the best
+        recall.
         Under a mesh every rank gathers the row-sharded tables and moments
         (in the same order), and the primary writes them whole."""
         params = dict(self.model.named_parameters())
@@ -601,5 +687,6 @@ class Trainer:
             self.generator.set_state(torch.from_numpy(st["generator"]))
         else:
             self.generator.manual_seed(self.config.seed)
+        self._prefetch = None
         self.step = int(st["step"])
         self.max_recall = float(st["max_recall"])

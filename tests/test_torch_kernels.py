@@ -1074,3 +1074,159 @@ def test_cuda_evaluation_recaptures_after_restore(tmp_path):
     assert t.evaluator.graphed.stats["captures"] == 2
     t.init_state()
     assert t.evaluator.graphed.graph is None
+
+
+# the serving tier's two programs (serve.py) and --pipeline_dispatch's
+# prefetch (train/trainer.py) on the card
+
+
+def _serve_recommender(key: str):
+    """A Recommender on the card of a ``_graph_trainer`` model (lgn at
+    float32, d 32; a SAGE-family key at the flagship cut) and its dataset."""
+    from furusato_recommend_tpu_torch.serve import Recommender
+
+    t = _graph_trainer(False, key)
+    return Recommender(t.model, t.dataset, t.config, None, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["lgn", "textsage", "sasrec", "asage"])
+def test_cuda_serve_graph_refresh_replays_equal_eager(key):
+    """The constructor's refresh is the eager warm-up, the next captures,
+    every later one (new parameters written in place included) replays the
+    one capture; a replay held against an eager refresh of the same
+    parameters under ``chip_smoke.py::refresh_rule`` (phase 4's rule for
+    lgn, phase 9's for the SAGE family, sasrec's at rtol 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    cs = _chip_smoke()
+    rec = _serve_recommender(key)
+    assert rec.captured and rec.refresh_graph is None and rec.refresh_stats["captures"] == 0
+    cs.held_refresh(rec, key, key)
+    stats = rec.refresh_stats
+    assert stats["captures"] == 1 and stats["pool_mib"] is not None
+    replays = stats["replays"]
+    for _ in range(3):
+        rec.refresh()
+    assert stats["captures"] == 1 and stats["replays"] == replays + 3
+    moved = {k: 1.5 * p.detach().cpu().numpy() for k, p in rec.model.named_parameters()}
+    before = cs._embeddings(rec)
+    rec.refresh(moved)
+    assert stats["captures"] == 1 and not np.array_equal(cs._embeddings(rec), before)
+    cs.held_refresh(rec, key, key)
+    assert stats["captures"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [20, 200])
+def test_cuda_serve_graph_requests_replay_equal_eager(k):
+    """At B in {1, 8, 64, 512, 513}: the first request of a shape eager,
+    the second captured and replayed, each replay bit-equal to the eager
+    answer and to the kernel called on the request's users alone (the
+    padding rows leak nothing); the capture records one launch (the radix
+    select's at k = 200) and a replay counts it; the copy in and the replay
+    make no host sync under the sync debug mode's "error", and a whole
+    replayed request one (its copy out)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from furusato_recommend_tpu_torch.serve import request_tile
+
+    cs = _chip_smoke()
+    rec = _serve_recommender("lgn")
+    rng = np.random.default_rng(3)
+    mask = (rec._mask.indptr, rec._mask.indices)
+    for b in (1, 8, 64, 512, 513):
+        users = rng.choice(rec.n_users, size=b, replace=False)
+        with cs.eager_serving(rec):
+            want = rec.recommend(users, k=k)
+        rec.recommend(users, k=k)  # the shape's warm-up
+        st.launches = st.wide_launches = 0
+        got = rec.recommend(users, k=k)  # the capture (b = 8 shares b = 1's tile), then a replay
+        req = rec.requests[(request_tile(b), k)]
+        replays = req.stats["replays"]
+        assert req.graph is not None and req.launches == (1, int(k > st.MAX_K))
+        assert (st.launches, st.wide_launches) == (1, int(k > st.MAX_K))
+        direct = masked_topk(rec._user_emb, rec._item_emb, torch.from_numpy(users).cuda(), k, *mask)
+        for g, w, d in zip(got, want, (direct[1], direct[0])):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, d.cpu().numpy())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            req.ids.copy_(req.host_ids, non_blocking=True)
+            req.graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        again, syncs = _host_syncs(lambda: rec.recommend(users, k=k))
+        assert len(syncs) == 1, syncs
+        for g, w in zip(again, want):
+            np.testing.assert_array_equal(g, w)
+        assert req.stats["captures"] == 1 and req.stats["replays"] == replays + 1
+
+
+@pytest.mark.cuda
+def test_cuda_serve_graph_recaptures_after_a_replaced_buffer():
+    """A parameter replaced by another tensor (not written in place): the
+    next refresh sees it, drops the refresh graph and the request graphs and
+    runs eagerly with the new tensor; the one after captures anew, and its
+    replays read the new tensor (a write into it in place reaches them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    cs = _chip_smoke()
+    rec = _serve_recommender("lgn")
+    users = np.arange(64)
+    rec.refresh()
+    for _ in range(3):
+        rec.recommend(users, k=10)
+    assert rec.refresh_stats["captures"] == 1 and rec.requests[(64, 10)].graph is not None
+    old = cs._embeddings(rec)
+    rec.model.user_emb = torch.nn.Parameter(rec.model.user_emb.detach() * -1.0)
+    rec.refresh()
+    assert rec.refresh_graph is None and rec.requests == {}
+    eager = cs._embeddings(rec)
+    assert not np.allclose(eager, old)
+    rec.refresh()
+    assert rec.refresh_stats["captures"] == 2 and rec.refresh_graph is not None
+    np.testing.assert_allclose(cs._embeddings(rec), eager, rtol=2e-3, atol=1e-5)
+    with torch.no_grad():
+        rec.model.user_emb.mul_(2.0)
+    rec.refresh()
+    assert rec.refresh_stats["captures"] == 2
+    with cs.eager_serving(rec):
+        rec.refresh()
+        want = cs._embeddings(rec)
+    rec.refresh()
+    np.testing.assert_allclose(cs._embeddings(rec), want, rtol=2e-3, atol=1e-5)
+    assert not np.allclose(want, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_epochs_draw_the_synchronous_triplets():
+    """lgn with edge dropout (drawn inside each replayed step from the
+    trainer's generator), pipelined against synchronous from one seed over
+    3 epochs: after each, the generator states equal and the triplets drawn
+    ahead (on the trainer's draw stream) bit-equal to those the synchronous
+    trainer draws next (the
+    prefetch's generator state, set when it is taken, is the one the
+    replays read), the losses within rtol 1e-5 (the first 1e-6: the scatter
+    kernel's atomic adds sum in no fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    pipe = _graph_trainer(True)
+    sync = _graph_trainer(True, pipeline_dispatch=False)
+    assert pipe.pipeline and not sync.pipeline
+    for _ in range(3):
+        pipe.train_one_epoch()
+        sync.train_one_epoch()
+        assert pipe._draw_stream is not None and pipe._draw_stream != torch.cuda.current_stream()
+        assert torch.equal(pipe.generator.get_state(), sync.generator.get_state())
+        state = sync.generator.get_state()
+        want = sync.sample_epoch()
+        sync.generator.set_state(state)
+        got = pipe.prefetched
+        for a, b in zip((got.user, got.pos, got.neg, got.valid), (want.user, want.pos, want.neg, want.valid)):
+            assert torch.equal(a, b)
+        gl, wl = pipe.epoch_losses.cpu().numpy(), sync.epoch_losses.cpu().numpy()
+        np.testing.assert_allclose(gl[0], wl[0], rtol=1e-6)
+        np.testing.assert_allclose(gl, wl, rtol=1e-5)
+    assert pipe.step_graph.stats["captures"] == 1

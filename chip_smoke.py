@@ -415,8 +415,24 @@ Phases (any failure raises and exits non-zero):
                catalog (rule 3(b)), and sharded_embedding_lookup's rows
                (equal) and gradient (within 1e-5 + 1e-5 x the magnitudes
                summed into the element) against the plain gather and scatter
-               at 285,000 ids over the 10000-row table; then in one more
-               process a one-rank NCCL world runs every collective helper and
+               at 285,000 ids over the 10000-row table. textsage and lgn
+               (MESH_GRAPHED) train and evaluate by CUDA-graph replays on
+               every rank: a step two graphs (the grad part, the Adam step)
+               with the whole-table gather and the gradients' mean run
+               eagerly between them, an evaluation two graphs around the
+               candidates' exchange; after the path each rank holds
+               MESH_REPLAY_STEPS replayed steps against as many eager ones
+               from the same state under phase 21's two-step rule, a replayed
+               evaluation against an eager one under phase 7's
+               (evaluation_rule), counts from 0 two graph launches and the
+               scatter's launches a step, the same collectives as an eager
+               step, one masked_topk launch a tile of the replayed
+               evaluation, and times MESH_TIMED_STEPS steps each way (host ms
+               a step, 4 processes sharing one card over gloo) beside the
+               graphs' pool MiB; lgn-infonce and asage-ssl, whose losses
+               gather over data mid-step, stay eager on every rank; then in
+               one more process a one-rank NCCL world runs every collective
+               helper (the in-place mean and whole-table gather too) and
                those two checks once. Its samples/s are 4
                processes sharing one card through host-memory collectives:
                printed and so labelled, no scaling claim (a {"mesh": ...}
@@ -591,7 +607,7 @@ from furusato_recommend_tpu_torch.convert import (
 )
 from furusato_recommend_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from furusato_recommend_tpu_torch.core.distributed import initialize_multihost, shutdown
-from furusato_recommend_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, Mesh, make_mesh
+from furusato_recommend_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, Mesh, RowShards, make_mesh
 from furusato_recommend_tpu_torch.data import synthetic_dataset
 from furusato_recommend_tpu_torch.data.artifacts import (
     synthetic_edge_times,
@@ -831,6 +847,17 @@ MESH_CASES = {
                   "scatter_per_step": 6, "scatter_shapes": _MESH_TREES + _MESH_ATTR, "topk_shapes": ()},
 }
 MESH_SCATTER_SHAPES = tuple(sorted({x for case in MESH_CASES.values() for x in case["scatter_shapes"]}))
+# the cases a mesh captures on the card (core/graphs.py::captured): their steps
+# replay two graphs a step (the grad part, the Adam step) with the gather and
+# the gradients' mean run eagerly around them, their evaluations two graphs
+# with the candidates' exchange and the sums' reduction around them; the
+# data-axis InfoNCE cases stay eager. After the path, MESH_REPLAY_STEPS
+# replayed steps are held against as many eager ones from the same state
+# under phase 21's two-step rule for the key, a replayed evaluation against
+# an eager one under phase 7's (evaluation_rule), and MESH_TIMED_STEPS steps
+# each way are timed on the host
+MESH_GRAPHED = ("textsage", "lgn")
+MESH_REPLAY_STEPS, MESH_TIMED_STEPS = 2, 8
 MESH_TOPK_SHAPES = tuple(sorted({x for case in MESH_CASES.values() for x in case["topk_shapes"]}))
 # phase 20: the registry keys that no other phase drives, on the anchor20k
 # graph and features, in two families: the MF / LightGCN keys at phase 19's
@@ -4775,6 +4802,83 @@ def whole_moments(trainer: Trainer) -> dict:
     return out
 
 
+def _mesh_steps(trainer, snap: dict, batches, replays: bool) -> dict:
+    """``batches`` from ``snap`` by replays or by the eager parts: host ms a
+    step (the card synchronised before and after), and the launches, graph
+    launches and collectives the steps made (the counts set to 0 just before
+    them and read just after)."""
+    _reset(trainer, snap)
+    graph = trainer.step_graph
+    launches0, collectives0 = graph.stats["graph_launches"], trainer.mesh.collectives
+    st.launches = sc.launches = 0
+    with contextlib.nullcontext() if replays else eager_parts(trainer):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = trainer.train_epoch(batches)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    return {"host_ms": host_ms, "losses": losses.cpu().numpy(),
+            "scatter": sc.launches, "masked_topk": st.launches,
+            "graph_launches": graph.stats["graph_launches"] - launches0,
+            "collectives": trainer.mesh.collectives - collectives0, "params": whole_params(trainer)}
+
+
+def mesh_replays(trainer: Trainer, kind: str) -> dict:
+    """A captured case's replays on this rank, after its path (MESH_GRAPHED):
+    a replayed evaluation against an eager one from the same parameters
+    (evaluation_rule), its top-k launches; MESH_REPLAY_STEPS replayed steps
+    against as many eager ones from the same state (GRAPH_TWO_STEP_RULE),
+    each counted (graph launches, scatter launches, collectives); then
+    MESH_TIMED_STEPS steps each way, host ms a step."""
+    assert trainer.captured and trainer.step_graph is not None and trainer.step_graph.graph is not None, kind
+    ev, data = trainer.evaluator, trainer.eval_data
+    replays0 = ev.graphed.stats["replays"]
+    st.launches = 0
+    with trainer._whole():
+        got = ev(data)
+    eval_launches = st.launches
+    assert ev.graphed.stats["replays"] == replays0 + 1, ev.graphed.stats
+    with trainer._whole(), eager_evaluation(ev):
+        want = ev(data)
+    with trainer._whole():
+        rule = evaluation_rule(got, want, ev, data)
+    cfg = trainer.config
+    bs = cfg.bpr_batch_size
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 2)
+    n = MESH_REPLAY_STEPS + MESH_TIMED_STEPS
+    drawn = sample_bpr(gen, trainer.graph, n * bs, cfg.neg_candidates, edge_alias=trainer.edge_alias,
+                       neg_alias=trainer.neg_alias)
+    batches = [drawn.slice(i * bs, (i + 1) * bs) for i in range(n)]
+    snap = _snapshot(trainer)
+    held = batches[:MESH_REPLAY_STEPS]
+    replayed = _mesh_steps(trainer, snap, held, replays=True)
+    eager = _mesh_steps(trainer, snap, held, replays=False)
+    # phase 21's two-step rule: the first losses within GRAPH_FIRST_LOSS_RTOL,
+    # the second within 1e-4, the parameters under the key's rule
+    rl, el = replayed["losses"], eager["losses"]
+    assert abs(rl[0] - el[0]) <= GRAPH_FIRST_LOSS_RTOL * abs(el[0]), (kind, rl, el)
+    np.testing.assert_allclose(rl[1:], el[1:], rtol=1e-4)
+    _, lrs, share = GRAPH_TWO_STEP_RULE[kind]
+    steps_rule = _params_rule(replayed.pop("params"), eager.pop("params"), lrs * cfg.lr, share=share)
+    timed = {way: _mesh_steps(trainer, snap, batches[MESH_REPLAY_STEPS:], replays=way == "replays")
+             for way in ("replays", "eager")}
+    _reset(trainer, snap)  # the path's end state again: its parameters, moments and generator are checked
+    for facts in timed.values():
+        facts.pop("params")
+        facts["losses"] = facts["losses"].tolist()
+    sg = trainer.step_graph
+    return {"evaluation": {"rule": rule, "masked_topk": eval_launches, "tiles": int(data.users.shape[0]),
+                           "replays": ev.graphed.stats["replays"], "pool_mib": ev.graphed.stats["pool_mib"],
+                           "capture_ms": ev.graphed.stats["capture_ms"]},
+            "steps": {"rule": steps_rule, "losses": replayed["losses"].tolist(),
+                      "eager_losses": eager["losses"].tolist(),
+                      "replayed": {k: v for k, v in replayed.items() if k != "losses"},
+                      "eager": {k: v for k, v in eager.items() if k != "losses"}},
+            "timed": timed, "graphs_per_step": sg.graphs_per_step, "pool_mib": sg.stats["pool_mib"],
+            "captures": sg.stats["captures"], "capture_ms": sg.stats["capture_ms"],
+            "warmup_ms": sg.stats["warmup_ms"]}
+
+
 def mesh_rank() -> None:
     """One rank of phase 19's mesh, in its own process (argv: rank, then a
     JSON object of the phase's arguments; its device may name the rank, as
@@ -4797,6 +4901,10 @@ def mesh_rank() -> None:
                 ckpt = args["ckpt"].format(rank=rank) if kind == "textsage" else None
                 res = mesh_path(trainer, case["epochs"], ckpt) if case["epochs"] else {}
                 res["launch_shapes"] = {kernel: sorted(part) for kernel, part in shapes.items()}
+                res["captured"] = trainer.captured
+                res["step_graph"] = trainer.step_graph is not None
+                if kind in MESH_GRAPHED:
+                    res["replays"] = mesh_replays(trainer, kind)
                 np.savez(os.path.join(args["out"], f"{kind}_moments_{rank}.npz"), **whole_moments(trainer))
                 res["first_steps_losses"] = first["losses"]
                 res["first_steps_launches"] = first["launches"]
@@ -4827,8 +4935,22 @@ def nccl_one_rank() -> None:
         }
         g = x.clone()
         mesh.average([g])
+        flat = [b.data_ptr() for b in mesh._flat.values()]
+        mesh.average([g])
         mesh.barrier()
         checks["average"] = torch.equal(g, x)
+        checks["average_in_place"] = [b.data_ptr() for b in mesh._flat.values()] == flat and len(flat) == 1
+        # the whole-table gather into the rank's buffer, in place, and its read
+        owner = torch.nn.Module()
+        owner.table = torch.nn.Parameter(x.clone())
+        shards = RowShards(owner, mesh, ["table"], {"table": x.shape[0]})
+        shards.gather_whole()
+        ptr = shards.tables["table"].data_ptr()
+        shards.gather_whole()
+        with shards.read_whole():
+            read = owner.table.detach().clone()
+        checks["gather_whole"] = torch.equal(shards.tables["table"], x) and torch.equal(read, x)
+        checks["gather_in_place"] = shards.tables["table"].data_ptr() == ptr
         ops = mesh_ops_on_card(mesh, dev)  # raises where a result differs
         print(json.dumps({"backend": torch.distributed.get_backend(), "checks": checks, "ops": ops}))
     finally:
@@ -4913,6 +5035,35 @@ def launch_mesh(mesh, data_dir: str, out: str, backend: str, device: str) -> tup
     return [json.load(open(os.path.join(out, f"rank_{r}.json"))) for r in range(args["world"])], wall
 
 
+def _mesh_replays_line(kind: str, rp: dict, per_step: int) -> str:
+    """Checks a rank's ``mesh_replays`` facts: each evaluation after the
+    first a replay with one top-k launch a tile; a replayed step the step
+    graph's two launches, the scatter's per_step and the same collectives as
+    an eager step; returns its log text."""
+    ev, steps = rp["evaluation"], rp["steps"]
+    assert ev["masked_topk"] == ev["tiles"], (kind, ev)
+    assert ev["replays"] >= 2, (kind, ev)  # the path's second evaluation and this one
+    n, per = MESH_REPLAY_STEPS, rp["graphs_per_step"]
+    assert per == 2 and rp["captures"] == 1, (kind, rp["graphs_per_step"], rp["captures"])
+    rep, eag = steps["replayed"], steps["eager"]
+    assert rep["graph_launches"] == per * n and eag["graph_launches"] == 0, (kind, rep, eag)
+    assert rep["scatter"] == eag["scatter"] == per_step * n, (kind, rep, eag)
+    assert rep["masked_topk"] == eag["masked_topk"] == 0, (kind, rep, eag)
+    assert rep["collectives"] == eag["collectives"], (kind, rep, eag)
+    t_rep, t_eag = rp["timed"]["replays"], rp["timed"]["eager"]
+    assert t_rep["graph_launches"] == per * MESH_TIMED_STEPS, (kind, t_rep)
+    rule = steps["rule"]
+    return (f"{n} replayed steps against {n} eager from the same state: losses {steps['losses']} / "
+            f"{steps['eager_losses']}, parameters off {rule['off']} of {rule['total']} (max abs diff "
+            f"{rule['max_abs_diff']:.3g}); a replayed step {per} graph launches, {rep['scatter'] // n} scatter "
+            f"launches, {(rep['collectives'] - 1) / n:g} collectives (and the epoch's loss mean); a replayed "
+            f"evaluation against an eager one: {ev['rule']['ids_moved']} ids moved, metrics within "
+            f"{ev['rule']['max_rel']:.3g} relative, {ev['masked_topk']} masked_topk launches over {ev['tiles']} "
+            f"tiles; host ms a step, replays {t_rep['host_ms']:.3f} / eager {t_eag['host_ms']:.3f} "
+            f"({MESH_TIMED_STEPS} steps each); pools: steps {rp['pool_mib']:.1f} MiB, evaluation "
+            f"{ev['pool_mib']:.1f} MiB")
+
+
 def check_mesh(single: dict, ranks: list, out: str, data_dir: str, label: str) -> dict:
     """Every rank's runs against the one-process runs (module docstring,
     phase 19); logs a line a rank and case; {kind: facts}."""
@@ -4927,6 +5078,10 @@ def check_mesh(single: dict, ranks: list, out: str, data_dir: str, label: str) -
         for rank in ranks[1:]:
             for key in ("first_steps_losses",) + (("losses", "first", "last") if path else ()):
                 assert rank[kind][key] == head[key], f"{kind} rank {rank['rank']}: {key} differs from rank 0's"
+            if kind in MESH_GRAPHED:
+                for key in ("losses", "eager_losses"):
+                    assert rank[kind]["replays"]["steps"][key] == head["replays"]["steps"][key], \
+                        f"{kind} rank {rank['rank']}: the replays' {key} differ from rank 0's"
             for part in ("first", "moments") + (("params",) if path else ()):
                 a, b = (dict(np.load(os.path.join(out, f"{kind}_{part}_{r}.npz"))) for r in (0, rank["rank"]))
                 assert set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a), \
@@ -4973,6 +5128,12 @@ def check_mesh(single: dict, ranks: list, out: str, data_dir: str, label: str) -
                          f"over {steps} steps and 2 x {tiles} tiles")
             else:
                 row["launches"] = got["first_steps_launches"]
+            if kind in MESH_GRAPHED:
+                row["replays"] = rp = got["replays"]
+                line += "; " + _mesh_replays_line(kind, rp, per_step)
+            else:  # its loss gathers rows over data mid-program: eager on every rank
+                assert not got["captured"] and not got["step_graph"], (kind, got["captured"])
+                line += "; eager (its loss gathers over data mid-step)"
             per_rank.append(row)
             log(line + f"; row-sharded {got['memory']['names']}: {got['memory']['rank_params_mib']:.2f} MiB of "
                 f"parameters and {got['memory']['rank_moments_mib']:.2f} MiB of moments on this rank, "
@@ -4980,6 +5141,9 @@ def check_mesh(single: dict, ranks: list, out: str, data_dir: str, label: str) -
         facts[kind] = {"single": {k: want[k] for k in ("losses", "first", "last", "launches", "steps",
                                                         "samples_per_s", "epoch_s", "memory") if k in want},
                        "ranks": per_rank}
+        if kind in MESH_GRAPHED:
+            facts[kind]["replayed_step_host_ms"] = {
+                way: [row["replays"]["timed"][way]["host_ms"] for row in per_rank] for way in ("replays", "eager")}
     return facts
 
 
@@ -5013,6 +5177,14 @@ def mesh_20k(data_dir: str, dev, root: str, smi: str) -> dict:
             log(f"mesh-20k {kind}: {facts[kind]['ranks'][0]['samples_per_s']:.0f} samples/s on each of 4 "
                 f"processes sharing one card through host-memory collectives (one process alone: "
                 f"{single[kind]['samples_per_s']:.0f}); no scaling claim")
+    for kind in MESH_GRAPHED:
+        rows = [row["replays"] for row in facts[kind]["ranks"]]
+        rep, eag = facts[kind]["replayed_step_host_ms"]["replays"], facts[kind]["replayed_step_host_ms"]["eager"]
+        log(f"mesh-20k {kind}, 4 processes sharing one card over gloo: a step {float(np.median(rep)):.3f} ms on "
+            f"the host by replays (2 graphs, the collectives between them), {float(np.median(eag)):.3f} eager "
+            f"(median of the ranks; each {min(rep):.3f}-{max(rep):.3f} / {min(eag):.3f}-{max(eag):.3f}); step "
+            f"pool {rows[0]['pool_mib']:.1f} MiB, evaluation pool {rows[0]['evaluation']['pool_mib']:.1f} MiB, "
+            f"capture {rows[0]['capture_ms']:.1f} ms")
 
     # the kernels launched at the case's shapes, which phase 3 held against
     # their plain versions

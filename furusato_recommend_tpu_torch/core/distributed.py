@@ -12,7 +12,10 @@ The backend follows from the device each rank asked for
 (``default_backend``): NCCL where every rank has a card of its own, gloo on
 the CPU and where the ranks of a host share one named card. gloo also takes
 CUDA tensors (it stages them through host memory), which is how several
-ranks share one card: NCCL refuses two ranks on one device.
+ranks share one card: NCCL refuses two ranks on one device. Either way a
+mesh's collectives run eagerly between its CUDA graphs (the captured parts
+of a step or an evaluation hold device work alone: ``core/mesh.py``), so
+the port never needs NCCL's capture of a collective.
 
 Randomness (the JAX package's two regimes): the trainer's sampling stream is
 shared, seeded alike on every rank, so that a mesh draws what one process
@@ -73,7 +76,8 @@ def default_backend(device=None) -> str:
     one rank (torchrun's ``LOCAL_WORLD_SIZE``), since they all share it and
     NCCL refuses two ranks on one card; NCCL otherwise (``cuda``, one card a
     rank). Every rank asks for the same device, so every rank picks the same
-    backend."""
+    backend. Both run a mesh's collectives eagerly between its captured
+    parts (``core/mesh.py``), never inside a CUDA graph."""
     dev = torch.device("cpu" if device is None else device)
     if dev.type != "cuda":
         return "gloo"

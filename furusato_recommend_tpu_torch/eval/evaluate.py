@@ -25,12 +25,17 @@ results reach the host in one copy, in ``__call__``.
 
 Under a (data, model) mesh every rank propagates (``--inference sample``
 splits its seeds over ``data``), then each tile's users are split over
-``data`` and scored through ``eval/sharded.py::sharded_masked_topk`` against
-the rank's block of the catalog (one ``masked_topk`` launch a tile on every
-rank); every rank runs every tile, so the collectives line up. The metric
-sums and the coverage are summed over the data group only (the model ranks
-hold the same numbers), then every rank takes rank 0's, so that every rank
-decides alike on them; the top-K ids are gathered over ``data``.
+``data`` and scored against the rank's block of the catalog
+(``eval/sharded.py::local_topk``, one ``masked_topk`` launch a tile on every
+rank: ``local_candidates``); every tile's candidates are exchanged over
+``model`` in one collective, then each tile is merged (``merge_topk``) and
+summed (``merged``). The metric sums and the coverage are summed over the
+data group only (the model ranks hold the same numbers), then every rank
+takes rank 0's, so that every rank decides alike on them; the top-K ids are
+gathered over ``data`` (``_reduce``). On a CUDA device the two parts are
+replayed as graphs and the collectives run eagerly around them
+(``eval/graphed.py``), except under ``--inference sample``, whose gathers
+sit inside the propagation.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..core.mesh import DATA_AXIS
+from ..core.mesh import DATA_AXIS, MODEL_AXIS
 from ..data.dataset import Dataset
 from ..data.graph import BipartiteGraph
 from ..models.base import PairwiseModel
@@ -50,7 +55,7 @@ from ..ops.csr_search import csr_gather_padded
 from ..ops.streaming_topk import masked_topk
 from .graphed import EvalGraph, captured
 from .metrics import batch_auc_sum, batch_metric_sums, unexpectedness_from_pmi
-from .sharded import item_block, local_mask, sharded_masked_topk
+from .sharded import item_block, local_mask, local_topk, merge_topk
 
 __all__ = ["EvalData", "build_eval_data", "Evaluator", "MASK_SENTINEL", "COLD_START_UID"]
 
@@ -196,13 +201,14 @@ class Evaluator:
     def evaluate(self, data: EvalData):
         """(sums, cold_sums, coverage counts [nk], top-K ids [nb, B, Kmax]) as
         device tensors; cold_sums is None unless config.cold_start. Where
-        ``captured`` holds (one CUDA device, no mesh) the first call runs
-        eagerly and every later one replays the captured evaluation
-        (``eval/graphed.py``); the tensors are then the graph's outputs,
-        which the next evaluation overwrites."""
-        if self.graphed is None and captured(self.mesh, self.device):
-            self.graphed = EvalGraph(self)
-        if self.graphed is not None:
+        ``captured`` holds (a CUDA device; under a mesh, unless --inference
+        sample) the first call runs eagerly and every later one replays the
+        captured evaluation (``eval/graphed.py``); the tensors are then the
+        graph's outputs, which the next evaluation overwrites (a mesh's
+        reduced sums and ids are made anew)."""
+        if captured(self.mesh, self.device, self.config, self.model, evaluation=True):
+            if self.graphed is None:
+                self.graphed = EvalGraph(self)
             return self.graphed.run(data)
         self.seed()
         return self.program(data)
@@ -210,52 +216,89 @@ class Evaluator:
     def program(self, data: EvalData):
         """One evaluation as ``evaluate`` returns it, with --inference
         sample's generator where it stands: what the captured graph
-        records."""
+        records. Under a mesh: ``local_candidates``, the exchange of every
+        tile's candidates over ``model``, ``merged`` and ``_reduce`` in a
+        row (the captured evaluation replays the first and the third as
+        graphs and runs the collectives eagerly between them)."""
+        if self.mesh is not None:
+            cands = self.mesh.all_reduce(self.local_candidates(data), MODEL_AXIS)
+            return self._reduce(*self.merged(data, cands))
         with torch.profiler.record_function("evaluate"):
-            user_emb, item_emb = self._embeddings()
-            user_emb = user_emb.detach().float().contiguous()
-            item_emb = item_emb.detach().float().contiguous()
+            user_emb, item_emb = self._float_embeddings()
             g = self.graph
-            m = g.m_items
-            nk = len(self.topks)
-            sums = cold_sums = None
-            cov = torch.zeros((nk, m + 1), dtype=torch.bool, device=user_emb.device)
+            acc = self._new_sums(user_emb.device)
             topks = []
-            tiles = zip(data.users, data.valid)
-            if self.mesh is not None:
-                tiles = self._data_share(data)
-                block = item_block(item_emb, self.mesh)
-                if self._local_mask is None:
-                    self._local_mask = local_mask(g.user_pos, m, self.mesh, m)
-            for users, valid in tiles:
-                if self.mesh is not None:
-                    _, topk = sharded_masked_topk(user_emb, block, users, self.kmax, self._local_mask, self.mesh,
-                                                  sigmoid=self.model.score_sigmoid)
-                else:
-                    _, topk = masked_topk(
-                        user_emb, item_emb, users, self.kmax, g.user_pos.indptr, g.user_pos.indices,
-                        sigmoid=self.model.score_sigmoid,
-                    )
+            for users, valid in zip(data.users, data.valid):
+                _, topk = masked_topk(
+                    user_emb, item_emb, users, self.kmax, g.user_pos.indptr, g.user_pos.indices,
+                    sigmoid=self.model.score_sigmoid,
+                )
                 topks.append(topk)
                 scores = (
                     self._scores(user_emb, item_emb, users) if self.config.compute_auc else None
                 )
-                b = self._sums(topk, users, valid, data, scores)
-                sums = b if sums is None else {k: sums[k] + v for k, v in b.items()}
-                if self.config.cold_start:
-                    cb = self._sums(topk, users, valid & (users < COLD_START_UID), data, scores)
-                    cold_sums = cb if cold_sums is None else {
-                        k: cold_sums[k] + v for k, v in cb.items()
-                    }
-                for i, k in enumerate(self.topks):
-                    # padding rows write to the extra column m, dropped below
-                    ids = torch.where(valid[:, None], topk[:, :k], m)
-                    cov[i].index_fill_(0, ids.reshape(-1), True)
-            topks = torch.stack(topks)
-            if self.mesh is not None:
-                return self._reduce(sums, cold_sums, cov, topks)
-            cov_counts = cov[:, :m].sum(dim=1)
-            return sums, cold_sums, cov_counts, topks
+                self._add_tile(acc, topk, users, valid, data, scores)
+            return acc["sums"], acc["cold"], acc["cov"][:, : g.m_items].sum(dim=1), torch.stack(topks)
+
+    def _float_embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        user_emb, item_emb = self._embeddings()
+        return user_emb.detach().float().contiguous(), item_emb.detach().float().contiguous()
+
+    def _new_sums(self, device) -> dict:
+        """The evaluation's accumulators: the metric sums and cold-start sums
+        (made at the first tile) and the coverage bitmap [nk, M + 1]."""
+        cov = torch.zeros((len(self.topks), self.graph.m_items + 1), dtype=torch.bool, device=device)
+        return {"sums": None, "cold": None, "cov": cov}
+
+    def _add_tile(self, acc: dict, topk, users, valid, data: EvalData, scores) -> None:
+        """One tile's metric sums, cold-start sums and coverage added to
+        ``acc``."""
+        b = self._sums(topk, users, valid, data, scores)
+        acc["sums"] = b if acc["sums"] is None else {k: acc["sums"][k] + v for k, v in b.items()}
+        if self.config.cold_start:
+            cb = self._sums(topk, users, valid & (users < COLD_START_UID), data, scores)
+            acc["cold"] = cb if acc["cold"] is None else {k: acc["cold"][k] + v for k, v in cb.items()}
+        m = self.graph.m_items
+        for i, k in enumerate(self.topks):
+            # padding rows write to the extra column m, dropped by the count
+            ids = torch.where(valid[:, None], topk[:, :k], m)
+            acc["cov"][i].index_fill_(0, ids.reshape(-1), True)
+
+    def local_candidates(self, data: EvalData) -> torch.Tensor:
+        """A mesh's first part: the propagation, this model rank's block of
+        the catalog and every tile's local top k over it (``local_topk``, one
+        kernel launch a tile) for this data rank's users. Returns the
+        candidates as [S, 2, nb, B / data, kl] float64 (values, global ids;
+        both exact in float64), this model rank's slot filled and the others
+        zero: their sum over ``model`` is every rank's (the exchange)."""
+        with torch.profiler.record_function("evaluate"):
+            user_emb, item_emb = self._float_embeddings()
+            mesh, g = self.mesh, self.graph
+            block = item_block(item_emb, mesh)
+            if self._local_mask is None:
+                self._local_mask = local_mask(g.user_pos, g.m_items, mesh, g.m_items)
+            vals, ids = zip(*(local_topk(user_emb, block, users, self.kmax, self._local_mask, mesh,
+                                         sigmoid=self.model.score_sigmoid)
+                              for users, _ in self._data_share(data)))
+            vals, ids = torch.stack(vals), torch.stack(ids)
+            cands = vals.new_zeros((mesh.model, 2) + tuple(vals.shape), dtype=torch.float64)
+            cands[mesh.index(MODEL_AXIS), 0] = vals
+            cands[mesh.index(MODEL_AXIS), 1] = ids
+            return cands
+
+    def merged(self, data: EvalData, cands: torch.Tensor):
+        """A mesh's second part, on the exchanged candidates: every tile's
+        merge (``merge_topk``), metric sums, cold-start sums and coverage:
+        (sums, cold_sums, coverage bitmap [nk, M + 1], top-K ids [nb, B /
+        data, Kmax]) of this data rank, for ``_reduce``."""
+        with torch.profiler.record_function("evaluate"):
+            acc = self._new_sums(cands.device)
+            topks = []
+            for t, (users, valid) in enumerate(self._data_share(data)):
+                _, topk = merge_topk(cands[:, 0, t].float(), cands[:, 1, t].long(), self.kmax)
+                topks.append(topk)
+                self._add_tile(acc, topk, users, valid, data, None)
+            return acc["sums"], acc["cold"], acc["cov"], torch.stack(topks)
 
     def _data_share(self, data: EvalData):
         """This data rank's rows of each tile (the same number of tiles on

@@ -28,10 +28,26 @@ stream, so the capture records them; ``ops/streaming_topk.py`` counts a
 launch under capture apart (``captured``), and a replay counts the launches
 its capture recorded (``count_replay``).
 
+Under a (data, model) mesh the evaluation is two graphs in one pool, with
+the collectives run eagerly around them (``Evaluator.program``):
+
+- (a) the whole-table gather, before the evaluation (``Trainer.test``'s
+  ``RowShards.whole``), into the buffers the graphs read;
+- (b) ``Evaluator.local_candidates``: the propagation, the rank's block of
+  the catalog and every tile's local ``masked_topk`` (the kernel inside the
+  graph), into one static candidate buffer;
+- (c) the exchange of every tile's candidates over ``model``, one
+  collective, in place;
+- (d) ``Evaluator.merged``: every tile's merge, the metric and cold-start
+  sums and the coverage bitmap;
+- (e) ``Evaluator._reduce``, eager: the sums over ``data``, rank 0's on
+  every rank, the top-K ids gathered over ``data``.
+
 Which evaluations are captured (``core/graphs.py::captured``, the training
-steps' rule): on one process (no mesh), on a CUDA device; the mesh (``eval/sharded.py``, whose gloo collectives a
-capture cannot record) and the CPU evaluate eagerly. A failed capture or
-replay raises; nothing falls back to the eager evaluation.
+steps' rule): on a CUDA device, on one process or on a mesh, except a mesh's
+``--inference sample`` (its gathers over ``data`` sit inside the
+propagation); the CPU evaluates eagerly, the same parts in the same order. A
+failed capture or replay raises; nothing falls back to the eager evaluation.
 
 The graph reads the model's parameters and the tensors it holds, the
 evaluation graph and the ``EvalData`` where they lie. It is dropped and
@@ -51,6 +67,7 @@ from typing import Optional
 import torch
 
 from ..core.graphs import captured, new_stats, on_capture_stream, pool_measured
+from ..core.mesh import MODEL_AXIS
 from ..ops import streaming_topk
 
 __all__ = ["EvalGraph", "captured"]
@@ -64,6 +81,8 @@ class EvalGraph:
     def __init__(self, evaluator):
         self.evaluator = weakref.proxy(evaluator)  # the Evaluator holds this
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.merge_graph: Optional[torch.cuda.CUDAGraph] = None  # a mesh's second graph, (d)
+        self.cands: Optional[torch.Tensor] = None  # a mesh's candidate buffer, (b) -> (c) -> (d)
         self.out = None  # the graph's outputs, which each replay overwrites
         self.inputs = None  # (data, config, graph, model) of the warm-up and capture
         self.warm = False  # the eager warm-up has run since the last drop
@@ -74,7 +93,7 @@ class EvalGraph:
     def drop(self) -> None:
         """Forget the captured graph and release its memory pool; the next
         evaluation warms up and the one after it captures anew."""
-        self.graph = self.out = self.inputs = None
+        self.graph = self.merge_graph = self.cands = self.out = self.inputs = None
         self.warm = False
 
     def run(self, data):
@@ -102,24 +121,41 @@ class EvalGraph:
         self.graph.replay()
         streaming_topk.count_replay(*self.launches)
         self.stats["replays"] += 1
-        return self.out
+        if self.merge_graph is None:
+            return self.out
+        ev.mesh.all_reduce(self.cands, MODEL_AXIS)
+        self.merge_graph.replay()
+        return ev._reduce(*self.out)
 
     def _capture(self, data) -> None:
         """Capture ``Evaluator.program`` on ``data`` into the graph's own
-        pool (executing nothing)."""
+        pool (executing nothing); under a mesh its two parts, (b) and (d),
+        each a graph in that pool."""
         ev = self.evaluator
-        with pool_measured(ev.device, self.stats):
+        pool = torch.cuda.graph_pool_handle()
+        capture_ms = instantiate_ms = 0.0
+
+        def record(fn, sampled=False):
+            nonlocal capture_ms, instantiate_ms
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            ev.seed()
-            if ev.sampled:  # the trees of --inference sample
+            if sampled:  # the trees of --inference sample
                 graph.register_generator_state(ev.generator)
-            before = (streaming_topk.captured, streaming_topk.wide_captured)
             t0 = time.perf_counter()
-            with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
-                out = ev.program(data)
+            with torch.cuda.graph(graph, pool=pool, stream=self.stream, capture_error_mode="thread_local"):
+                out = fn()
             t1 = time.perf_counter()
             graph.instantiate()
-            t2 = time.perf_counter()
+            capture_ms += 1e3 * (t1 - t0)
+            instantiate_ms += 1e3 * (time.perf_counter() - t1)
+            return graph, out
+
+        with pool_measured(ev.device, self.stats):
+            ev.seed()
+            before = (streaming_topk.captured, streaming_topk.wide_captured)
+            if ev.mesh is None:
+                self.graph, self.out = record(lambda: ev.program(data), ev.sampled)
+            else:
+                self.graph, self.cands = record(lambda: ev.local_candidates(data))
+                self.merge_graph, self.out = record(lambda: ev.merged(data, self.cands))
         self.launches = (streaming_topk.captured - before[0], streaming_topk.wide_captured - before[1])
-        self.graph, self.out = graph, out
-        self.stats.update(capture_ms=1e3 * (t1 - t0), instantiate_ms=1e3 * (t2 - t1))
+        self.stats.update(capture_ms=capture_ms, instantiate_ms=instantiate_ms)

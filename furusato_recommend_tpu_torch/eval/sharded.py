@@ -20,6 +20,13 @@ A shard with fewer than k items returns all of them; the union then still
 holds the global top k (k <= the padded catalog), so the answer is the
 single-card one. (JAX takes ``lax.top_k`` per shard; the port takes its
 kernel.)
+
+``sharded_masked_topk`` is the two halves around the exchange:
+``local_topk`` (steps 1 and 2's offset: device work alone) and
+``merge_topk`` (step 3). The mesh's evaluation runs the local half for every
+tile, exchanges every tile's candidates in one collective, then merges every
+tile (``eval/evaluate.py``), so that both halves can be captured as CUDA
+graphs with the exchange run eagerly between them (``eval/graphed.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from ..core.mesh import MODEL_AXIS, Mesh
 from ..data.graph import CSR
 from ..ops.streaming_topk import masked_topk
 
-__all__ = ["sharded_masked_topk", "local_mask", "item_block"]
+__all__ = ["sharded_masked_topk", "local_topk", "merge_topk", "local_mask", "item_block"]
 
 
 def _block_rows(m: int, shards: int) -> int:
@@ -72,6 +79,36 @@ def local_mask(pos: CSR, m: int, mesh: Mesh, m_valid: int) -> Tuple[torch.Tensor
     return new_ptr.to(torch.int32), cols[order].to(torch.int32)
 
 
+def local_topk(
+    user_emb: torch.Tensor,
+    item_block_emb: torch.Tensor,
+    users: torch.Tensor,
+    k: int,
+    mask: Tuple[torch.Tensor, torch.Tensor],
+    mesh: Mesh,
+    sigmoid: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The local half: (values float32 [B, kl], global item ids int64 [B,
+    kl]) of ``users`` over this model rank's block, kl = min(k, block rows),
+    through one ``masked_topk`` launch; no collective."""
+    per = item_block_emb.shape[0]
+    if not 1 <= k <= per * mesh.model:
+        raise ValueError(f"k={k} must be in [1, {per * mesh.model}] (the padded catalog)")
+    v, i = masked_topk(user_emb, item_block_emb, users, min(k, per), *mask, sigmoid=sigmoid)
+    return v, i + mesh.index(MODEL_AXIS) * per
+
+
+def merge_topk(vg: torch.Tensor, ig: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The merge half: (values [B, k], ids [B, k]) from every model rank's
+    candidates [S, B, kl] (values, global ids) in shard order, by value
+    descending then global id ascending (a stable sort of the union)."""
+    b = vg.shape[1]
+    v_all = vg.permute(1, 0, 2).reshape(b, -1)  # [B, S kl], shard order
+    i_all = ig.permute(1, 0, 2).reshape(b, -1)
+    mv, order = torch.sort(v_all, dim=1, descending=True, stable=True)
+    return mv[:, :k].contiguous(), torch.gather(i_all, 1, order[:, :k])
+
+
 def sharded_masked_topk(
     user_emb: torch.Tensor,
     item_block_emb: torch.Tensor,
@@ -88,16 +125,5 @@ def sharded_masked_topk(
     item_block_emb: this model rank's block of the padded catalog
     (``item_block``); mask: its local CSR (``local_mask``); the catalog
     rows past ``m_valid`` score -1024 through it. k <= S x block rows."""
-    per = item_block_emb.shape[0]
-    if not 1 <= k <= per * mesh.model:
-        raise ValueError(f"k={k} must be in [1, {per * mesh.model}] (the padded catalog)")
-    kl = min(k, per)
-    v, i = masked_topk(user_emb, item_block_emb, users, kl, *mask, sigmoid=sigmoid)
-    i = i + mesh.index(MODEL_AXIS) * per
-    vg = mesh.all_gather(v, MODEL_AXIS)  # [S, B, kl]
-    ig = mesh.all_gather(i, MODEL_AXIS)
-    b = users.shape[0]
-    v_all = vg.permute(1, 0, 2).reshape(b, -1)  # [B, S kl], shard order
-    i_all = ig.permute(1, 0, 2).reshape(b, -1)
-    mv, order = torch.sort(v_all, dim=1, descending=True, stable=True)
-    return mv[:, :k].contiguous(), torch.gather(i_all, 1, order[:, :k])
+    v, i = local_topk(user_emb, item_block_emb, users, k, mask, mesh, sigmoid)
+    return merge_topk(mesh.all_gather(v, MODEL_AXIS), mesh.all_gather(i, MODEL_AXIS), k)

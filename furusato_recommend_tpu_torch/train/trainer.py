@@ -48,24 +48,30 @@ Under a (data, model) mesh (``config.mesh``, over an initialised
 ``torch.distributed`` world of data x model processes; ``train/sharding.py``)
 every rank draws the same epoch and the same randomness from the shared
 generator and computes each step on its data rank's rows, the large tables
-row-sharded over ``model`` (gathered for the forward); before every Adam
-step (the cadences' pullbacks and both Adams under T > 1 included) a
-block's gradient is averaged over ``data`` and a replicated parameter's over
-the world, so the mesh trains as one process does.
+row-sharded over ``model`` (gathered eagerly into the rank's whole-table
+buffers before the parts that read them); before every Adam step (the
+cadences' pullbacks and both Adams under T > 1 included) a block's gradient
+is averaged over ``data`` and a replicated parameter's over the world, so the
+mesh trains as one process does. Each part of a step is split at those
+collectives (``_split``; ``train/graphed.py::segments``).
 ``save`` gathers the blocks on every rank and the primary writes whole
 tables and moments, which a single-process ``restore`` reads; ``restore``
-and ``init_state`` shard again. (Deviation: the JAX package raises where a
-model axis spans processes; every rank of the port is a process.) Only the
-primary prints and logs.
+and ``init_state`` shard again (new blocks: the graphs and the whole-table
+buffers are dropped with the old ones). (Deviation: the JAX package raises
+where a model axis spans processes; every rank of the port is a process.)
+Only the primary prints and logs.
 
 The JAX package's one-dispatch epoch (``_build_train_epoch``'s scan) has its
-counterpart on the card for every model of the registry under every cadence
-without a mesh: each part of the cadence's step (the step; the
-linearization, and under T > 1 the super-step's end) is captured once as a
-CUDA graph and replayed (``train/graphed.py``), with the fused Adams. So is
-its one-program evaluation (``eval/graphed.py``): from the second ``test``
-on, a replay. The mesh, the CPU and steps given presampled ``draws`` run
-eagerly. The JAX package's compile cache has no counterpart here.
+counterpart on the card for every model of the registry under every cadence,
+with or without a mesh: each part of the cadence's step (the step; the
+linearization, and under T > 1 the super-step's end) is captured once as
+CUDA graphs and replayed (``train/graphed.py``), with the fused Adams; under
+a mesh each part is two graphs at most, its collectives run eagerly between
+them. So is its one-program evaluation (``eval/graphed.py``): from the second
+``test`` on, a replay. The CPU, a mesh's data-axis InfoNCE losses
+(``core/graphs.py::gathers_over_data``) and steps given presampled ``draws``
+run the same parts eagerly. The JAX package's compile cache has no
+counterpart here.
 
 ``pipeline_dispatch`` (on by default; off under ``dask``, as in the JAX
 trainer) draws the next epoch's triplets once an epoch's steps are enqueued
@@ -116,8 +122,8 @@ from ..sampling.weights import (
     popularity_positive_edge_weights,
     sample_prob_edge_weights,
 )
-from .graphed import StepGraph, captured
-from .sharding import adam, adam_step, build_kernels_once, loss_backward
+from .graphed import StepGraph, captured, run_eagerly
+from .sharding import adam, build_kernels_once, loss_backward
 
 __all__ = ["OPTIMIZER_PREFIXES", "Trainer"]
 
@@ -293,8 +299,8 @@ class Trainer:
 
         #: the parameters the initial tables depend on (cached cadences)
         self.feature_names = sorted(model.initial_param_keys()) if self.cadence != "fresh" else []
-        #: the fresh step is replayed as a CUDA graph (``train/graphed.py``)
-        self.captured = captured(self.mesh, self.device)
+        #: the cadence's parts are replayed as CUDA graphs (``train/graphed.py``)
+        self.captured = captured(self.mesh, self.device, config, model)
         self.step_graph: Optional[StepGraph] = None
         self._new_optimizers()
         #: the sampler's stream (and edge dropout's); saved and restored with
@@ -312,8 +318,14 @@ class Trainer:
             self.step_graph = StepGraph(self)
 
     def _whole(self):
-        """Inside, the model reads its row-sharded tables whole (a mesh)."""
+        """Inside, the model reads its row-sharded tables whole (a mesh):
+        gathered on entry."""
         return self.shards.whole() if self.shards is not None else contextlib.nullcontext()
+
+    def _read_whole(self):
+        """Inside, the model reads its row-sharded tables whole (a mesh) from
+        the buffers the last gather filled: no collective."""
+        return self.shards.read_whole() if self.shards is not None else contextlib.nullcontext()
 
     def _own(self, name: str, grad):
         """This rank's rows of a whole-table gradient (or moment) of
@@ -359,15 +371,39 @@ class Trainer:
         self._prefetch = None
         self.step = 0
 
+    def _split(self, part: str) -> tuple:
+        """A part of the cadence's step (``train/graphed.py::PARTS``) split at
+        the mesh's collectives: (whether it reads the row-sharded tables
+        whole, its device work before the Adam step, the attribute of the
+        Adam it ends with or None). Under a mesh the tables are gathered
+        before the work and the gradients averaged between the work and the
+        Adam step, eagerly; a captured trainer replays the work and the step
+        as graphs around them."""
+        return {
+            "train_step": (True, self._step_grads, "optimizer"),
+            "_linearize": (True, self._linearize_tables, None),
+            "_cached_step": (True, self._cached_grads, "optimizer"),
+            "_inner_step": (True, self._inner_grads, "optimizer"),
+            "_outer_step": (False, self._outer_grads, "opt_feat"),
+        }[part]
+
+    def _run_part(self, part: str, *args):
+        """One eager call of ``part``: the gather (a mesh), its work, the
+        gradients' mean (a mesh) and its Adam step, the segments a captured
+        trainer replays (``train/graphed.py::run_eagerly``); the work's
+        result."""
+        return run_eagerly(self, part, *args)
+
     def train_step(self, batch: BPRBatch, draws: Optional[dict] = None) -> torch.Tensor:
         """One forward, backward and Adam step on ``batch`` with the tables
         computed inside the loss (R = 1); the loss stays on the device. The
         trainer's generator draws the step's randomness (edge dropout under
         config.dropout; the SAGE family's trees, unless ``draws`` gives them,
         and dropout). Under a mesh, this data rank's share of the loss."""
-        loss = loss_backward(self.model, self.graph, batch, self.generator, draws, self.shards)
-        adam_step(self.optimizer, self.shards)
-        return loss
+        return self._run_part("train_step", batch, draws)
+
+    def _step_grads(self, batch: BPRBatch, draws: Optional[dict] = None) -> torch.Tensor:
+        return loss_backward(self.model, self.graph, batch, self.generator, draws, self.shards)
 
     def _direct_step(self, batch: BPRBatch, draws: Optional[dict], lin: _CachedTables):
         """Zero the gradients (the leaves' in place), then forward and
@@ -382,7 +418,10 @@ class Trainer:
         """The linearization at the top of a block (a super-step, or an
         epoch at R = 0 and under dask); the first call also makes the
         super-step's sums."""
-        with self._whole():
+        return self._run_part("_linearize")
+
+    def _linearize_tables(self) -> _CachedTables:
+        with self._read_whole():
             self.cached.linearize(self.model)
         if self.cadence == "super" and self.cached.acc_p is None:
             named = dict(self.model.named_parameters())
@@ -395,6 +434,9 @@ class Trainer:
         """A step of R >= 2, R = 0 or dask: the direct step on the leaves, the
         pullback of their gradient added to the feature parameters' direct
         gradients (and to the projections' sums), one Adam step."""
+        return self._run_part("_cached_step", batch, draws)
+
+    def _cached_grads(self, batch: BPRBatch, draws: Optional[dict] = None) -> torch.Tensor:
         lin = self.cached
         loss, g_t = self._direct_step(batch, draws, lin)
         g_feat, g_proj = lin.pullback(g_t)
@@ -407,13 +449,15 @@ class Trainer:
                 p.grad.add_(g)
         for side, g in g_proj.items():
             lin.acc[side].add_(g)
-        adam_step(self.optimizer, self.shards)
         return loss
 
     def _inner_step(self, batch: BPRBatch, draws: Optional[dict] = None) -> torch.Tensor:
         """A step inside a super-step (T > 1): the direct step, its table and
         feature-parameter gradients added to the super-step's sums, one step
         of the non-feature parameters; the feature parameters stay put."""
+        return self._run_part("_inner_step", batch, draws)
+
+    def _inner_grads(self, batch: BPRBatch, draws: Optional[dict] = None) -> torch.Tensor:
         lin = self.cached
         loss, g_t = self._direct_step(batch, draws, lin)
         for a, g in zip(lin.acc_t, g_t):
@@ -423,19 +467,20 @@ class Trainer:
             if named[k].grad is not None:
                 a.add_(named[k].grad)
         lin.count.add_(1.0)
-        adam_step(self.optimizer, self.shards)
         return loss
 
     def _outer_step(self) -> None:
         """A super-step's end: one step of the feature parameters on the
         pullback of the mean table gradient plus the mean of their direct
         gradients (the means over the super-step's steps); the sums zeroed."""
+        self._run_part("_outer_step")
+
+    def _outer_grads(self) -> None:
         lin = self.cached
         named = dict(self.model.named_parameters())
         g_feat, _ = lin.pullback(tuple(a / lin.count for a in lin.acc_t))
         for k, g in g_feat.items():  # opt_feat reads these alone
             named[k].grad = self._own(k, g) + lin.acc_p[k] / lin.count
-        adam_step(self.opt_feat, self.shards)
         for a in (*lin.acc_t, *lin.acc_p.values(), lin.count):
             a.zero_()
 

@@ -172,10 +172,19 @@ def test_auc_mask_matches_jax_with_padded_rows(key):
 
 
 def test_the_rule_captures_only_cuda_without_a_mesh():
+    """Only CUDA is captured; a mesh's evaluation too (its collectives run
+    between its two graphs), but not under --inference sample, whose
+    gathers over data sit inside the propagation."""
     mesh = Mesh(2, 1, 0, torch.device("cpu"), {})
     assert captured(None, "cuda") and captured(None, torch.device("cuda", 1))
     assert not captured(None, "cpu") and not captured(None, torch.device("cpu"))
-    assert not captured(mesh, "cuda") and not captured(mesh, "cpu")
+    assert captured(mesh, "cuda") and not captured(mesh, "cpu")
+    ds = tds.synthetic_dataset(n_users=40, m_items=30, avg_degree=4, seed=0)
+    cfg = Config(model="textsage", latent_dim=8)
+    model = build_model("textsage", cfg, ds.graph, features=synthetic_features(ds, cfg, seed=0))
+    assert captured(mesh, "cuda", cfg, model, evaluation=True)
+    assert not captured(mesh, "cuda", cfg.replace(inference="sample"), model, evaluation=True)
+    assert captured(None, "cuda", cfg.replace(inference="sample"), model, evaluation=True)
 
 
 @pytest.mark.parametrize("inference", ["all", "sample"])

@@ -474,7 +474,7 @@ def test_a_step_graph_does_not_keep_its_trainer():
         gc.enable()
 
 
-_MESH = object()  # any mesh: a configuration with one is never captured
+_MESH = object()  # any mesh: its steps are captured in parts on a CUDA device
 
 
 @pytest.mark.parametrize("cadence,mesh,device,want", [
@@ -483,18 +483,20 @@ _MESH = object()  # any mesh: a configuration with one is never captured
     ("fresh", None, torch.device("cuda", 1), True),
     ("fresh", None, "cpu", False),
     ("fresh", None, torch.device("cpu"), False),
-    ("fresh", _MESH, "cuda", False),
+    ("fresh", _MESH, "cuda", True),
     ("relin", None, "cuda", True),
     ("super", None, "cuda", True),
     ("ooc", None, "cuda", True),
     ("relin", _MESH, "cpu", False),
     ("relin", None, "cpu", False),
-    ("super", _MESH, "cuda", False),
-    ("ooc", _MESH, "cuda", False),
+    ("super", _MESH, "cuda", True),
+    ("ooc", _MESH, "cuda", True),
 ])
 def test_the_rule_picks_the_captured_configurations(cadence, mesh, device, want):
-    """Every cadence is captured alike: the rule reads the mesh and the
-    device alone."""
+    """Every cadence is captured alike, with or without a mesh (whose
+    collectives run between the captured parts): the rule reads the device,
+    and under a mesh whether the loss gathers over data
+    (``tests/test_torch_mesh_graphed.py``)."""
     assert cadence in PARTS
     assert captured(mesh, device) is want
 

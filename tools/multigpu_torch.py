@@ -9,11 +9,17 @@ evaluation, 2 epochs and an evaluation on the anchor20k graph and features,
 written in the reference's layout under a temporary directory), made on one
 card in one process, then on a (2, 1) mesh of 2 cards and a (2, 2) mesh of 4
 cards where the machine has them, each rank a process on card ``cuda:{rank}``
-with NCCL collectives. Every mesh is held against the one-card run under
-phase 19's rules (``chip_smoke.check_mesh``), and the samples/s of each run
-are printed beside the cards' name and power limit: here each rank has a
-card of its own, so the samples/s do say how the mesh scales. Raises on a
-machine with fewer than 2 cards. The last line is one JSON object.
+with NCCL collectives. Every rank trains and evaluates by CUDA-graph
+replays, as one process does: each step two graphs (the grad part, the Adam
+step) with the whole-table gather and the gradients' mean run eagerly over
+NCCL between them, each evaluation two graphs around the candidates'
+exchange (``train/graphed.py``, ``eval/graphed.py``). Every mesh is held
+against the one-card run under phase 19's rules (``chip_smoke.check_mesh``:
+its replays against eager steps and evaluations too), and the replayed
+samples/s of each run are printed beside the cards' name and power limit:
+here each rank has a card of its own, so the samples/s do say how the mesh
+scales. Raises on a machine with fewer than 2 cards. The last line is one
+JSON object.
 """
 
 from __future__ import annotations
@@ -67,8 +73,13 @@ def main() -> int:
         for kind in ("textsage", "lgn"):
             rates = {n: (run[kind]["samples_per_s"] if n == "1" else run[kind]["ranks"][0]["samples_per_s"])
                      for n, run in out["runs"].items()}
-            print(f"{kind} samples/s by cards (NCCL, one rank a card): "
+            print(f"{kind} replayed samples/s by cards (NCCL, one rank a card; {smi[0]}): "
                   + ", ".join(f"{n}: {r:.0f}" for n, r in rates.items()), flush=True)
+            for n, run in out["runs"].items():
+                if n != "1":
+                    host = run[kind]["replayed_step_host_ms"]
+                    print(f"{kind} {n} cards: host ms a step by replays {host['replays']}, eager {host['eager']}",
+                          flush=True)
     print(json.dumps(out))
     return 0
 
